@@ -1,0 +1,407 @@
+"""Query model + local execution engine of the port.
+
+A groupby query (``(filename, groupby_col_list, agg_list,
+where_terms_list)`` with ``aggregate``) runs per shard as
+
+    storage decode -> host factorize -> H2D -> where-mask -> partial
+    tables (one-hot contraction kernels) -> D2H -> collect by key value
+
+Results travel as :class:`ResultPayload`, the same pickled dict and
+``PAYLOAD_FORMAT`` as ``bqueryd_tpu``, so payloads of either package merge
+with the other's host merge:
+
+* ``kind="partials"``: per-group partial tables keyed by actual key values;
+  mean partials carry (sum, count);
+* ``kind="rows"``: the ``aggregate=False`` raw-rows path;
+* ``kind="empty"``: shard pruned by ``shard_can_match``.
+
+This slice serves the mergeable ops (sum, mean, count, count_na, min,
+max).  The distinct ops, basket expansion and latency-aware host routing
+wait for later slices: the engine raises ``NotImplementedError`` for them
+and never routes a query around the device.
+"""
+
+import os
+import pickle
+from dataclasses import dataclass, field
+
+import numpy as np
+
+PAYLOAD_FORMAT = "bqueryd-tpu-result-1"
+
+#: the bquery aggregation surface plus min/max
+AGG_OPS = (
+    "sum",
+    "mean",
+    "count",
+    "count_na",
+    "count_distinct",
+    "sorted_count_distinct",
+    "min",
+    "max",
+)
+
+#: ops whose partials merge with elementwise +/min/max
+MERGEABLE_OPS = ("sum", "mean", "count", "count_na", "min", "max")
+
+#: multi-key composite spaces at most this large aggregate directly over the
+#: full (K1*...*Kn)-slot space instead of paying an O(n) compaction pass
+_DENSE_COMBO_CAP = 1 << 16
+
+
+def extremum_fill(dtype, kind):
+    """Identity fill for per-group ``min``/``max`` partials of ``dtype``:
+    'min' fills with the dtype's maximum so any real value wins (and vice
+    versa); bool uses its and/or identities, floats +/-inf."""
+    dtype = np.dtype(dtype)
+    if dtype.kind == "f":
+        return np.inf if kind == "min" else -np.inf
+    if dtype == np.bool_:
+        return kind == "min"
+    info = np.iinfo(dtype)
+    return info.max if kind == "min" else info.min
+
+
+def normalize_agg_list(agg_list):
+    """Agg shorthand normalization: ``"col"`` -> ``[col, 'sum', col]``;
+    2-item ``[in, op]`` -> ``[in, op, in]``."""
+    normalized = []
+    for agg in agg_list:
+        if isinstance(agg, str):
+            normalized.append([agg, "sum", agg])
+        elif len(agg) == 2:
+            agg = list(agg)
+            normalized.append([agg[0], agg[1], agg[0]])
+        else:
+            normalized.append(list(agg))
+    return normalized
+
+
+@dataclass
+class GroupByQuery:
+    groupby_cols: list
+    agg_list: list          # [[in_col, op, out_col], ...]
+    where_terms: list = field(default_factory=list)
+    aggregate: bool = True
+    expand_filter_column: str = None
+
+    def __post_init__(self):
+        self.agg_list = normalize_agg_list(self.agg_list)
+
+    @property
+    def in_cols(self):
+        return [a[0] for a in self.agg_list]
+
+    @property
+    def ops(self):
+        return tuple(a[1] for a in self.agg_list)
+
+    @property
+    def out_cols(self):
+        return [a[2] for a in self.agg_list]
+
+
+class ResultPayload(dict):
+    """Wire form of a shard/worker result; a plain dict for pickling."""
+
+    @classmethod
+    def empty(cls):
+        return cls(format=PAYLOAD_FORMAT, kind="empty")
+
+    @classmethod
+    def rows(cls, columns, order):
+        return cls(format=PAYLOAD_FORMAT, kind="rows", columns=columns,
+                   order=order)
+
+    @classmethod
+    def partials(cls, key_cols, keys, rows, aggs, ops, out_cols,
+                 value_kinds=None):
+        return cls(
+            format=PAYLOAD_FORMAT,
+            kind="partials",
+            key_cols=list(key_cols),
+            keys=keys,        # {col: np.ndarray[G] of key values}
+            rows=rows,        # np.int64[G]
+            aggs=aggs,        # list of {partname: np.ndarray[G]}
+            ops=list(ops),
+            out_cols=list(out_cols),
+            # storage kind per agg (None | 'datetime' | 'uint64' | 'uint')
+            value_kinds=(
+                [None] * len(list(out_cols))
+                if value_kinds is None
+                else list(value_kinds)
+            ),
+        )
+
+    def to_bytes(self):
+        return pickle.dumps(dict(self), protocol=4)
+
+    @classmethod
+    def from_bytes(cls, buf):
+        if not buf:
+            return cls.empty()
+        obj = pickle.loads(buf)
+        if obj.get("format") != PAYLOAD_FORMAT:
+            raise ValueError("unknown result payload format")
+        return cls(obj)
+
+
+def _value_kind_for(table, col):
+    """Storage-kind tag carried per agg in the payload: 'datetime' restores
+    datetime64 at finalize; 'uint64' re-views mod-2^64 sums as unsigned;
+    'uint' marks narrower unsigned storage for the cross-shard merge."""
+    if table.kind(col) == "datetime":
+        return "datetime"
+    dt = table.physical_dtype(col)
+    if dt == np.dtype(np.uint64):
+        return "uint64"
+    if dt.kind == "u":
+        return "uint"
+    return None
+
+
+class QueryEngine:
+    """Executes queries against local ctable shards on one torch device
+    (``cuda`` unless the caller passes ``device="cpu"``)."""
+
+    def __init__(self, device=None):
+        from bqueryd_tpu_torch import resolve_device
+        from bqueryd_tpu_torch.utils.cache import BytesCappedCache
+
+        self.device = resolve_device(device)
+        #: the kernel route of the last execute_local ("matmul", "scatter"
+        #: or "sort")
+        self.last_effective_strategy = None
+        # per-(table, column) factorization cache, keyed on the shard's
+        # meta identity so activation invalidates naturally
+        self._factorize_cache = BytesCappedCache(
+            int(
+                os.environ.get(
+                    "BQUERYD_TPU_FACTORIZE_CACHE_BYTES", 256 * 1024**2
+                )
+            )
+        )
+
+    def clear_caches(self):
+        self._factorize_cache.clear()
+
+    # -- key handling ------------------------------------------------------
+    def _key_codes(self, table, col):
+        """Physical dense codes + key-value array for one groupby column."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.storage.ctable import table_cache_key
+
+        kind = table.kind(col)
+        if kind == "dict":
+            codes = table.column_raw(col)
+            values = np.asarray(table.dictionary(col), dtype=object)
+            return codes, values
+        cache_key = (table_cache_key(table), col)
+        hit = self._factorize_cache.get(cache_key)
+        if hit is not None:
+            return hit
+        loader = getattr(table, "factor_cache_load", None)
+        if loader is not None:
+            disk = loader(col)
+            if disk is not None:
+                codes, uniques = disk
+                if kind == "datetime" and uniques.dtype.kind != "M":
+                    uniques = uniques.view("datetime64[ns]")
+                self._factorize_cache.put(
+                    cache_key, (codes, uniques),
+                    nbytes=codes.nbytes + uniques.nbytes,
+                )
+                return codes, uniques
+        # stamp BEFORE the read: a shard rewritten mid-factorize leaves a
+        # stale sidecar (future miss), never a poisoned one
+        stamper = getattr(table, "factor_stamp", None)
+        stamp = stamper(col) if stamper is not None else None
+        codes, uniques = ops.factorize(table.column_raw(col))
+        if kind == "datetime":
+            uniques = uniques.view("datetime64[ns]")
+        # NaN/NaT uniques are nulls, not values: poison their codes to -1
+        null_at = None
+        if kind == "datetime":
+            null_at = np.flatnonzero(np.isnat(uniques))
+        elif np.issubdtype(np.asarray(uniques).dtype, np.floating):
+            null_at = np.flatnonzero(np.isnan(uniques))
+        if null_at is not None and len(null_at):
+            codes = np.where(np.isin(codes, null_at), np.int64(-1), codes)
+        storer = getattr(table, "factor_cache_store", None)
+        if storer is not None and stamp is not None:
+            storer(col, codes, uniques, stamp=stamp)
+        self._factorize_cache.put(
+            cache_key, (codes, uniques), nbytes=codes.nbytes + uniques.nbytes
+        )
+        return codes, uniques
+
+    def _group_codes(self, table, groupby_cols):
+        """Dense group codes of the key tuple, the per-group combos and how
+        to decode them: ``(dense, combos, n_groups, cards, key_values,
+        combo_cols)``."""
+        from bqueryd_tpu_torch import ops
+
+        per_key = [self._key_codes(table, c) for c in groupby_cols]
+        code_arrays = [np.asarray(c) for c, _ in per_key]
+        key_values = [v for _, v in per_key]
+        cards = [len(v) for v in key_values]
+        combo_cols = None  # set by the CompositeOverflow fallback only
+        # null keys (code -1) stay -1: every kernel drops negative codes
+        if len(code_arrays) == 1:
+            dense = code_arrays[0]
+            combos = np.arange(cards[0], dtype=np.int64)
+            n_groups = max(cards[0], 1)
+        elif ops.total_cardinality(cards) >= ops.MAX_COMPOSITE:
+            # radix packing would wrap: factorize the key TUPLES instead
+            stacked = np.stack(
+                [np.asarray(c, dtype=np.int64) for c in code_arrays], axis=1
+            )
+            valid = (stacked >= 0).all(axis=1)
+            view = np.ascontiguousarray(stacked[valid]).view(
+                [("", np.int64)] * stacked.shape[1]
+            ).ravel()
+            uniq, inv = np.unique(view, return_inverse=True)
+            dense = np.full(len(stacked), np.int64(-1))
+            dense[valid] = inv
+            combo_cols = uniq.view(np.int64).reshape(
+                len(uniq), stacked.shape[1]
+            )
+            combos = np.arange(len(uniq), dtype=np.int64)
+            n_groups = max(len(uniq), 1)
+        else:
+            packed = ops.pack_codes(code_arrays, cards)
+            total_card = ops.total_cardinality(cards)
+            if total_card <= _DENSE_COMBO_CAP:
+                # small composite space: aggregate over it directly; empty
+                # combos drop at collect via rows == 0
+                dense = packed
+                combos = np.arange(total_card, dtype=np.int64)
+                n_groups = max(total_card, 1)
+            else:
+                # compact the sparse composite space, then evict the null
+                # composite (-1) so it stays invalid downstream
+                dense, combos = ops.factorize(packed)
+                null_at = np.flatnonzero(combos == -1)
+                if len(null_at):
+                    j = int(null_at[0])
+                    remap = np.empty(len(combos), dtype=np.int64)
+                    remap[:j] = np.arange(j)
+                    remap[j] = -1
+                    remap[j + 1:] = np.arange(j, len(combos) - 1)
+                    dense = remap[dense]
+                    combos = np.delete(combos, j)
+                n_groups = max(len(combos), 1)
+        return dense, combos, n_groups, cards, key_values, combo_cols
+
+    # -- execution ---------------------------------------------------------
+    def execute_local(self, table, query: GroupByQuery,
+                      strategy=None) -> ResultPayload:
+        """Run one query on one shard.  ``strategy`` is the kernel-route
+        hint of :func:`ops.partial_tables` ("matmul", "scatter", "sort",
+        "matmul!" or None)."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.ops.groupby import as_tensor
+
+        self.last_effective_strategy = None
+        if query.expand_filter_column:
+            raise NotImplementedError(
+                "basket expansion (expand_filter_column) is not ported yet"
+            )
+        if strategy not in (None, "auto", "matmul", "scatter", "sort",
+                            "matmul!"):
+            raise NotImplementedError(
+                f"kernel strategy {strategy!r} is not ported yet"
+            )
+        if query.aggregate:
+            for in_col, op in zip(query.in_cols, query.ops):
+                if op not in ops.MERGEABLE_OPS:
+                    raise NotImplementedError(
+                        f"aggregation {op!r} is not ported yet"
+                    )
+                if op in ("sum", "mean") and table.kind(in_col) == "datetime":
+                    raise ValueError(
+                        f"{op!r} is not defined for datetime "
+                        f"column {in_col!r}"
+                    )
+
+        if query.where_terms and not ops.shard_can_match(
+            table, query.where_terms
+        ):
+            return ResultPayload.empty()
+        mask = ops.build_mask(table, query.where_terms, self.device)
+        if not query.aggregate:
+            return self._raw_rows(table, query, mask)
+
+        (dense, combos, n_groups, cards, key_values,
+         combo_cols) = self._group_codes(table, query.groupby_cols)
+
+        # the bucketed group count keeps padded groups zero-row; they are
+        # sliced off after the fetch
+        n_prog = ops.program_bucket(n_groups)
+        codes = as_tensor(dense.astype(np.int32), self.device)
+        if query.agg_list:
+            measures = tuple(table.column_raw(c) for c in query.in_cols)
+            sentinels = tuple(
+                np.iinfo(np.int64).min
+                if table.kind(c) == "datetime" else None
+                for c in query.in_cols
+            )
+            kernel_strategy = None if strategy == "auto" else strategy
+            self.last_effective_strategy = ops.kernel_route(
+                kernel_strategy, measures, query.ops, len(dense), n_prog
+            )
+            partials = ops.tree_to_numpy(ops.partial_tables(
+                codes, measures, query.ops, n_prog, mask, null_sentinels=sentinels,
+                strategy=kernel_strategy,
+            ))
+            rows = partials["rows"][:n_groups]
+            agg_parts = [
+                {k: v[:n_groups] for k, v in part.items()}
+                for part in partials["aggs"]
+            ]
+        else:
+            # rows still needed to drop empty groups
+            rows = ops.partial_tables(
+                codes, (), (), n_prog, mask
+            )["rows"].cpu().numpy()[:n_groups]
+            agg_parts = []
+
+        present = rows > 0
+        combos_present = combos[present]
+        if len(query.groupby_cols) == 1:
+            key_codes = [combos_present]
+        elif combo_cols is not None:
+            key_codes = [
+                combo_cols[combos_present, ci]
+                for ci in range(combo_cols.shape[1])
+            ]
+        else:
+            key_codes = ops.unpack_codes(combos_present, cards)
+        keys = {
+            col: np.asarray(values)[np.asarray(codes_g, dtype=np.int64)]
+            for col, codes_g, values in zip(
+                query.groupby_cols, key_codes, key_values
+            )
+        }
+        return ResultPayload.partials(
+            key_cols=query.groupby_cols,
+            keys=keys,
+            rows=rows[present],
+            aggs=[{k: v[present] for k, v in part.items()}
+                  for part in agg_parts],
+            ops=query.ops,
+            out_cols=query.out_cols,
+            value_kinds=[_value_kind_for(table, c) for c in query.in_cols],
+        )
+
+    def _raw_rows(self, table, query, mask):
+        column_list = list(query.groupby_cols) + list(query.in_cols)
+        seen = set()
+        column_list = [c for c in column_list
+                       if not (c in seen or seen.add(c))]
+        idx = None if mask is None else np.flatnonzero(mask.cpu().numpy())
+        columns = {}
+        for col in column_list:
+            values = table.column(col)
+            columns[col] = values if idx is None else values[idx]
+        return ResultPayload.rows(columns, column_list)

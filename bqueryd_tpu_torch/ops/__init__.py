@@ -1,0 +1,51 @@
+"""The port's columnar kernels: host factorize, device filter masks, and the
+groupby partial tables whose contraction runs on the CUDA kernels of
+:mod:`bqueryd_tpu_torch.ops.onehot`."""
+
+from bqueryd_tpu_torch.ops.factorize import (
+    MAX_COMPOSITE,
+    CompositeOverflow,
+    factorize,
+    pack_codes,
+    total_cardinality,
+    unpack_codes,
+)
+from bqueryd_tpu_torch.ops.groupby import (
+    AGG_OPS,
+    MERGEABLE_OPS,
+    combine_partials,
+    finalize,
+    kernel_route,
+    partial_tables,
+    program_bucket,
+    tree_to_numpy,
+)
+from bqueryd_tpu_torch.ops.predicates import (
+    WHERE_OPS,
+    build_mask,
+    shard_can_match,
+    term_mask,
+    translate_value,
+)
+
+__all__ = [
+    "CompositeOverflow",
+    "MAX_COMPOSITE",
+    "factorize",
+    "pack_codes",
+    "unpack_codes",
+    "total_cardinality",
+    "AGG_OPS",
+    "MERGEABLE_OPS",
+    "combine_partials",
+    "finalize",
+    "kernel_route",
+    "partial_tables",
+    "program_bucket",
+    "tree_to_numpy",
+    "WHERE_OPS",
+    "build_mask",
+    "shard_can_match",
+    "term_mask",
+    "translate_value",
+]

@@ -1,0 +1,164 @@
+"""where_terms: filter terms -> boolean row masks on the device, with shard
+pruning.
+
+The port of ``bqueryd_tpu/ops/predicates.py``: a filter is a list of
+``(column, op, value)`` terms AND-ed together.  Ops: ==, !=, <, <=, >, >=,
+in, not in.  Masks are torch bool tensors on the engine's device and stay
+there: the groupby kernels consume them without a host round-trip.
+
+Value translation happens on the host against the table's dictionaries:
+
+* dict columns compare by code; a value absent from the dictionary maps to
+  code -2, which yields all-false for ==/in and all-true for !=/not-in
+  (codes are always >= -1);
+* datetime columns compare as int64 nanoseconds.
+
+A Python scalar compares in the column's own dtype (a float32 column
+against ``5.0`` compares in float32), as in JAX and NumPy 2.
+
+:func:`shard_can_match` is the host-side precheck: column min/max stats and
+dictionary membership decide whether a shard can hold any matching row
+before anything is decoded or uploaded.
+"""
+
+import numpy as np
+import torch
+
+from bqueryd_tpu_torch.ops.groupby import as_tensor
+
+WHERE_OPS = ("==", "!=", "<", "<=", ">", ">=", "in", "not in")
+
+
+def _to_ns(value):
+    """Nanoseconds since the epoch of a datetime-like value (a
+    ``pandas.Timestamp``, ``np.datetime64``, ``datetime`` or ISO string),
+    without importing pandas."""
+    ns = getattr(value, "value", None)  # pandas.Timestamp
+    if isinstance(ns, (int, np.integer)) and not isinstance(value, np.generic):
+        return int(ns)
+    return int(np.datetime64(value, "ns").astype(np.int64))
+
+
+def translate_value(table, column, value, op="=="):
+    """Translate a user-facing term value into physical column space.
+
+    Range ops on dict columns are rejected: dictionary codes are in
+    first-seen order, so ``<``/``>`` over codes would compare ingestion
+    order, not values."""
+    if isinstance(value, (set, frozenset)):
+        value = list(value)
+    kind = table.kind(column)
+    if kind == "dict":
+        if op in ("<", "<=", ">", ">="):
+            raise ValueError(
+                f"range op {op!r} is not supported on dictionary-encoded "
+                f"column {column!r} (codes are unordered)"
+            )
+        lookup = table.dict_lookup(column)
+        if isinstance(value, (list, tuple)):
+            return [lookup.get(str(v), -2) for v in value]
+        return lookup.get(str(value), -2)
+    if kind == "datetime":
+        if isinstance(value, (list, tuple)):
+            return [_to_ns(v) for v in value]
+        return _to_ns(value)
+    return value
+
+
+def _member_tensor(values, value):
+    """The ``in`` list as a tensor in the promoted dtype of both sides."""
+    members = torch.as_tensor(np.asarray(value), device=values.device)
+    common = torch.promote_types(values.dtype, members.dtype)
+    return values.to(common), members.to(common)
+
+
+def term_mask(values, op, value):
+    """Boolean mask for one term over a physical value tensor (or a NumPy
+    array, for the unsigned columns torch cannot compare)."""
+    if op == "==":
+        return values == value
+    if op == "!=":
+        return values != value
+    if op == "<":
+        return values < value
+    if op == "<=":
+        return values <= value
+    if op == ">":
+        return values > value
+    if op == ">=":
+        return values >= value
+    if op in ("in", "not in"):
+        if isinstance(values, np.ndarray):
+            hit = np.isin(values, np.asarray(value))
+        else:
+            hit = torch.isin(*_member_tensor(values, value))
+        return hit if op == "in" else ~hit
+    raise ValueError(f"unsupported where op {op!r}")
+
+
+def build_mask(table, where_terms_list, device):
+    """AND together all terms into one bool tensor on ``device``, or return
+    None for an empty term list (no filtering)."""
+    if not where_terms_list:
+        return None
+    mask = None
+    for column, op, value in where_terms_list:
+        phys = translate_value(table, column, value, op)
+        raw = np.ascontiguousarray(table.column_raw(column))
+        if raw.dtype.kind == "u" and raw.dtype.itemsize > 1:
+            # torch has no comparisons for uint16/32/64: compare on the host
+            m = torch.from_numpy(term_mask(raw, op, phys)).to(device)
+        else:
+            m = term_mask(as_tensor(raw, device), op, phys)
+        mask = m if mask is None else (mask & m)
+    return mask
+
+
+def shard_can_match(table, where_terms_list):
+    """Host-side pruning: False only if NO row of this shard can satisfy the
+    conjunction.  Uses column min/max stats (numeric/datetime) and
+    dictionary membership (dict columns); unknown columns conservatively
+    match."""
+    for term in where_terms_list or []:
+        column, op, value = term
+        if column not in table:
+            continue
+        try:
+            kind = table.kind(column)
+            if kind == "dict":
+                phys = translate_value(table, column, value, op)
+                if op == "==" and phys == -2:
+                    return False
+                if op == "in" and isinstance(phys, list) and all(
+                    p == -2 for p in phys
+                ):
+                    return False
+                continue
+            stats = table.col_stats(column)
+            if stats is None:
+                continue
+            lo, hi = stats
+            if kind == "datetime":
+                value_phys = translate_value(table, column, value, op)
+            else:
+                value_phys = value
+            if op == "==" and not (
+                isinstance(value_phys, (list, tuple))
+            ) and (value_phys < lo or value_phys > hi):
+                return False
+            if op == ">" and hi <= value_phys:
+                return False
+            if op == ">=" and hi < value_phys:
+                return False
+            if op == "<" and lo >= value_phys:
+                return False
+            if op == "<=" and lo > value_phys:
+                return False
+            if op == "in" and isinstance(value_phys, (list, tuple)) and all(
+                v < lo or v > hi for v in value_phys
+            ):
+                return False
+        except TypeError:
+            # value not comparable with stats: pruning is best-effort
+            continue
+    return True

@@ -1,0 +1,81 @@
+"""Byte-capped caches shared by the storage and engine layers (a copy of
+``bqueryd_tpu/utils/cache.py`` without the working-set eviction hooks)."""
+
+import threading
+
+
+class BytesCappedCache:
+    """Dict-shaped cache with a byte budget and LRU eviction.
+
+    Entries evict least-recently-used-first, one at a time, until the new
+    entry fits; an entry larger than the whole budget is rejected instead
+    of being inserted into a permanently over-budget cache.  ``get``
+    refreshes recency.  Thread-safe.
+    """
+
+    def __init__(self, max_bytes, sizeof=lambda v: v.nbytes):
+        self.max_bytes = int(max_bytes)
+        self._sizeof = sizeof
+        self._data = {}      # insertion/recency-ordered (dict is ordered)
+        self._sizes = {}     # key -> accounted bytes
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0   # entries dropped to make room (monotonic)
+        self.rejected = 0    # oversize entries refused outright (monotonic)
+
+    def get(self, key):
+        with self._lock:
+            if key in self._data:
+                # refresh recency: move to the MRU end
+                value = self._data.pop(key)
+                self._data[key] = value
+                self.hits += 1
+                return value
+            self.misses += 1
+            return None
+
+    def put(self, key, value, nbytes=None):
+        size = int(self._sizeof(value) if nbytes is None else nbytes)
+        with self._lock:
+            if key in self._data:
+                return
+            if size > self.max_bytes:
+                self.rejected += 1
+                return
+            while self._bytes + size > self.max_bytes and self._data:
+                old, _ = next(iter(self._data.items()))
+                self._data.pop(old)
+                self._bytes -= self._sizes.pop(old)
+                self.evictions += 1
+            self._data[key] = value
+            self._sizes[key] = size
+            self._bytes += size
+
+    def clear(self):
+        with self._lock:
+            self._data.clear()
+            self._sizes.clear()
+            self._bytes = 0
+
+    def stats(self):
+        """JSON-safe counters snapshot."""
+        with self._lock:
+            return {
+                "entries": len(self._data),
+                "bytes": self._bytes,
+                "max_bytes": self.max_bytes,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "rejected": self.rejected,
+            }
+
+    def __len__(self):
+        with self._lock:
+            return len(self._data)
+
+    def __contains__(self, key):
+        with self._lock:
+            return key in self._data
