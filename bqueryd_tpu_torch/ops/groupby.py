@@ -462,8 +462,13 @@ def _partial_tables_mm(codes, ms, ops, n_groups, mask, sentinels, hicard):
         else:  # min / max
             plans.append((op, op, m, present_row, null))
 
-    stacked = torch.stack(rows, 0).contiguous()
+    # one write of the rows into [R, padded_width(n)]: every row starts
+    # 16-byte aligned, as the kernels' TMA and 16-byte loads need
     n_rows = len(rows)
+    n = codes.shape[0]
+    stacked = torch.empty(n_rows, onehot.padded_width(n),
+                          dtype=torch.bfloat16, device=dev)[:, :n]
+    torch.stack(rows, 0, out=stacked)
     if hicard:
         out = onehot.onehot_rows_dot_hicard(folded, stacked, n_rows, n_groups)
         # zero-extend the uint32 totals: one block of int64 sums
