@@ -77,6 +77,29 @@ def normalize_agg_list(agg_list):
     return normalized
 
 
+def freeze_value(value):
+    """Canonical, hashable, collision-free form of a query parameter
+    (repr() is ambiguous for numpy arrays, which truncate their repr)."""
+    import hashlib
+
+    if isinstance(value, np.ndarray):
+        if value.dtype == object:
+            # tobytes() of an object array is its pointers: freeze the
+            # contained values instead
+            return ("ndarray-obj", value.shape,
+                    tuple(freeze_value(v) for v in value.ravel().tolist()))
+        return ("ndarray", value.dtype.str, value.shape,
+                hashlib.sha1(value.tobytes()).hexdigest())
+    if isinstance(value, (list, tuple)):
+        return ("seq", tuple(freeze_value(v) for v in value))
+    if isinstance(value, (set, frozenset)):
+        return ("set", tuple(sorted((freeze_value(v) for v in value),
+                                    key=repr)))
+    if isinstance(value, np.generic):
+        return value.item()
+    return value
+
+
 @dataclass
 class GroupByQuery:
     groupby_cols: list
@@ -84,6 +107,16 @@ class GroupByQuery:
     where_terms: list = field(default_factory=list)
     aggregate: bool = True
     expand_filter_column: str = None
+
+    def signature(self):
+        """Hashable identity of the query (cache key component)."""
+        return (
+            tuple(self.groupby_cols),
+            freeze_value(self.agg_list),
+            freeze_value(self.where_terms or []),
+            bool(self.aggregate),
+            self.expand_filter_column,
+        )
 
     def __post_init__(self):
         self.agg_list = normalize_agg_list(self.agg_list)

@@ -33,7 +33,7 @@ are contiguous; both start 16-byte aligned.  :func:`_base_plan` and
 Each wrapper takes its plain version only because its tensors lie on the
 CPU; on a CUDA tensor it launches a kernel branch or raises.
 ``<wrapper>.launches`` counts kernel launches and nothing else;
-:data:`LAUNCHES` splits them by (kernel, branch, n_rows, n_groups).
+:data:`LAUNCHES` splits them by (kernel, branch, n_rows, n_groups, n).
 """
 
 import collections
@@ -102,7 +102,7 @@ _HICARD_CLUSTER_CHOICES = (2, 4, 8)
 #: "global" hicard branch grid size cap (grid-stride loop beyond it)
 _HICARD_MAX_BLOCKS = _SMS * 16
 
-#: launches per (kernel, branch, n_rows, n_groups)
+#: launches per (kernel, branch, n_rows, n_groups, n)
 LAUNCHES = collections.Counter()
 
 BasePlan = collections.namedtuple(
@@ -236,9 +236,10 @@ def _launch_error(name, rc):
     return RuntimeError(f"{name} launch failed: cudaError_t {rc}")
 
 
-def _count(wrapper, branch, n_rows, n_groups):
+def _count(wrapper, branch, n_rows, n_groups, n):
     wrapper.launches += 1
-    LAUNCHES[(wrapper.__name__, branch, int(n_rows), int(n_groups))] += 1
+    LAUNCHES[(wrapper.__name__, branch, int(n_rows), int(n_groups),
+              int(n))] += 1
 
 
 def _base_tiling(n_rows, g_pad):
@@ -364,7 +365,7 @@ def _launch_base(codes, rows, n_rows, n_groups, plan):
             )
     if rc != 0:
         raise _launch_error(f"onehot_rows_dot ({plan.branch})", rc)
-    _count(onehot_rows_dot, plan.branch, n_rows, n_groups)
+    _count(onehot_rows_dot, plan.branch, n_rows, n_groups, n)
     return out
 
 
@@ -471,7 +472,7 @@ def _launch_hicard(codes, rows, n_rows, n_groups, plan):
             )
     if rc != 0:
         raise _launch_error(f"onehot_rows_dot_hicard ({plan.branch})", rc)
-    _count(onehot_rows_dot_hicard, plan.branch, n_rows, n_groups)
+    _count(onehot_rows_dot_hicard, plan.branch, n_rows, n_groups, n)
     return out.view(torch.uint32)
 
 

@@ -4,8 +4,8 @@ The port's own copy of ``bqueryd_tpu/storage/ctable.py`` with the same
 on-disk format, so either package reads what the other writes.  pandas is
 imported only by the DataFrame entry points (``append_dataframe``,
 ``fromdataframe``, ``todataframe``); :meth:`ctable.append` writes a mapping
-of numpy arrays without it.  The chunk-view, composite-cache and prefetch
-helpers of the JAX package wait for the slices that use them.
+of numpy arrays without it.  The chunk views of the JAX package wait for
+the chunk-pruning slice.
 
 Format notes:
 
@@ -362,6 +362,64 @@ class ctable:
             codes=_narrow_codes(codes, uniques),
             uniques=uniques,
         )
+
+    def composite_stamp(self, cols):
+        """Identity of several key columns' data bytes (the concatenated
+        :meth:`factor_stamp`), or None when one is not stat-able."""
+        stamps = [self.factor_stamp(c) for c in cols]
+        if any(s is None for s in stamps):
+            return None
+        return np.concatenate(stamps)
+
+    def _composite_path(self, cols):
+        tag = zlib.crc32("|".join(_enc_name(c) for c in cols).encode())
+        return self._col_path(cols[0], f"composite_{tag:08x}.npz")
+
+    def composite_cache_load(self, cols, digest, stamp=None):
+        """Load a persisted multi-key composite factorization (packed-code
+        inverse + observed composites), or None.  ``digest`` captures what
+        the packed codes depend on beyond this shard's data -- the
+        executor hashes the global dictionaries and cardinalities into it,
+        so a change in the shard set misses.  Pass the ``stamp`` captured
+        before the key columns were read, so the sidecar is validated
+        against the bytes the caller holds."""
+        if not _sidecar_enabled():
+            return None
+        if stamp is None:
+            stamp = self.composite_stamp(cols)
+        return _sidecar_load(
+            self._composite_path(cols), stamp, digest=digest
+        )
+
+    def composite_cache_store(self, cols, digest, codes, uniques, stamp):
+        """``stamp`` must come from :meth:`composite_stamp` captured before
+        the key columns were read (see the TOCTOU note above)."""
+        if not _sidecar_enabled() or stamp is None:
+            return
+        uniques = np.asarray(uniques)
+        _sidecar_save(
+            self._col_dir(cols[0]),
+            self._composite_path(cols),
+            stamp=stamp,
+            digest=np.frombuffer(digest, dtype=np.uint8),
+            codes=_narrow_codes(codes, uniques),
+            uniques=uniques,
+        )
+
+    def prefetch(self, names):
+        """Warm the decoded-column cache for ``names`` on the pipeline pool
+        (:func:`bqueryd_tpu_torch.parallel.pipeline.submit`), so storage
+        decode overlaps alignment and upload work.  Returns the futures."""
+        from bqueryd_tpu_torch.parallel import pipeline
+
+        def decode(name):
+            with pipeline.stage("decode"):
+                return self.column_raw(name)
+
+        return [
+            pipeline.submit(decode, name)
+            for name in names if name in self._columns
+        ]
 
     def committed_chunks(self, name):
         """This instance's committed chunk prefix for a column: the chunks

@@ -1,7 +1,17 @@
-"""Byte-capped caches shared by the storage and engine layers (a copy of
-``bqueryd_tpu/utils/cache.py`` without the working-set eviction hooks)."""
+"""Byte-capped caches shared by the storage, engine and working-set layers
+(a copy of ``bqueryd_tpu/utils/cache.py``)."""
 
 import threading
+
+
+def sizeof(value):
+    """Accounted bytes of a cache value: a tensor counts its own elements
+    (``numel * element_size``, not the storage it may view), anything else
+    its ``nbytes``."""
+    numel = getattr(value, "numel", None)
+    if callable(numel):
+        return int(numel()) * int(value.element_size())
+    return int(getattr(value, "nbytes", 0))
 
 
 class BytesCappedCache:
@@ -52,6 +62,25 @@ class BytesCappedCache:
             self._data[key] = value
             self._sizes[key] = size
             self._bytes += size
+
+    def evict_bytes(self, target_bytes):
+        """Evict LRU entries until at least ``target_bytes`` of accounted
+        bytes are freed (or the cache is empty).  Returns ``(bytes_freed,
+        entries_evicted)``, counted inside the lock so the memory-pressure
+        caller (:meth:`bqueryd_tpu_torch.ops.workingset.WorkingSet.
+        evict_under_pressure`) never misattributes a concurrent capacity
+        eviction."""
+        freed = 0
+        count = 0
+        with self._lock:
+            while freed < target_bytes and self._data:
+                key, _ = next(iter(self._data.items()))
+                self._data.pop(key)
+                freed += self._sizes.pop(key)
+                count += 1
+                self.evictions += 1
+            self._bytes -= freed
+        return freed, count
 
     def clear(self):
         with self._lock:

@@ -7,27 +7,39 @@
    checkout (and the native codec library, in parallel);
 3. writes the BASELINE dataset with the port's ctable: bench.py's taxi
    schema and generator (seed 42), 10,000,000 rows in 10 shards of 1M;
-4. drives the main path: the five BASELINE configs (single, sharded,
-   multikey, filtered, highcard) through ``LocalRPC.groupby`` on cuda,
-   each checked against a NumPy reference of the generated arrays (int
-   sums and counts bit-exact, the float mean within rtol=2e-5) and timed
-   (median of 3 after one warm-up); every kernel of the path must have
-   launched there (launch counters set to 0 just before, read just after);
-   the launch counters are kept per (kernel, branch, R, G) shape, and each
-   config must have taken the branch its shape routes to;
-5. breaks one warm query of each config down into host phases (cProfile)
-   and device busy time (torch.profiler);
-6. holds every branch of each kernel against its plain PyTorch version:
-   the main path's shapes, plus one shape per other branch (base "table"
-   at G = 8192, hicard "global" past the cluster table), with ints
-   bit-exact, float rows within rtol=2e-5, atol=1e-6*max, and the base
-   kernel's output bit-identical across two launches; times each kernel
-   warm and with L2 flushed (device time per launch, from torch.profiler),
-   beside its plain version, one library call (``index_add_``, used
-   nowhere in the port) and a plain streaming read of the same bytes;
-7. sweeps the base kernel's two branches over G (the crossover behind
+4. drives the main path, the executor: the five BASELINE configs (single,
+   sharded, multikey, filtered, highcard) through ``LocalRPC.groupby`` on
+   cuda, which routes them to ``MeshQueryExecutor`` (one key alignment, one
+   kernel call over every shard's rows, the merge on the device).  Per
+   config: one cold query after the executor's and engine's caches are
+   cleared (printing what stays warm: the on-disk sidecars and the
+   decoded-column cache), then 3 warm queries.  Each query is checked
+   against a NumPy reference of the generated arrays (int sums and counts
+   bit-exact, the float mean within rtol=2e-5), must launch its config's
+   kernel branch exactly once at the executor's shape (R, G, n), and the
+   warm queries must hit every working-set segment;
+5. drives the per-shard engine path (``QueryEngine.execute_local`` per
+   shard + ``hostmerge``) for the five configs, 1 warm-up + 1 timed query,
+   checked the same way, each query launching its branch once per shard;
+   the launch counters are set to 0 just before each path and read just
+   after, and every kernel of each path must have launched there;
+6. breaks queries down into host phases and pipeline stage busy time
+   (cProfile of a query run with the pipeline serialized), and device busy
+   time and idle share (torch.profiler, at the pipeline's own width): the
+   executor path cold and warm, the engine path warm;
+7. holds every branch of each kernel against its plain PyTorch version at
+   every recorded shape: the executor path's inputs (captured from a warm
+   query of each config), the engine path's per-shard shapes, plus one
+   shape per other branch (base "table" at G = 8192, hicard "global" past
+   the cluster table), with ints bit-exact, float rows within rtol=2e-5,
+   atol=1e-6*max, and the base kernel's output bit-identical across two
+   launches; times each kernel warm and with L2 flushed (device time per
+   launch, from torch.profiler), beside its plain version, one library
+   call (``index_add_``, used nowhere in the port) and a plain streaming
+   read of the same bytes;
+8. sweeps the base kernel's two branches over G (the crossover behind
    ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-8. prints the sweeps, the ``kernels`` JSON line, then the device JSON
+9. prints the sweeps, the ``kernels`` JSON line, then the device JSON
    line last.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -98,8 +110,34 @@ REPLACES = {
 }
 
 
-def shape_key(name, branch, n_rows, n_groups):
-    return f"{name}/{branch}/R={n_rows}/G={n_groups}"
+#: (R, G) of each config's ONE contraction on the executor path:
+#: fare_amount (250..19,999) rides as int16, so its sum stacks a count
+#: row and 2 limbs; multikey adds trip_distance's present row and its 3
+#: Dekker rows (the last 3 rows are float rows)
+EXEC_SHAPE = {
+    "single": (3, 9),
+    "sharded": (3, 9),
+    "multikey": (7, 10),
+    "filtered": (3, 9),
+    "highcard": (3, 73_728),
+}
+
+#: (R, G) of each shard's contraction on the per-shard engine path:
+#: int64 fare_amount stacks 8 limbs
+ENGINE_SHAPE = {
+    "single": (9, 9),
+    "sharded": (9, 9),
+    "multikey": (13, 10),
+    "filtered": (9, 9),
+    "highcard": (9, 73_728),
+}
+
+#: float (Dekker) rows at the end of each config's stacked rows
+FLOAT_ROWS = {"multikey": 3}
+
+
+def shape_key(name, branch, n_rows, n_groups, n):
+    return f"{name}/{branch}/R={n_rows}/G={n_groups}/n={n}"
 
 
 def log(msg):
@@ -197,54 +235,169 @@ def check_result(config, order, columns, want):
                     config, key, out_col, int(got), int(ref[out_col]))
 
 
-def run_main_path(rpc, names, parts, repeats=3):
-    """Drive the five configs; returns per-config walls and launches."""
+def _launch_delta(before):
+    """Launches per shape key since the ``before`` snapshot."""
     from bqueryd_tpu_torch.ops import onehot
 
+    return {
+        shape_key(*k): v - before.get(k, 0)
+        for k, v in onehot.LAUNCHES.items() if v - before.get(k, 0)
+    }
+
+
+def _rows_of(parts, sl):
+    return sum(len(p["fare_amount"]) for p in parts[sl])
+
+
+def _warm_state(data_dir):
+    """What a cold query still finds warm: the sidecars on disk beside the
+    shards and the process's decoded-column cache."""
+    from bqueryd_tpu_torch.storage.ctable import column_cache_stats
+
+    sidecars = {"factor": 0, "composite": 0}
+    for _root, _dirs, files in os.walk(data_dir):
+        for f in files:
+            if f == "factor.npz":
+                sidecars["factor"] += 1
+            elif f.startswith("composite_") and f.endswith(".npz"):
+                sidecars["composite"] += 1
+    return {"sidecars": sidecars, "column_cache": column_cache_stats()}
+
+
+def _timed(fn):
     import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_executor_path(rpc, names, parts, data_dir, warm=3):
+    """The main path: per config one cold query (executor and engine caches
+    cleared) and ``warm`` warm queries through ``LocalRPC.groupby``; every
+    query checked, launching its branch once at the executor's shape."""
+    from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.ops import onehot
 
     report = {}
     for config, (sl, gcols, aggs, where) in CONFIGS.items():
         want = reference(config, parts)
-        before = dict(onehot.LAUNCHES)
+        kernel, branch = CONFIG_KERNEL[config]
+        n = ops.program_bucket(_rows_of(parts, sl), fine=True)
+        expect = {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
+        rpc.executor.clear_caches()
+        rpc.engine.clear_caches()
+        stays_warm = _warm_state(data_dir)
+        walls, launches = [], 0
+        for rep in range(warm + 1):
+            before = dict(onehot.LAUNCHES)
+            (order, columns), wall = _timed(
+                lambda: rpc.groupby(names[sl], gcols, aggs, where))
+            check_result(config, order, columns, want)
+            launched = _launch_delta(before)
+            launches += sum(launched.values())
+            if launched != expect or rpc.last_merge_mode != "device":
+                raise AssertionError(
+                    f"{config} query {rep}: expected {expect} on the "
+                    f"executor's device merge, launched {launched} "
+                    f"({rpc.last_merge_mode})")
+            if rep == 0:
+                cold_stats = rpc.executor.workingset.stats()
+            walls.append(wall)
+        stats = rpc.executor.workingset.stats()
+        for seg in ("align", "codes", "blocks"):
+            if (stats[seg]["misses"] != cold_stats[seg]["misses"]
+                    or stats[seg]["hits"] - cold_stats[seg]["hits"] < warm):
+                raise AssertionError(
+                    f"{config}: warm queries missed the {seg} segment: "
+                    f"{cold_stats[seg]} -> {stats[seg]}")
+        report[config] = {
+            "cold_wall_s": walls[0],
+            "warm_walls_s": walls[1:],
+            "warm_wall_s_median": float(np.median(walls[1:])),
+            "groups": len(want),
+            "route": rpc.last_effective_strategy,
+            "merge_mode": rpc.last_merge_mode,
+            "launch_shape": next(iter(expect)),
+            "launches": launches,
+            "stays_warm_at_cold": stays_warm,
+            "workingset": stats,
+        }
+        log(f"executor {config}: {json.dumps(report[config])}")
+    return report
+
+
+def _engine_query(rpc, names, config):
+    """One query of ``config`` through the per-shard engine path."""
+    from bqueryd_tpu_torch import worker
+    from bqueryd_tpu_torch.models.query import GroupByQuery
+    from bqueryd_tpu_torch.parallel import hostmerge
+
+    sl, gcols, aggs, where = CONFIGS[config]
+    tables = [rpc._table(n) for n in names[sl]]
+    payload = worker.execute(tables, GroupByQuery(gcols, aggs, where),
+                             rpc.engine)
+    return hostmerge.finalize_table(hostmerge.merge_payloads([payload]))
+
+
+def run_engine_path(rpc, names, parts, repeats=1):
+    """The per-shard engine path at reduced depth: 1 warm-up + ``repeats``
+    timed queries per config, checked, each launching its branch once per
+    shard at the shard's shape."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    report = {}
+    for config, (sl, _gcols, _aggs, _where) in CONFIGS.items():
+        want = reference(config, parts)
+        kernel, branch = CONFIG_KERNEL[config]
+        shard_rows = {len(p["fare_amount"]) for p in parts[sl]}
+        expect = {
+            shape_key(kernel, branch, *ENGINE_SHAPE[config], rows):
+            sum(len(p["fare_amount"]) == rows for p in parts[sl])
+            for rows in shard_rows
+        }
         walls = []
         for rep in range(repeats + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            order, columns = rpc.groupby(names[sl], gcols, aggs, where)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            before = dict(onehot.LAUNCHES)
+            (order, columns), wall = _timed(
+                lambda: _engine_query(rpc, names, config))
             check_result(config, order, columns, want)
+            launched = _launch_delta(before)
+            if launched != expect:
+                raise AssertionError(
+                    f"engine {config} query {rep}: expected {expect}, "
+                    f"launched {launched}")
             if rep:
                 walls.append(wall)
-        launches = {
-            shape_key(*k): v - before.get(k, 0)
-            for k, v in onehot.LAUNCHES.items() if v - before.get(k, 0)
-        }
-        kernel, branch = CONFIG_KERNEL[config]
-        taken = sum(v for k, v in launches.items()
-                    if k.startswith(f"{kernel}/{branch}/"))
-        if taken < repeats + 1 or taken != sum(launches.values()):
-            raise AssertionError(
-                f"{config}: expected {kernel} branch {branch}, launched "
-                f"{launches}"
-            )
         report[config] = {
             "wall_s_median": float(np.median(walls)),
             "walls_s": walls,
             "warmup_included": False,
-            "groups": len(want),
             "route": rpc.engine.last_effective_strategy,
-            "launches": launches,
-            "queries": repeats + 1,
+            "launch_shapes": expect,
         }
-        log(f"{config}: {json.dumps(report[config])}")
+        log(f"engine {config}: {json.dumps(report[config])}")
     return report
 
 
-#: host functions of the query path whose cumulative time the breakdown
-#: reports (cProfile), in path order
-PHASES = (
+#: host functions whose cumulative time (cProfile of a query run with the
+#: pipeline serialized) the executor path's breakdown reports, in path
+#: order
+EXEC_PHASES = (
+    ("align", "_global_key_space"),
+    ("mask", "build_mask"),
+    ("pack", "_pack"),
+    ("h2d", "_upload"),
+    ("partial_tables", "partial_tables"),
+    ("fetch", "_fetch"),
+    ("collect", "_collect_payload"),
+    ("finalize", "finalize_table"),
+)
+
+#: the same for the per-shard engine path
+ENGINE_PHASES = (
     ("decode", "column_raw"),
     ("factorize", "_group_codes"),
     ("mask", "build_mask"),
@@ -256,52 +409,127 @@ PHASES = (
 )
 
 
-def breakdown(rpc, names):
-    """Where one warm query of each config spends its time: cumulative
-    host time per phase (cProfile, one query) and the device's busy time
-    and idle share (torch.profiler, another query)."""
+def _profile_query(run, phases, reset=None):
+    """Where one query spends its time: cumulative host time per phase
+    (cProfile) and the pipeline's stage busy time of a query run with the
+    pipeline serialized, then the device's busy time and idle share
+    (torch.profiler) of another query at the pipeline's own width.
+    ``reset`` runs before each of the two queries (a cold query clears
+    the caches there).  Serialized, every phase runs on the calling
+    thread: Python 3.12's cProfile also records the pool threads' calls
+    (through sys.monitoring), with times that do not add up."""
     import cProfile
     import pstats
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
+    from bqueryd_tpu_torch.parallel import pipeline
+
+    if reset is not None:
+        reset()
+    prof = cProfile.Profile()
+    pipeline.clock().reset()
+    width = os.environ.get("BQUERYD_TPU_PIPELINE_THREADS")
+    os.environ["BQUERYD_TPU_PIPELINE_THREADS"] = "1"
+    try:
+        _, cprofile_wall = _timed(lambda: prof.runcall(run))
+    finally:
+        if width is None:
+            del os.environ["BQUERYD_TPU_PIPELINE_THREADS"]
+        else:
+            os.environ["BQUERYD_TPU_PIPELINE_THREADS"] = width
+    stages = pipeline.clock().snapshot()["busy_seconds"]
+    stats = pstats.Stats(prof).stats
+    host = {
+        label: sum(v[3] for k, v in stats.items() if k[2] == func)
+        for label, func in phases
+    }
+    if reset is not None:
+        reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        _, wall = _timed(run)
+    device_us, kernel_us = 0.0, 0.0
+    for evt in trace.key_averages():
+        self_dev = _evt_device_us(evt)
+        device_us += self_dev
+        if any(k in evt.key for k in BRANCH_KERNEL.values()):
+            kernel_us += self_dev
+    torch.cuda.synchronize()
+    return {
+        "host_phases_s": host,
+        "stage_busy_s": stages,
+        "cprofile_wall_s": cprofile_wall,
+        "profiled_wall_s": wall,
+        "device_busy_s": device_us / 1e6 if device_us else None,
+        "onehot_kernel_s": kernel_us / 1e6 if device_us else None,
+        "device_idle_share": (1 - device_us / 1e6 / wall)
+        if device_us else None,
+    }
+
+
+def breakdown(rpc, names):
+    """The executor path cold (caches cleared) and warm, and the engine
+    path warm, per config."""
+    def clear():
+        rpc.executor.clear_caches()
+        rpc.engine.clear_caches()
+
+    out = {"executor": {}, "engine": {}}
     for config, (sl, gcols, aggs, where) in CONFIGS.items():
-        prof = cProfile.Profile()
-        t0 = time.perf_counter()
-        prof.runcall(rpc.groupby, names[sl], gcols, aggs, where)
-        torch.cuda.synchronize()
-        cprofile_wall = time.perf_counter() - t0
-        stats = pstats.Stats(prof).stats
-        phases = {}
-        for label, func in PHASES:
-            phases[label] = sum(
-                v[3] for k, v in stats.items() if k[2] == func
-            )
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as trace:
-            t0 = time.perf_counter()
-            rpc.groupby(names[sl], gcols, aggs, where)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        device_us, kernel_us = 0.0, 0.0
-        for evt in trace.key_averages():
-            self_dev = _evt_device_us(evt)
-            device_us += self_dev
-            if any(k in evt.key for k in BRANCH_KERNEL.values()):
-                kernel_us += self_dev
-        out[config] = {
-            "host_phases_s": phases,
-            "cprofile_wall_s": cprofile_wall,
-            "profiled_wall_s": wall,
-            "device_busy_s": device_us / 1e6 if device_us else None,
-            "onehot_kernel_s": kernel_us / 1e6 if device_us else None,
-            "device_idle_share": (1 - device_us / 1e6 / wall)
-            if device_us else None,
-        }
-        log(f"breakdown {config}: {json.dumps(out[config])}")
+        def run():
+            return rpc.groupby(names[sl], gcols, aggs, where)
+
+        cold = _profile_query(run, EXEC_PHASES, reset=clear)
+        warm = _profile_query(run, EXEC_PHASES)
+        out["executor"][config] = {"cold": cold, "warm": warm}
+        log(f"breakdown executor {config}: "
+            f"{json.dumps(out['executor'][config])}")
+        out["engine"][config] = _profile_query(
+            lambda: _engine_query(rpc, names, config), ENGINE_PHASES)
+        log(f"breakdown engine {config}: "
+            f"{json.dumps(out['engine'][config])}")
     return out
+
+
+def capture_executor_inputs(rpc, names):
+    """The (codes, rows) each config's one kernel call receives on the
+    executor path, captured from one warm query per config: ``{config:
+    (kernel, branch, codes, rows, R, G, int rows)}``.  Configs with the
+    same shape keep their own inputs (filtered's codes carry its folded
+    filter).  The launches of these queries are outside the counted
+    runs."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    captured = {}
+    current = []
+    launchers = {"onehot_rows_dot": onehot._launch_base,
+                 "onehot_rows_dot_hicard": onehot._launch_hicard}
+
+    def capturing(name, launch):
+        def run(codes, rows, n_rows, n_groups, plan):
+            config = current[0]
+            if config in captured:
+                raise AssertionError(f"{config}: more than one kernel call")
+            captured[config] = (name, plan.branch, codes, rows, n_rows,
+                                n_groups,
+                                n_rows - FLOAT_ROWS.get(config, 0))
+            return launch(codes, rows, n_rows, n_groups, plan)
+        return run
+
+    onehot._launch_base = capturing("onehot_rows_dot",
+                                    launchers["onehot_rows_dot"])
+    onehot._launch_hicard = capturing("onehot_rows_dot_hicard",
+                                      launchers["onehot_rows_dot_hicard"])
+    try:
+        for config, (sl, gcols, aggs, where) in CONFIGS.items():
+            current[:] = [config]
+            rpc.groupby(names[sl], gcols, aggs, where)
+    finally:
+        onehot._launch_base = launchers["onehot_rows_dot"]
+        onehot._launch_hicard = launchers["onehot_rows_dot_hicard"]
+    return captured
 
 
 def _time_ms(fn, iters):
@@ -328,7 +556,7 @@ def _evt_device_us(evt):
     return us
 
 
-def _device_ms(fn, kernel, iters, flush=None):
+def _device_ms(fn, kernel, iters, flush=None, windows=3):
     """Mean device time per call, in ms, of the CUDA kernels whose name
     holds ``kernel`` ("" for every kernel ``fn`` runs), from torch.profiler
     (CUPTI) over ``iters`` calls after a warm-up.  With ``flush``, that
@@ -337,28 +565,41 @@ def _device_ms(fn, kernel, iters, flush=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if flush is not None and not kernel:
+        raise ValueError("a flushed timing names its kernel")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as trace:
-        for _ in range(iters):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in trace.key_averages():
-        if kernel and kernel not in evt.key:
-            continue
-        if flush is not None and not kernel:
-            raise ValueError("a flushed timing names its kernel")
-        total += _evt_device_us(evt)
-        count += evt.count
-    if count < iters or (kernel and count != iters) or total <= 0:
+    # CUPTI drops some records of a window (1 and 11 of 50 launches of one
+    # 10M-row kernel, 8 of 10 flushed launches of another), so each
+    # kernel's time per call is the mean over the records held, times its
+    # launches per call; a window holding fewer than half its calls' records
+    # is pooled with the next, up to ``windows`` windows
+    totals = {}  # kernel name -> [device us, records]
+    for window in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        for evt in trace.key_averages():
+            if kernel and kernel not in evt.key or not evt.count:
+                continue
+            total = totals.setdefault(evt.key, [0.0, 0])
+            total[0] += _evt_device_us(evt)
+            total[1] += evt.count
+        count = sum(n for _, n in totals.values())
+        if count >= iters // 2:
+            break
+    calls = iters * window
+    per_call = sum(us / n * max(1, round(n / calls))
+                   for us, n in totals.values())
+    if count < iters // 2 or (kernel and count > calls) or per_call <= 0:
         raise AssertionError(
             f"profiler saw {count} launches of {kernel or 'any kernel'} "
-            f"({total} us) over {iters} calls"
+            f"({per_call} us per call) over {calls} calls"
         )
-    return total / iters / 1e3
+    return per_call / 1e3
 
 
 def _stack(rows, device):
@@ -374,11 +615,11 @@ def _stack(rows, device):
     return out
 
 
-def _main_path_inputs(parts, device):
+def _shard_inputs(parts, device):
     """The (kernel, branch, codes, rows, R, G, int rows) each kernel branch
-    receives on the main path, built with the port's own row plans from
-    shard 0 (1M rows), plus one synthetic shape per branch the main path
-    does not take (n = 1,000,003: ragged, so ld > n)."""
+    receives on the per-shard engine path, built with the port's own row
+    plans from shard 0 (1M rows), plus one synthetic shape per branch no
+    path takes (n = 1,000,003: ragged, so ld > n)."""
     import torch
 
     from bqueryd_tpu_torch import ops
@@ -405,17 +646,17 @@ def _main_path_inputs(parts, device):
 
     out = {}
     codes, g = codes_of(["passenger_count"])
-    out["main R=9"] = ("onehot_rows_dot", "mma", to_dev(codes.astype(np.int32)),
+    out["shard R=9"] = ("onehot_rows_dot", "mma", to_dev(codes.astype(np.int32)),
                        _stack([count] + limbs, device), 9, g, 9)
     codes, g = codes_of(["VendorID", "payment_type"])
     dist = to_dev(shard["trip_distance"])
     hi, mid, lo = tg._dekker_rows(dist)
-    out["main R=13"] = ("onehot_rows_dot", "mma",
+    out["shard R=13"] = ("onehot_rows_dot", "mma",
                         to_dev(codes.astype(np.int32)),
                         _stack([count] + limbs + [count, hi, mid, lo],
                                device), 13, g, 10)
     codes, g = codes_of(["PULocationID", "DOLocationID"])
-    out["main hicard"] = ("onehot_rows_dot_hicard", "cluster",
+    out["shard hicard"] = ("onehot_rows_dot_hicard", "cluster",
                           to_dev(codes.astype(np.int32)),
                           _stack([count] + limbs, device), 9, g, 9)
 
@@ -488,8 +729,11 @@ def _launch(name, expect, codes, rows, n_rows, n_groups, **forced):
     return lambda: run(codes, rows, n_rows, n_groups, plan)
 
 
-def check_kernels(parts, device, launches, iters=50):
-    """Every branch of each kernel against its plain version, timed."""
+def check_kernels(inputs, device, launches, iters=50):
+    """Every branch of each kernel at every recorded shape (``inputs``:
+    label -> (kernel, branch, codes, rows, R, G, int rows)) against its
+    plain version, timed.  ``launches``: label -> launches on the main
+    path."""
     import torch
 
     from bqueryd_tpu_torch.ops import onehot
@@ -497,7 +741,7 @@ def check_kernels(parts, device, launches, iters=50):
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     results = []
     for label, (name, branch, codes, rows, n_rows, n_groups, n_int) in (
-        _main_path_inputs(parts, device).items()
+        inputs.items()
     ):
         wrapper = getattr(onehot, name)
         plain = getattr(onehot, f"{name}_plain")
@@ -558,8 +802,7 @@ def check_kernels(parts, device, launches, iters=50):
             "source": "bqueryd_tpu_torch/csrc/onehot_groupby.cu",
             "kernel": kernel,
             "replaces": REPLACES[name],
-            "launches": launches.get(
-                shape_key(name, branch, n_rows, n_groups), 0),
+            "launches": launches.get(label, 0),
             "max_abs_err": err,
             "ms": ms,
             "ms_cold": ms_cold,
@@ -583,13 +826,14 @@ G_SWEEP = (9, 16, 32, 64, 256, 1024, 8192)
 
 def sweeps(parts, device, iters=30):
     """The base kernel's two branches over G at R = 9 on shard 0's rows,
-    and the hicard cluster count C on the main path's highcard inputs."""
+    and the hicard cluster count C on the engine path's highcard inputs
+    (one shard)."""
     import torch
 
     from bqueryd_tpu_torch.ops import onehot
 
-    inputs = _main_path_inputs(parts, device)
-    _, _, _, rows, n_rows, _, _ = inputs["main R=9"]
+    inputs = _shard_inputs(parts, device)
+    _, _, _, rows, n_rows, _, _ = inputs["shard R=9"]
     n = rows.shape[1]
     rng = np.random.RandomState(SEED)
     g_sweep = []
@@ -612,7 +856,7 @@ def sweeps(parts, device, iters=30):
         g_sweep.append(row)
         log(f"G sweep: {json.dumps(row)}")
 
-    name, _, codes, rows, n_rows, n_groups, _ = inputs["main hicard"]
+    name, _, codes, rows, n_rows, n_groups, _ = inputs["shard hicard"]
     want = onehot.onehot_rows_dot_hicard_plain(codes, rows, n_rows, n_groups)
     c_sweep = []
     for clusters in (2, 4, 8):
@@ -636,6 +880,20 @@ def sweeps(parts, device, iters=30):
     return {"g_sweep": g_sweep, "c_sweep": c_sweep,
             "hicard_shape": {"R": n_rows, "G": n_groups,
                              "n": codes.shape[0]}}
+
+
+def counted_launches(path):
+    """The launch counts of the run just driven, per shape key; raises if
+    a kernel of the main path never launched in it."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    launches = {shape_key(*k): v for k, v in onehot.LAUNCHES.items()}
+    for kernel, branch in set(CONFIG_KERNEL.values()):
+        if not any(k.startswith(f"{kernel}/{branch}/") and v
+                   for k, v in launches.items()):
+            raise AssertionError(
+                f"{kernel} ({branch}) never launched on the {path} path")
+    return launches
 
 
 def main():
@@ -678,18 +936,40 @@ def main():
             "pickup_ts column not written (no BASELINE config reads it)",
         ]}), flush=True)
         rpc = LocalRPC(data_dir)  # cuda
+        # set-up outside every timed query: the CUDA context and the
+        # kernels' library
+        torch.zeros(1, device=device)
+        onehot._library()
+        t0 = time.perf_counter()
         onehot.reset_launch_counts()
-        configs = run_main_path(rpc, names, parts)
-        launches = {shape_key(*k): v for k, v in onehot.LAUNCHES.items()}
-        for config, (kernel, branch) in CONFIG_KERNEL.items():
-            if not any(k.startswith(f"{kernel}/{branch}/") and v
-                       for k, v in launches.items()):
-                raise AssertionError(
-                    f"{kernel} ({branch}) never launched on the main path")
-        print(json.dumps({"configs": configs, "launches": launches,
+        configs = run_executor_path(rpc, names, parts, data_dir)
+        exec_launches = counted_launches("executor")
+        log(f"executor path: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        engine_configs = run_engine_path(rpc, names, parts)
+        engine_launches = counted_launches("per-shard engine")
+        log(f"engine path: {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"configs": configs,
+                          "engine_configs": engine_configs,
+                          "launches": {"executor": exec_launches,
+                                       "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
-        kernels = check_kernels(parts, device, launches)
+        inputs = {f"executor {config}": entry for config, entry in
+                  capture_executor_inputs(rpc, names).items()}
+        inputs.update(_shard_inputs(parts, device))
+        # the executor rows: each config's own launches; the engine rows:
+        # the launches at their shape
+        shape_launches = {**exec_launches, **engine_launches}
+        launches = {
+            label: shape_launches.get(
+                shape_key(e[0], e[1], e[4], e[5], e[2].shape[0]), 0)
+            for label, e in inputs.items()
+        }
+        launches.update({f"executor {config}": report["launches"]
+                         for config, report in configs.items()})
+        kernels = check_kernels(inputs, device, launches)
         print(json.dumps(sweeps(parts, device)), flush=True)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)

@@ -13,6 +13,7 @@ import torch
 import bqueryd_tpu_torch
 from bqueryd_tpu_torch.models.query import QueryEngine
 from bqueryd_tpu_torch.ops import groupby as tg
+from bqueryd_tpu_torch.parallel.executor import MeshQueryExecutor
 from bqueryd_tpu_torch.rpc import LocalRPC
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,7 +46,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert result["leaked"] == []
     for module in ("bqueryd_tpu_torch.ops.onehot", "bqueryd_tpu_torch.rpc",
                    "bqueryd_tpu_torch.worker",
-                   "bqueryd_tpu_torch.parallel.hostmerge"):
+                   "bqueryd_tpu_torch.parallel.hostmerge",
+                   "bqueryd_tpu_torch.parallel.executor",
+                   "bqueryd_tpu_torch.parallel.pipeline",
+                   "bqueryd_tpu_torch.ops.workingset"):
         assert module in result["imported"]
 
 
@@ -69,11 +73,14 @@ def test_entry_points_need_an_explicit_cpu_request(no_cuda, tmp_path):
         QueryEngine()
     with pytest.raises(RuntimeError):
         LocalRPC(str(tmp_path))
+    with pytest.raises(RuntimeError):
+        MeshQueryExecutor()
     codes = np.zeros(4, dtype=np.int32)
     values = np.ones(4, dtype=np.int64)
     with pytest.raises(RuntimeError):
         tg.partial_tables(codes, (values,), ("sum",), 1)
     assert QueryEngine(device="cpu").device.type == "cpu"
     assert LocalRPC(str(tmp_path), device="cpu").device.type == "cpu"
+    assert MeshQueryExecutor(device="cpu").device.type == "cpu"
     out = tg.partial_tables(codes, (values,), ("sum",), 1, device="cpu")
     assert int(out["aggs"][0]["sum"][0]) == 4
