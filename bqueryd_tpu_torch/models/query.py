@@ -107,6 +107,10 @@ class GroupByQuery:
     where_terms: list = field(default_factory=list)
     aggregate: bool = True
     expand_filter_column: str = None
+    #: set by the controller when this payload is the whole query (a
+    #: single-shard fan-out): the reference's count_distinct then ships
+    #: final counts; no effect until the distinct ops are ported
+    sole_payload: bool = False
 
     def signature(self):
         """Hashable identity of the query (cache key component)."""
@@ -116,6 +120,7 @@ class GroupByQuery:
             freeze_value(self.where_terms or []),
             bool(self.aggregate),
             self.expand_filter_column,
+            bool(self.sole_payload),
         )
 
     def __post_init__(self):

@@ -1,0 +1,14 @@
+"""Query planning of the port: the logical plan the controller compiles
+from a ``groupby`` RPC and the per-dispatch fragments it sends workers
+(:mod:`bqueryd_tpu_torch.plan.logical`).  Admission, shard statistics,
+strategy calibration, shared-scan bundles and operator DAGs are not
+ported yet."""
+
+from bqueryd_tpu_torch.plan.logical import (  # noqa: F401
+    LogicalPlan,
+    compile_groupby,
+    fragment_for,
+    fragment_to_query,
+    plan_groupby,
+    rewrite_plan,
+)

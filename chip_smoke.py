@@ -7,7 +7,7 @@
    checkout (and the native codec library, in parallel);
 3. writes the BASELINE dataset with the port's ctable: bench.py's taxi
    schema and generator (seed 42), 10,000,000 rows in 10 shards of 1M;
-4. drives the main path, the executor: the five BASELINE configs (single,
+4. drives the executor path in-process: the five BASELINE configs (single,
    sharded, multikey, filtered, highcard) through ``LocalRPC.groupby`` on
    cuda, which routes them to ``MeshQueryExecutor`` (one key alignment, one
    kernel call over every shard's rows, the merge on the device).  Per
@@ -18,29 +18,43 @@
    bit-exact, the float mean within rtol=2e-5), must launch its config's
    kernel branch exactly once at the executor's shape (R, G, n), and the
    warm queries must hit every working-set segment;
-5. drives the per-shard engine path (``QueryEngine.execute_local`` per
+5. drives the main path, the system's own entry points: a controller and a
+   worker on cuda as threads of this process, talking TCP ZMQ through a
+   file:// store beside the shards, and the five configs through
+   ``RPC.groupby`` (controller fan-out, one CalcMessage per shard group,
+   the worker's executor, the client's merge): per config one cold query
+   after the worker's caches are cleared and 3 warm ones, each checked,
+   launching its branch once at the executor's shape, merged on the device
+   and reporting the route ``LocalRPC`` took; walls split into the
+   worker's phases, the client's merge and the rest, beside ``LocalRPC``'s;
+6. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
+   ``... worker --device=cuda`` as processes, one checked query per config,
+   both stopped by SIGTERM and exiting 0;
+7. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five configs, 1 warm-up + 1 timed query,
    checked the same way, each query launching its branch once per shard;
-   the launch counters are set to 0 just before each path and read just
-   after, and every kernel of each path must have launched there;
-6. breaks queries down into host phases and pipeline stage busy time
+   the launch counters are set to 0 just before each path (executor,
+   cluster, engine) and read just after, and every kernel of each path
+   must have launched there;
+8. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    executor path cold and warm, the engine path warm;
-7. holds every branch of each kernel against its plain PyTorch version at
+9. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: the executor path's inputs (captured from a warm
-   query of each config), the engine path's per-shard shapes, plus one
-   shape per other branch (base "table" at G = 8192, hicard "global" past
-   the cluster table), with ints bit-exact, float rows within rtol=2e-5,
+   query of each config; highcard's also forced onto the hicard "global"
+   branch), the engine path's per-shard shapes, plus one shape per other
+   branch (base "table" at G = 8192, hicard "global" past the cluster
+   table), with ints bit-exact, float rows within rtol=2e-5,
    atol=1e-6*max, and the base kernel's output bit-identical across two
    launches; times each kernel warm and with L2 flushed (device time per
    launch, from torch.profiler), beside its plain version, one library
    call (``index_add_``, used nowhere in the port) and a plain streaming
    read of the same bytes;
-8. sweeps the base kernel's two branches over G (the crossover behind
-   ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-9. prints the sweeps, the ``kernels`` JSON line, then the device JSON
-   line last.
+10. sweeps the base kernel's two branches over G (the crossover behind
+    ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
+11. prints the sweeps, the ``kernels`` JSON line, then the device JSON
+    line last.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.  Any failed phase fails the run.
@@ -327,6 +341,224 @@ def run_executor_path(rpc, names, parts, data_dir, warm=3):
         }
         log(f"executor {config}: {json.dumps(report[config])}")
     return report
+
+
+def _wait(predicate, timeout, what):
+    deadline = time.time() + timeout
+    while not predicate():
+        if time.time() > deadline:
+            raise AssertionError(f"timed out after {timeout}s: {what}")
+        time.sleep(0.1)
+
+
+def _served(rpc, names):
+    """True once the cluster behind ``rpc`` advertises every shard."""
+    workers = rpc.info()["workers"].values()
+    return set(names) <= {f for w in workers
+                          for f in w.get("data_files") or []}
+
+
+def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
+    """The system's own entry points: a port controller and a port worker
+    on cuda, as threads of this process, talking TCP ZMQ through a file://
+    store; the five configs through ``RPC.groupby``, per config one cold
+    query after the worker's caches are cleared and ``warm`` warm ones.
+    Each query is checked, must launch its branch once at the executor's
+    shape, merge on the device and report the route that ``LocalRPC``
+    (``local``, the executor path's report) took.  The walls are split
+    into the worker's phases, the client's merge and the rest (controller,
+    ZMQ hops, pickling), beside the median of 20 pings (client to
+    controller and back) and the worker's table opens timed outside its
+    loop."""
+    import logging
+
+    from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.controller import ControllerNode
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.rpc import RPC
+    from bqueryd_tpu_torch.worker import WorkerNode
+
+    url = f"file://{store_dir}"
+    quiet = logging.WARNING
+    controller = ControllerNode(coordination_url=url, loglevel=quiet,
+                                runfile_dir=store_dir, heartbeat_interval=0.5)
+    worker = WorkerNode(coordination_url=url, data_dir=data_dir,
+                        loglevel=quiet, heartbeat_interval=1.0,
+                        poll_timeout=0.1)  # cuda
+    threads = [threading.Thread(target=n.go, daemon=True)
+               for n in (controller, worker)]
+    for t in threads:
+        t.start()
+    report = {}
+    try:
+        _wait(lambda: all(n in controller.files_map for n in names), 60,
+              "the worker's registration")
+        rpc = RPC(coordination_url=url, timeout=300, retries=1,
+                  loglevel=quiet)
+        # one client <-> controller round trip with no worker behind it
+        pings = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            if rpc.ping() != "pong":
+                raise AssertionError("the controller did not answer a ping")
+            pings.append(time.perf_counter() - t0)
+        report["ping_s_median"] = float(np.median(pings))
+        for config, (sl, gcols, aggs, where) in CONFIGS.items():
+            want = reference(config, parts)
+            kernel, branch = CONFIG_KERNEL[config]
+            n = ops.program_bucket(_rows_of(parts, sl), fine=True)
+            expect = {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
+            # the worker's loop thread idles between queries
+            worker.executor.clear_caches()
+            worker.engine.clear_caches()
+            queries = []
+            for rep in range(warm + 1):
+                before = dict(onehot.LAUNCHES)
+                (order, columns), wall = _timed(
+                    lambda: rpc.groupby(names[sl], gcols, aggs, where))
+                check_result(config, order, columns, want)
+                launched = _launch_delta(before)
+                modes = list(rpc.last_call_merge_modes.values())
+                routes = list(rpc.last_call_strategies["effective"].values())
+                if (launched != expect or modes != ["device"]
+                        or routes != [local[config]["route"]]):
+                    raise AssertionError(
+                        f"cluster {config} query {rep}: expected {expect}, "
+                        f"one device merge and route "
+                        f"{local[config]['route']}; launched {launched}, "
+                        f"merge modes {modes}, routes {routes}")
+                (phases,) = rpc.last_call_timings.values()
+                queries.append({
+                    "wall_s": wall,
+                    "worker_s": phases["_total"],
+                    "worker_phases_s": {k: v for k, v in phases.items()
+                                        if k != "_total"},
+                    "client_merge_s": rpc.last_call_client_merge_s,
+                    "rest_s": (wall - phases["_total"]
+                               - rpc.last_call_client_merge_s),
+                    "reply_bytes": rpc.last_call_reply_bytes,
+                })
+            warm_q = queries[1:]
+            # the worker's table opens for these shards, called from this
+            # thread while the nodes idle: the open phase without the loop
+            paths = [os.path.join(data_dir, f) for f in names[sl]]
+            opens = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for path in paths:
+                    worker._open_table(path)
+                opens.append(time.perf_counter() - t0)
+            report[config] = {
+                "cold": queries[0],
+                "warm": warm_q,
+                "warm_wall_s_median": float(np.median(
+                    [q["wall_s"] for q in warm_q])),
+                "warm_median_s": {
+                    k: float(np.median([q[k] for q in warm_q]))
+                    for k in ("worker_s", "client_merge_s", "rest_s")
+                },
+                "reply_bytes": warm_q[-1]["reply_bytes"],
+                "open_direct_s_median": float(np.median(opens)),
+                "route": routes[0],
+                "merge_mode": modes[0],
+                "launch_shape": next(iter(expect)),
+                "launches": warm + 1,
+                "local_rpc_cold_wall_s": local[config]["cold_wall_s"],
+                "local_rpc_warm_wall_s_median":
+                    local[config]["warm_wall_s_median"],
+            }
+            log(f"cluster {config}: {json.dumps(report[config])}")
+        rpc._close_socket()
+    finally:
+        for n in (controller, worker):
+            n.running = False
+        for t in threads:
+            t.join(timeout=20)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a cluster node did not stop")
+    return report
+
+
+def run_cli_check(names, parts, data_dir, store_dir):
+    """The CLI on the card: ``python -m bqueryd_tpu_torch.node controller``
+    and ``... worker --device=cuda`` as processes of their own, found
+    through a file:// store, one checked query per config from the port
+    client; SIGTERM stops both, which must exit 0.  The worker process
+    loads the kernel library this process built."""
+    import logging
+
+    from bqueryd_tpu_torch.rpc import RPC
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    url = f"file://{store_dir}"
+    env = dict(os.environ, BQUERYD_TPU_RUNFILE_DIR=store_dir,
+               PYTHONPATH=root)
+    node = [sys.executable, "-m", "bqueryd_tpu_torch.node"]
+    roles = {
+        "controller": node + ["controller", f"--coordination={url}"],
+        "worker": node + ["worker", f"--coordination={url}",
+                          f"--data_dir={data_dir}", "--device=cuda"],
+    }
+    logs = {role: open(os.path.join(store_dir, f"{role}.log"), "w+")
+            for role in roles}
+    procs = {role: subprocess.Popen(cmd, cwd=root, env=env,
+                                    stdout=logs[role],
+                                    stderr=subprocess.STDOUT)
+             for role, cmd in roles.items()}
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        def up():
+            dead = [r for r, p in procs.items() if p.poll() is not None]
+            if dead:
+                raise AssertionError(f"CLI {dead} exited early")
+            return _registered(url)
+
+        _wait(up, 120, "the CLI controller's registration")
+        rpc = RPC(coordination_url=url, timeout=300, retries=1,
+                  loglevel=logging.WARNING)
+        _wait(lambda: _served(rpc, names), 120,
+              "the CLI worker serving every shard")
+        report["start_s"] = time.perf_counter() - t0
+        for config, (sl, gcols, aggs, where) in CONFIGS.items():
+            (order, columns), wall = _timed(
+                lambda: rpc.groupby(names[sl], gcols, aggs, where))
+            check_result(config, order, columns, reference(config, parts))
+            modes = list(rpc.last_call_merge_modes.values())
+            if modes != ["device"]:
+                raise AssertionError(f"CLI {config}: merge modes {modes}")
+            report[config] = {"first_query_wall_s": wall}
+        rpc._close_socket()
+    except BaseException:
+        for role, f in logs.items():
+            f.seek(0)
+            log(f"CLI {role} log:\n{f.read()[-4000:]}")
+        raise
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=10)
+        for f in logs.values():
+            f.close()
+    codes = {role: p.returncode for role, p in procs.items()}
+    if any(codes.values()):
+        raise AssertionError(f"CLI nodes exited with {codes}")
+    log(f"CLI check: {json.dumps(report)}")
+    return report
+
+
+def _registered(url):
+    import bqueryd_tpu_torch
+    from bqueryd_tpu_torch.coordination import coordination_store
+
+    return bool(coordination_store(url).smembers(
+        bqueryd_tpu_torch.REDIS_SET_KEY))
 
 
 def _engine_query(rpc, names, config):
@@ -729,11 +961,16 @@ def _launch(name, expect, codes, rows, n_rows, n_groups, **forced):
     return lambda: run(codes, rows, n_rows, n_groups, plan)
 
 
+#: kernel rows whose branch is forced: the executor's highcard inputs on
+#: the hicard "global" branch, which that shape does not route to
+FORCED = ("executor highcard global",)
+
+
 def check_kernels(inputs, device, launches, iters=50):
     """Every branch of each kernel at every recorded shape (``inputs``:
     label -> (kernel, branch, codes, rows, R, G, int rows)) against its
-    plain version, timed.  ``launches``: label -> launches on the main
-    path."""
+    plain version, timed.  ``launches``: label -> {path: launches of
+    that row's branch and shape on the path}."""
     import torch
 
     from bqueryd_tpu_torch.ops import onehot
@@ -746,13 +983,19 @@ def check_kernels(inputs, device, launches, iters=50):
         wrapper = getattr(onehot, name)
         plain = getattr(onehot, f"{name}_plain")
         kernel = BRANCH_KERNEL[(name, branch)]
-        _launch(name, branch, codes, rows, n_rows, n_groups)  # routes there
-        got = wrapper(codes, rows, n_rows, n_groups)
+        if label in FORCED:
+            # a branch the shape does not route to, forced through its plan
+            run = _launch(name, branch, codes, rows, n_rows, n_groups,
+                          branch=branch)
+        else:
+            _launch(name, branch, codes, rows, n_rows, n_groups)  # routes
+            run = lambda: wrapper(codes, rows, n_rows, n_groups)  # noqa: E731
+        got = run()
         want = plain(codes, rows, n_rows, n_groups)
         torch.cuda.synchronize()
         err = _compare(label, got, want, n_rows, n_int)
         if branch == "mma":
-            again = wrapper(codes, rows, n_rows, n_groups)
+            again = run()
             torch.cuda.synchronize()
             if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
                 raise AssertionError(f"{label}: two launches differ")
@@ -785,7 +1028,6 @@ def check_kernels(inputs, device, launches, iters=50):
             # one add per (row, stacked row) that has a group
             ops, peak = int(keep.numel()) * n_rows, FP32_FLOPS
         bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / peak) * 1e3
-        run = lambda: wrapper(codes, rows, n_rows, n_groups)  # noqa: E731
         ms = _device_ms(run, kernel, iters)
         ms_cold = _device_ms(run, kernel, max(iters // 5, 5), flush=flush)
         ms_events = _time_ms(run, iters)
@@ -802,7 +1044,8 @@ def check_kernels(inputs, device, launches, iters=50):
             "source": "bqueryd_tpu_torch/csrc/onehot_groupby.cu",
             "kernel": kernel,
             "replaces": REPLACES[name],
-            "launches": launches.get(label, 0),
+            "launches": sum(launches[label].values()),
+            "launches_by_path": launches[label],
             "max_abs_err": err,
             "ms": ms,
             "ms_cold": ms_cold,
@@ -945,30 +1188,55 @@ def main():
         configs = run_executor_path(rpc, names, parts, data_dir)
         exec_launches = counted_launches("executor")
         log(f"executor path: {time.perf_counter() - t0:.1f}s")
+        # the cluster's nodes bind and advertise the loopback address
+        os.environ["BQUERYD_TPU_IP"] = "127.0.0.1"
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        cluster = run_cluster_path(
+            names, parts, data_dir,
+            tempfile.mkdtemp(prefix="store_", dir=data_dir), configs)
+        cluster_launches = counted_launches("cluster")
+        log(f"cluster path: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        cli = run_cli_check(
+            names, parts, data_dir,
+            tempfile.mkdtemp(prefix="cli_store_", dir=data_dir))
+        log(f"CLI check: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
         engine_configs = run_engine_path(rpc, names, parts)
         engine_launches = counted_launches("per-shard engine")
         log(f"engine path: {time.perf_counter() - t0:.1f}s")
         print(json.dumps({"configs": configs,
+                          "cluster_configs": cluster,
+                          "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
+                                       "cluster": cluster_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
         inputs = {f"executor {config}": entry for config, entry in
                   capture_executor_inputs(rpc, names).items()}
+        name, _branch, *rest = inputs["executor highcard"]
+        inputs["executor highcard global"] = (name, "global", *rest)
         inputs.update(_shard_inputs(parts, device))
-        # the executor rows: each config's own launches; the engine rows:
-        # the launches at their shape
-        shape_launches = {**exec_launches, **engine_launches}
-        launches = {
-            label: shape_launches.get(
-                shape_key(e[0], e[1], e[4], e[5], e[2].shape[0]), 0)
-            for label, e in inputs.items()
-        }
-        launches.update({f"executor {config}": report["launches"]
-                         for config, report in configs.items()})
+        # launches per path: the executor rows count each config's own
+        # queries on the cluster and executor paths, the other rows the
+        # launches at their shape
+        launches = {label: {} for label in inputs}
+        for path, counted in (("executor", exec_launches),
+                              ("cluster", cluster_launches),
+                              ("engine", engine_launches)):
+            for label, e in inputs.items():
+                key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
+                if counted.get(key):
+                    launches[label][path] = counted[key]
+        for config in configs:
+            launches[f"executor {config}"] = {
+                "executor": configs[config]["launches"],
+                "cluster": cluster[config]["launches"],
+            }
         kernels = check_kernels(inputs, device, launches)
         print(json.dumps(sweeps(parts, device)), flush=True)
     finally:

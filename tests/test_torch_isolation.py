@@ -14,7 +14,9 @@ import bqueryd_tpu_torch
 from bqueryd_tpu_torch.models.query import QueryEngine
 from bqueryd_tpu_torch.ops import groupby as tg
 from bqueryd_tpu_torch.parallel.executor import MeshQueryExecutor
+from bqueryd_tpu_torch import node
 from bqueryd_tpu_torch.rpc import LocalRPC
+from bqueryd_tpu_torch.worker import WorkerNode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,7 +51,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.parallel.hostmerge",
                    "bqueryd_tpu_torch.parallel.executor",
                    "bqueryd_tpu_torch.parallel.pipeline",
-                   "bqueryd_tpu_torch.ops.workingset"):
+                   "bqueryd_tpu_torch.ops.workingset",
+                   "bqueryd_tpu_torch.controller",
+                   "bqueryd_tpu_torch.node",
+                   "bqueryd_tpu_torch.messages",
+                   "bqueryd_tpu_torch.coordination",
+                   "bqueryd_tpu_torch.plan.logical",
+                   "bqueryd_tpu_torch.utils.tracing"):
         assert module in result["imported"]
 
 
@@ -75,6 +83,12 @@ def test_entry_points_need_an_explicit_cpu_request(no_cuda, tmp_path):
         LocalRPC(str(tmp_path))
     with pytest.raises(RuntimeError):
         MeshQueryExecutor()
+    store = f"mem://isolation-{os.urandom(4).hex()}"
+    with pytest.raises(RuntimeError):
+        WorkerNode(coordination_url=store, data_dir=str(tmp_path))
+    with pytest.raises(RuntimeError):
+        node.main(["worker", f"--coordination={store}",
+                   f"--data_dir={tmp_path}"])
     codes = np.zeros(4, dtype=np.int32)
     values = np.ones(4, dtype=np.int64)
     with pytest.raises(RuntimeError):
@@ -82,5 +96,9 @@ def test_entry_points_need_an_explicit_cpu_request(no_cuda, tmp_path):
     assert QueryEngine(device="cpu").device.type == "cpu"
     assert LocalRPC(str(tmp_path), device="cpu").device.type == "cpu"
     assert MeshQueryExecutor(device="cpu").device.type == "cpu"
+    worker = WorkerNode(coordination_url=store, data_dir=str(tmp_path),
+                        device="cpu")
+    assert worker.device.type == "cpu"
+    worker.stop()
     out = tg.partial_tables(codes, (values,), ("sum",), 1, device="cpu")
     assert int(out["aggs"][0]["sum"][0]) == 4
