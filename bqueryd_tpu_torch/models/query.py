@@ -11,14 +11,15 @@ Results travel as :class:`ResultPayload`, the same pickled dict and
 with the other's host merge:
 
 * ``kind="partials"``: per-group partial tables keyed by actual key values;
-  mean partials carry (sum, count);
+  mean partials carry (sum, count); ``count_distinct`` partials carry each
+  group's distinct value set (or, for a sole payload, final counts from the
+  device sort); ``sorted_count_distinct`` carries run counts;
 * ``kind="rows"``: the ``aggregate=False`` raw-rows path;
 * ``kind="empty"``: shard pruned by ``shard_can_match``.
 
-This slice serves the mergeable ops (sum, mean, count, count_na, min,
-max).  The distinct ops, basket expansion and latency-aware host routing
-wait for later slices: the engine raises ``NotImplementedError`` for them
-and never routes a query around the device.
+The engine serves every op of :data:`AGG_OPS` and basket expansion
+(``expand_filter_column``).  Latency-aware host routing is not ported: the
+engine never routes a query around the device.
 """
 
 import os
@@ -108,8 +109,9 @@ class GroupByQuery:
     aggregate: bool = True
     expand_filter_column: str = None
     #: set by the controller when this payload is the whole query (a
-    #: single-shard fan-out): the reference's count_distinct then ships
-    #: final counts; no effect until the distinct ops are ported
+    #: single-shard fan-out): count_distinct then ships final per-group
+    #: counts from the device sort instead of the value sets a cross-shard
+    #: union needs
     sole_payload: bool = False
 
     def signature(self):
@@ -137,6 +139,48 @@ class GroupByQuery:
     @property
     def out_cols(self):
         return [a[2] for a in self.agg_list]
+
+
+def _group_distinct_flat(group_codes, value_codes, value_uniques, n_groups,
+                         mask=None):
+    """Per-group distinct values in flat form: ``(values, offsets)``, group
+    ``g``'s values being ``values[offsets[g]:offsets[g+1]]``: one array and
+    one int64 offsets array, cheap to pickle and unioned across payloads
+    without per-group Python.  Null group keys, null values (code < 0, as
+    pandas ``nunique`` skips NaN) and masked-out rows contribute nothing."""
+    valid = (group_codes >= 0) & (value_codes >= 0)
+    if mask is not None:
+        valid &= mask
+    nv = max(len(value_uniques), 1)
+    pairs = np.unique(
+        group_codes[valid].astype(np.int64) * nv + value_codes[valid]
+    )
+    g_of = pairs // nv
+    v_of = pairs % nv
+    offsets = np.searchsorted(g_of, np.arange(n_groups + 1)).astype(np.int64)
+    return np.asarray(value_uniques)[v_of], offsets
+
+
+def _segment_local_arange(counts):
+    """[0..c0), [0..c1), ... concatenated: the index within each segment."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    starts = np.cumsum(counts) - counts
+    return np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
+
+
+def filter_distinct_part(part, present):
+    """A flat distinct part restricted to the ``present`` groups."""
+    values = part["distinct_values"]
+    offsets = part["distinct_offsets"]
+    counts = np.diff(offsets)
+    sel = counts[present]
+    starts = offsets[:-1][present]
+    idx = np.repeat(starts, sel) + _segment_local_arange(sel)
+    new_offsets = np.zeros(len(sel) + 1, dtype=np.int64)
+    np.cumsum(sel, out=new_offsets[1:])
+    return {"distinct_values": values[idx], "distinct_offsets": new_offsets}
 
 
 class ResultPayload(dict):
@@ -273,6 +317,25 @@ class QueryEngine:
         )
         return codes, uniques
 
+    def _basket_codes(self, table, col):
+        """Basket codes for ``expand_filter_column``, cached like
+        :meth:`_key_codes` but factorized over the PHYSICAL column, so that
+        dict-encoded nulls (code -1) form one ordinary, selectable basket:
+        the basket key is a plain value column, as in the reference
+        bqueryd's ``is_in_ordered_subgroups``, which knows no nulls."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.storage.ctable import table_cache_key
+
+        cache_key = (table_cache_key(table), col, "basket")
+        hit = self._factorize_cache.get(cache_key)
+        if hit is not None:
+            return hit
+        codes, uniques = ops.factorize(np.asarray(table.column_raw(col)))
+        self._factorize_cache.put(
+            cache_key, (codes, uniques), nbytes=codes.nbytes + uniques.nbytes
+        )
+        return codes, uniques
+
     def _group_codes(self, table, groupby_cols):
         """Dense group codes of the key tuple, the per-group combos and how
         to decode them: ``(dense, combos, n_groups, cards, key_values,
@@ -341,10 +404,6 @@ class QueryEngine:
         from bqueryd_tpu_torch.ops.groupby import as_tensor
 
         self.last_effective_strategy = None
-        if query.expand_filter_column:
-            raise NotImplementedError(
-                "basket expansion (expand_filter_column) is not ported yet"
-            )
         if strategy not in (None, "auto", "matmul", "scatter", "sort",
                             "matmul!"):
             raise NotImplementedError(
@@ -352,10 +411,6 @@ class QueryEngine:
             )
         if query.aggregate:
             for in_col, op in zip(query.in_cols, query.ops):
-                if op not in ops.MERGEABLE_OPS:
-                    raise NotImplementedError(
-                        f"aggregation {op!r} is not ported yet"
-                    )
                 if op in ("sum", "mean") and table.kind(in_col) == "datetime":
                     raise ValueError(
                         f"{op!r} is not defined for datetime "
@@ -367,42 +422,62 @@ class QueryEngine:
         ):
             return ResultPayload.empty()
         mask = ops.build_mask(table, query.where_terms, self.device)
+        if query.expand_filter_column:
+            basket_codes, basket_uniques = self._basket_codes(
+                table, query.expand_filter_column
+            )
+            mask = ops.expand_mask_by_group(
+                basket_codes, mask, n_groups=len(basket_uniques),
+                device=self.device,
+            )
         if not query.aggregate:
             return self._raw_rows(table, query, mask)
 
         (dense, combos, n_groups, cards, key_values,
          combo_cols) = self._group_codes(table, query.groupby_cols)
+        if len(combos) < n_groups:
+            # a shard without rows (a view of no chunks): its one padded
+            # group has no rows and drops at collect
+            combos = np.zeros(n_groups, dtype=np.int64)
 
         # the bucketed group count keeps padded groups zero-row; they are
         # sliced off after the fetch
         n_prog = ops.program_bucket(n_groups)
         codes = as_tensor(dense.astype(np.int32), self.device)
-        if query.agg_list:
-            measures = tuple(table.column_raw(c) for c in query.in_cols)
+        mergeable = [
+            (i, a) for i, a in enumerate(query.agg_list)
+            if a[1] in ops.MERGEABLE_OPS
+        ]
+        agg_parts = [None] * len(query.agg_list)
+        if mergeable:
+            measures = tuple(table.column_raw(a[0]) for _, a in mergeable)
+            mops = tuple(a[1] for _, a in mergeable)
             sentinels = tuple(
                 np.iinfo(np.int64).min
-                if table.kind(c) == "datetime" else None
-                for c in query.in_cols
+                if table.kind(a[0]) == "datetime" else None
+                for _, a in mergeable
             )
             kernel_strategy = None if strategy == "auto" else strategy
             self.last_effective_strategy = ops.kernel_route(
-                kernel_strategy, measures, query.ops, len(dense), n_prog
+                kernel_strategy, measures, mops, len(dense), n_prog
             )
             partials = ops.tree_to_numpy(ops.partial_tables(
-                codes, measures, query.ops, n_prog, mask, null_sentinels=sentinels,
+                codes, measures, mops, n_prog, mask, null_sentinels=sentinels,
                 strategy=kernel_strategy,
             ))
             rows = partials["rows"][:n_groups]
-            agg_parts = [
-                {k: v[:n_groups] for k, v in part.items()}
-                for part in partials["aggs"]
-            ]
+            for (i, _a), part in zip(mergeable, partials["aggs"]):
+                agg_parts[i] = {k: v[:n_groups] for k, v in part.items()}
         else:
             # rows still needed to drop empty groups
             rows = ops.partial_tables(
                 codes, (), (), n_prog, mask
             )["rows"].cpu().numpy()[:n_groups]
-            agg_parts = []
+        for i, (in_col, op, _out) in enumerate(query.agg_list):
+            if op not in ops.MERGEABLE_OPS:
+                agg_parts[i] = self._distinct_part(
+                    table, query, in_col, op, codes, dense, n_groups, mask
+                )
 
         present = rows > 0
         combos_present = combos[present]
@@ -425,12 +500,71 @@ class QueryEngine:
             key_cols=query.groupby_cols,
             keys=keys,
             rows=rows[present],
-            aggs=[{k: v[present] for k, v in part.items()}
-                  for part in agg_parts],
+            aggs=[
+                filter_distinct_part(part, present)
+                if "distinct_offsets" in part
+                else {k: v[present] for k, v in part.items()}
+                for part in agg_parts
+            ],
             ops=query.ops,
             out_cols=query.out_cols,
             value_kinds=[_value_kind_for(table, c) for c in query.in_cols],
         )
+
+    def _distinct_part(self, table, query, in_col, op, codes, dense,
+                       n_groups, mask):
+        """One distinct op's partial over the shard's group codes
+        (``codes`` on the device, ``dense`` on the host):
+
+        * ``count_distinct`` of a sole payload: final counts from the
+          device sort (:func:`ops.groupby_count_distinct`), or the value
+          sets when the (group, value) space overflows int64;
+        * ``count_distinct`` otherwise: the per-group distinct value sets,
+          which union exactly across shards and workers, capped at
+          ``BQUERYD_TPU_DISTINCT_VALUES_LIMIT`` (group, value) pairs;
+        * ``sorted_count_distinct``: run counts on the device, additive
+          across shards (a run is local to its shard's order)."""
+        from bqueryd_tpu_torch import ops
+
+        if op == "sorted_count_distinct":
+            counts = ops.groupby_sorted_count_distinct(
+                codes, table.column_raw(in_col),
+                ops.program_bucket(n_groups), mask,
+            )
+            return {"distinct": counts.cpu().numpy()[:n_groups]}
+        if op != "count_distinct":
+            raise ValueError(f"unknown aggregation op {op!r}")
+        # dict and datetime values resolve to their actual values: shard
+        # dictionary codes live in incompatible code spaces
+        vcodes, vuniques = self._key_codes(table, in_col)
+        if query.sole_payload:
+            try:
+                counts = ops.groupby_count_distinct(
+                    codes, vcodes, ops.program_bucket(n_groups),
+                    # a bucketed n_values keeps the composite injective
+                    # (codes < actual <= bucket): counts are unchanged
+                    ops.program_bucket(max(len(vuniques), 1)), mask,
+                )
+            except ops.CompositeOverflow:
+                pass  # the value sets below answer exactly without packing
+            else:
+                return {"distinct": counts.cpu().numpy()[:n_groups]}
+        values, offsets = _group_distinct_flat(
+            np.asarray(dense), np.asarray(vcodes), np.asarray(vuniques),
+            n_groups, None if mask is None else mask.cpu().numpy(),
+        )
+        # the sets grow with the distinct values (up to the whole column):
+        # a cap keeps one query from exhausting worker or client memory
+        limit = int(os.environ.get(
+            "BQUERYD_TPU_DISTINCT_VALUES_LIMIT", 5_000_000
+        ))
+        if limit and len(values) > limit:
+            raise ValueError(
+                f"count_distinct on {in_col!r}: {len(values)} (group, value) "
+                f"pairs exceeds the payload cap {limit}; raise "
+                f"BQUERYD_TPU_DISTINCT_VALUES_LIMIT to allow"
+            )
+        return {"distinct_values": values, "distinct_offsets": offsets}
 
     def _raw_rows(self, table, query, mask):
         column_list = list(query.groupby_cols) + list(query.in_cols)

@@ -1,6 +1,7 @@
-"""The port's columnar kernels: host factorize, device filter masks, and the
-groupby partial tables whose contraction runs on the CUDA kernels of
-:mod:`bqueryd_tpu_torch.ops.onehot`."""
+"""The port's columnar kernels: host factorize, device filter masks and
+chunk pruning, the groupby partial tables whose contraction runs on the
+CUDA kernels of :mod:`bqueryd_tpu_torch.ops.onehot`, the distinct counts
+and basket expansion."""
 
 from bqueryd_tpu_torch.ops.factorize import (
     MAX_COMPOSITE,
@@ -14,7 +15,11 @@ from bqueryd_tpu_torch.ops.groupby import (
     AGG_OPS,
     MERGEABLE_OPS,
     combine_partials,
+    expand_mask_by_group,
     finalize,
+    groupby_count_distinct,
+    groupby_sorted_count_distinct,
+    host_sorted_count_distinct,
     kernel_route,
     partial_tables,
     program_bucket,
@@ -23,6 +28,8 @@ from bqueryd_tpu_torch.ops.groupby import (
 from bqueryd_tpu_torch.ops.predicates import (
     WHERE_OPS,
     build_mask,
+    chunk_pruned_table,
+    chunk_selection,
     shard_can_match,
     term_mask,
     translate_value,
@@ -38,13 +45,19 @@ __all__ = [
     "AGG_OPS",
     "MERGEABLE_OPS",
     "combine_partials",
+    "expand_mask_by_group",
     "finalize",
+    "groupby_count_distinct",
+    "groupby_sorted_count_distinct",
+    "host_sorted_count_distinct",
     "kernel_route",
     "partial_tables",
     "program_bucket",
     "tree_to_numpy",
     "WHERE_OPS",
     "build_mask",
+    "chunk_pruned_table",
+    "chunk_selection",
     "shard_can_match",
     "term_mask",
     "translate_value",

@@ -17,7 +17,11 @@ The port of ``bqueryd_tpu/ops/groupby.py``'s partial-table kernels:
   ``searchsorted``); both are bit-exact on ints;
 * results are **partial tables** (``{"rows": int64[G], "aggs": (...)}``,
   mean = {sum, count}) closed under elementwise merge: only
-  :func:`finalize` turns them into final values.
+  :func:`finalize` turns them into final values;
+* the distinct counts (:func:`groupby_count_distinct`,
+  :func:`groupby_sorted_count_distinct`) and basket expansion
+  (:func:`expand_mask_by_group`) are plain torch sorts, running maxima and
+  segment reductions, as the JAX package's are jnp ones.
 
 Routing depends only on the ops, dtypes, row count and group count, never
 on the device: a CUDA tensor goes through the kernels, a CPU tensor
@@ -102,6 +106,15 @@ def as_tensor(arr, device):
         # port's kernels writes to an input
         warnings.simplefilter("ignore", UserWarning)
         return torch.from_numpy(arr).to(device)
+
+
+def _placed(codes, device):
+    """The device an op runs on: a tensor's own, else ``device``."""
+    if torch.is_tensor(codes):
+        return codes.device
+    from bqueryd_tpu_torch import resolve_device
+
+    return resolve_device(device)
 
 
 class _Measure:
@@ -276,12 +289,7 @@ def partial_tables(codes, measures, ops, n_groups, mask=None,
             )
     if strategy is not None and strategy not in KERNEL_STRATEGIES:
         raise ValueError(f"unknown kernel strategy {strategy!r}")
-    if torch.is_tensor(codes):
-        dev = codes.device
-    else:
-        from bqueryd_tpu_torch import resolve_device
-
-        dev = resolve_device(device)
+    dev = _placed(codes, device)
     codes = as_tensor(codes, dev).to(torch.int64)
     if mask is not None:
         mask = as_tensor(mask, dev).to(torch.bool)
@@ -680,3 +688,150 @@ def tree_to_numpy(tree):
             for part in tree["aggs"]
         ),
     }
+
+
+# -- distinct counts and basket expansion -------------------------------------
+# Plain torch primitives (sort, cummax, bincount, scatter_reduce_), as the
+# JAX package computes them with jnp sort, cummax and segment ops; no Pallas
+# kernel stands behind them there.  Out-of-range segment ids are dropped as
+# JAX's segment ops drop them (an out-of-range index traps on the card).
+
+
+def _counts_into(flags, segment, n_groups):
+    """int64 per-segment count of ``flags``; segments outside
+    ``[0, n_groups)`` are dropped.  A histogram (``bincount``) rather than
+    an ``index_add_``: with a few groups, a million adds onto the same few
+    slots serialize on the card's atomics."""
+    keep = flags & (segment >= 0) & (segment < n_groups)
+    return torch.bincount(torch.where(keep, segment, n_groups),
+                          minlength=n_groups + 1)[:n_groups]
+
+
+def groupby_count_distinct(codes, value_codes, n_groups, n_values,
+                           mask=None, device=None):
+    """Distinct-value count per group by sort + boundary detection.
+
+    ``value_codes`` are dense codes of the measure values (host-factorized).
+    Each valid row becomes the int64 composite ``code * n_values +
+    value_code`` (-1 for invalid rows), the composites are sorted, and each
+    first occurrence of a composite counts one for its group.  Raises
+    :class:`~bqueryd_tpu_torch.ops.factorize.CompositeOverflow` when the
+    composite space does not fit int64.  Returns int64[n_groups]."""
+    from bqueryd_tpu_torch.ops.factorize import (
+        MAX_COMPOSITE,
+        CompositeOverflow,
+        total_cardinality,
+    )
+
+    n_groups, n_values = int(n_groups), int(n_values)
+    if total_cardinality((n_groups, n_values)) >= MAX_COMPOSITE:
+        # a wrapped composite would undercount silently; the engine ships
+        # the distinct value sets instead
+        raise CompositeOverflow(
+            f"count_distinct composite space {n_groups}x{n_values} "
+            "exceeds int64"
+        )
+    dev = _placed(codes, device)
+    codes = as_tensor(codes, dev).to(torch.int64)
+    value_codes = as_tensor(value_codes, dev).to(torch.int64)
+    valid = (codes >= 0) & (value_codes >= 0)
+    if mask is not None:
+        valid = valid & as_tensor(mask, dev).to(torch.bool)
+    composite = torch.where(valid, codes * n_values + value_codes, -1)
+    ordered = torch.sort(composite).values
+    first = torch.ones_like(ordered, dtype=torch.bool)
+    first[1:] = ordered[1:] != ordered[:-1]
+    is_new = first & (ordered >= 0)
+    group_of = torch.where(is_new, torch.div(ordered, n_values,
+                                             rounding_mode="floor"), 0)
+    return _counts_into(is_new, group_of, n_groups)
+
+
+def groupby_sorted_count_distinct(codes, values, n_groups, mask=None,
+                                  device=None):
+    """bquery's ``sorted_count_distinct``: value *runs* per group, for rows
+    pre-sorted by value within each group.  A run boundary is measured
+    against the previous *valid* row (an exclusive running max of valid
+    row indices), so a masked-out row inside a run neither splits nor
+    hides it; ``NaN != NaN`` starts a new run.  Returns int64[n_groups]."""
+    n_groups = int(n_groups)
+    dev = _placed(codes, device)
+    codes = as_tensor(codes, dev).to(torch.int64)
+    n = codes.shape[0]
+    if n == 0:
+        return torch.zeros(n_groups, dtype=torch.int64, device=dev)
+    if not torch.is_tensor(values) and np.asarray(values).dtype.kind == "M":
+        values = np.asarray(values).view(np.int64)  # compares as its ns
+    # uint16/32/64 in a type torch compares on the card, equality intact
+    values = _Measure(values, dev).t
+    valid = codes >= 0
+    if mask is not None:
+        valid = valid & as_tensor(mask, dev).to(torch.bool)
+    idx = torch.arange(n, device=dev)
+    last_valid = torch.cummax(torch.where(valid, idx, -1), 0).values
+    prev_idx = torch.cat([last_valid.new_full((1,), -1), last_valid[:-1]])
+    gather = torch.clamp(prev_idx, min=0)
+    same = (
+        (prev_idx >= 0)
+        & (codes[gather] == codes)
+        & (values[gather] == values)
+    )
+    return _counts_into(valid & ~same, torch.where(valid, codes, 0), n_groups)
+
+
+def host_sorted_count_distinct(codes, values, n_groups, mask=None):
+    """NumPy version of :func:`groupby_sorted_count_distinct` with the same
+    run-boundary semantics (masked-row bridging, ``NaN != NaN``), kept as
+    the tests' plain reference."""
+    codes = np.asarray(codes)
+    values = np.asarray(values)
+    if codes.shape[0] == 0:
+        return np.zeros(int(n_groups), dtype=np.int64)
+    valid = codes >= 0
+    if mask is not None:
+        valid = valid & np.asarray(mask, dtype=bool)
+    idx = np.arange(codes.shape[0])
+    marked = np.where(valid, idx, -1)
+    last_valid = np.maximum.accumulate(marked)
+    prev_idx = np.concatenate([[-1], last_valid[:-1]])
+    has_prev = prev_idx >= 0
+    gather = np.clip(prev_idx, 0, None)
+    with np.errstate(invalid="ignore"):
+        same = (
+            has_prev
+            & (codes[gather] == codes)
+            & (values[gather] == values)
+        )
+    is_new_run = valid & ~same
+    out = np.zeros(max(int(n_groups), 1), dtype=np.int64)
+    np.add.at(out, codes[is_new_run].astype(np.int64), 1)
+    return out[: int(n_groups)]
+
+
+def expand_mask_by_group(group_codes, mask, n_groups=None, device=None):
+    """Expand a row mask to whole groups (basket expansion, the reference
+    bqueryd's ``is_in_ordered_subgroups`` without requiring sorted input):
+    every row whose group holds at least one selected row becomes selected.
+
+    A segment max of ``mask & valid`` over ``program_bucket(n_groups)``
+    segments, gathered back to the rows.  Negative codes (null baskets) are
+    never selected; a code past the segment table is dropped from the
+    scatter and clamped in the gather, as the JAX package's segment max
+    and gather do.  ``n_groups`` defaults to the row count.  Returns a bool
+    tensor, or None when ``mask`` is None (no filter to expand)."""
+    if mask is None:
+        return None
+    dev = mask.device if torch.is_tensor(mask) else _placed(group_codes,
+                                                            device)
+    codes = as_tensor(group_codes, dev).to(torch.int64)
+    mask = as_tensor(mask, dev).to(torch.bool)
+    if n_groups is None:
+        n_groups = codes.shape[0]
+    n_seg = max(program_bucket(int(n_groups)), 1)
+    valid = codes >= 0
+    safe = torch.where(valid, codes, 0)
+    inside = safe < n_seg
+    hit = torch.zeros(n_seg, dtype=torch.int32, device=dev)
+    hit.scatter_reduce_(0, torch.where(inside, safe, 0),
+                        (mask & valid & inside).to(torch.int32), "amax")
+    return (hit[torch.clamp(safe, max=n_seg - 1)] > 0) & valid

@@ -18,8 +18,12 @@ against ``5.0`` compares in float32), as in JAX and NumPy 2.
 
 :func:`shard_can_match` is the host-side precheck: column min/max stats and
 dictionary membership decide whether a shard can hold any matching row
-before anything is decoded or uploaded.
+before anything is decoded or uploaded.  :func:`chunk_pruned_table` goes one
+level down: the per-chunk zone maps the writer stores prove chunks
+unmatchable, and a query runs over a view of the surviving chunks.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -27,6 +31,11 @@ import torch
 from bqueryd_tpu_torch.ops.groupby import as_tensor
 
 WHERE_OPS = ("==", "!=", "<", "<=", ">", ">=", "in", "not in")
+
+#: ops the per-chunk zone maps can prune on (``plan.stats.zone_can_match``);
+#: ``!=``/``not in`` never prune: NaN rows satisfy them but are invisible
+#: to the NaN-skipping zone maps
+ZONE_PRUNABLE_OPS = ("==", "<", "<=", ">", ">=", "in")
 
 
 def _to_ns(value):
@@ -112,6 +121,77 @@ def build_mask(table, where_terms_list, device):
             m = term_mask(as_tensor(raw, device), op, phys)
         mask = m if mask is None else (mask & m)
     return mask
+
+
+def chunk_prune_enabled():
+    """Chunk-granular zone-map pruning switch (``BQUERYD_TPU_CHUNK_PRUNE``,
+    default on)."""
+    return os.environ.get("BQUERYD_TPU_CHUNK_PRUNE", "1") == "1"
+
+
+def chunk_prune_selectivity():
+    """Surviving-chunk fraction ABOVE which pruning is skipped
+    (``BQUERYD_TPU_CHUNK_PRUNE_SELECTIVITY``, default 0.9): a filter that
+    keeps nearly every chunk would fragment the content-keyed caches for
+    little decode saved."""
+    try:
+        return float(
+            os.environ.get("BQUERYD_TPU_CHUNK_PRUNE_SELECTIVITY", "0.9")
+        )
+    except ValueError:
+        return 0.9
+
+
+def chunk_selection(table, where_terms_list):
+    """Boolean keep-mask over the table's committed chunk grid for an
+    AND-ed term list, or None when nothing is prunable (no zone maps, no
+    prunable ops, one chunk).  A False entry is proof, from the chunk's
+    min/max, that no row of that chunk satisfies the conjunction."""
+    from bqueryd_tpu_torch.plan.stats import zone_can_match
+
+    counts = getattr(table, "chunk_rows", lambda: None)()
+    if counts is None or len(counts) <= 1:
+        return None
+    keep = np.ones(len(counts), dtype=bool)
+    prunable = False
+    for term in where_terms_list or []:
+        try:
+            column, op, value = term
+        except (TypeError, ValueError):
+            continue
+        if op not in ZONE_PRUNABLE_OPS or column not in table:
+            continue
+        maps = table.chunk_zone_maps(column)
+        if maps is None or len(maps) != len(counts):
+            continue
+        phys = translate_value(table, column, value, op)
+        for i, zone in enumerate(maps):
+            if not keep[i] or zone is None:
+                continue
+            if not zone_can_match(zone[0], zone[1], op, phys):
+                keep[i] = False
+                prunable = True
+    return keep if prunable else None
+
+
+def chunk_pruned_table(table, where_terms_list):
+    """``(table_or_view, chunks_decoded, chunks_skipped)``: the table
+    itself unless pruning is on, at least one chunk is provably
+    unmatchable and the surviving fraction is at or under
+    :func:`chunk_prune_selectivity`; then a ``ChunkView`` of the surviving
+    chunks.  Never for basket expansion (``expand_filter_column``), which
+    re-selects rows of a basket that live in pruned chunks."""
+    counts = getattr(table, "chunk_rows", lambda: None)()
+    total = len(counts) if counts is not None else 0
+    if not chunk_prune_enabled():
+        return table, 0, 0
+    keep = chunk_selection(table, where_terms_list)
+    if keep is None:
+        return table, total, 0
+    selected = int(keep.sum())
+    if selected == total or selected / total > chunk_prune_selectivity():
+        return table, total, 0
+    return table.chunk_view(np.flatnonzero(keep)), selected, total - selected
 
 
 def shard_can_match(table, where_terms_list):

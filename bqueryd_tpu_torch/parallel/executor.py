@@ -27,9 +27,15 @@ calling thread.  A CUDA error propagates to the caller: there is no retry
 and no fallback here.  ``ops.CompositeOverflow`` (a key space past int64)
 is raised for the worker to serve through the per-shard engine.
 
+Basket expansion (``expand_filter_column``) widens each shard's row filter
+to whole baskets before the fold, so the folded codes in the working set
+already carry it.  The executor runs as well over the ``ChunkView``s that
+chunk pruning hands it: every working-set entry is keyed by the view's own
+``table_cache_key``, and a view has no sidecars.
+
 Waiting for later slices: several devices (the ``torch.distributed``
 merge, its host-merge kill switch and the ``psum`` mode), shared-scan
-bundles, operator-DAG programs and basket expansion.
+bundles and operator-DAG programs.
 """
 
 import numpy as np
@@ -205,7 +211,12 @@ class MeshQueryExecutor:
         # composite-sidecar stamps, captured BEFORE any key column is read:
         # a shard rewritten mid-align stores a stale-stamped sidecar that
         # future loads miss
-        comp_stamps = [t.composite_stamp(query.groupby_cols) for t in tables]
+        comp_stamps = [
+            getattr(t, "composite_stamp", lambda cols: None)(
+                query.groupby_cols
+            )
+            for t in tables
+        ]
         per_table = pipeline.map_ordered(
             lambda table: [
                 engine._key_codes(table, col) for col in query.groupby_cols
@@ -281,21 +292,26 @@ class MeshQueryExecutor:
         digest = h.digest()
 
         def shard_composites(si):
+            # a ChunkView has no sidecars: its composites stay in memory
             table = tables[si]
-            hit = table.composite_cache_load(
-                query.groupby_cols, digest, stamp=comp_stamps[si]
-            )
-            if hit is not None:
-                return np.asarray(hit[0]), np.asarray(hit[1], dtype=np.int64)
+            if comp_stamps[si] is not None:
+                hit = table.composite_cache_load(
+                    query.groupby_cols, digest, stamp=comp_stamps[si]
+                )
+                if hit is not None:
+                    return (np.asarray(hit[0]),
+                            np.asarray(hit[1], dtype=np.int64))
             packed = ops.pack_codes(
                 [mapped_codes(si, ci) for ci in range(n_cols)], cards
             )
             inv, uniq = ops.factorize(packed)
             inv = np.asarray(inv)
             uniq = np.asarray(uniq, dtype=np.int64)
-            table.composite_cache_store(
-                query.groupby_cols, digest, inv, uniq, stamp=comp_stamps[si]
-            )
+            if comp_stamps[si] is not None:
+                table.composite_cache_store(
+                    query.groupby_cols, digest, inv, uniq,
+                    stamp=comp_stamps[si],
+                )
             return inv, uniq
 
         composites = pipeline.map_ordered(shard_composites, range(len(tables)))
@@ -364,10 +380,6 @@ class MeshQueryExecutor:
             raise ValueError(
                 "MeshQueryExecutor handles mergeable aggregations only; "
                 "route distinct-count / raw-rows queries per shard"
-            )
-        if query.expand_filter_column:
-            raise NotImplementedError(
-                "basket expansion (expand_filter_column) is not ported yet"
             )
         # datetime measures ride as int64 with NaT (int64 min) as their
         # null sentinel; their sums/means are rejected before any work
@@ -445,13 +457,18 @@ class MeshQueryExecutor:
             else:
                 dense, combos, cards, key_values = cached
             n_groups = max(len(combos), 1)
+            if not len(combos):
+                # no shard holds a row (views of no chunks): one padded
+                # group, which no row reaches and collect drops
+                combos = np.zeros(1, dtype=np.int64)
         if not align_warm:
             prefetch_missing()
 
         codes_d = self._codes_cache.get(codes_key)
         if codes_d is None:
             # cold only: on a hit the folded codes ARE the filter
-            codes_d = self._codes_block(tables, query, dense, n_groups)
+            codes_d = self._codes_block(tables, query, dense, n_groups,
+                                        engine)
             self._codes_cache.put(codes_key, codes_d)
         measures_d = self._measure_blocks(
             tables, unique_cols, block_key, prefetch
@@ -483,18 +500,28 @@ class MeshQueryExecutor:
                 measure_kinds,
             )
 
-    def _codes_block(self, tables, query, dense, n_groups):
+    def _codes_block(self, tables, query, dense, n_groups, engine):
         """Packed global codes on the device, with each shard's row filter
         folded in (filtered-out rows become -1).  Masks are built on the
-        device and folded there."""
+        device, expanded to whole baskets there under
+        ``expand_filter_column`` (each shard's own basket codes, cached by
+        ``engine``), and folded there."""
         import torch
 
         from bqueryd_tpu_torch import ops
         from bqueryd_tpu_torch.parallel import pipeline
 
-        masks = [
-            ops.build_mask(t, query.where_terms, self.device) for t in tables
-        ]
+        masks = []
+        for t in tables:
+            mask = ops.build_mask(t, query.where_terms, self.device)
+            if query.expand_filter_column:
+                bcodes, buniques = engine._basket_codes(
+                    t, query.expand_filter_column
+                )
+                mask = ops.expand_mask_by_group(
+                    bcodes, mask, n_groups=len(buniques), device=self.device
+                )
+            masks.append(mask)
         with pipeline.stage("align"):
             cdt = _codes_dtype(n_groups)
             packed = self._pack(

@@ -1,16 +1,20 @@
 """Host-side (NumPy-only) merge of value-keyed result payloads.
 
-The port's copy of ``bqueryd_tpu/parallel/hostmerge.py`` for the mergeable
+The port's copy of ``bqueryd_tpu/parallel/hostmerge.py`` for the groupby
 ops: payloads carry actual key values, and this module aligns them across
 shards and workers and combines them:
 
 * ``mean`` merges as (sum, count) -> weighted mean, not sum-of-shard-means;
 * ``min``/``max`` merge as min/max;
-* ``sum``/``count`` add.
+* ``sum``/``count`` add;
+* ``count_distinct`` partials carry each group's distinct VALUE SET in flat
+  form (``distinct_values``, ``distinct_offsets``) and merge by union, so a
+  value seen on several shards counts once; a sole payload's final counts
+  (``distinct``) and ``sorted_count_distinct``'s run counts add.
 
 Payloads of ``bqueryd_tpu`` and of the port share one format, so either
-package's merge takes the other's payloads.  The distinct-set unions and
-the operator-DAG part kinds wait for the slices that port those ops.
+package's merge takes the other's payloads.  The operator-DAG part kinds
+wait for the slice that ports those ops.
 """
 
 import numpy as np
@@ -20,8 +24,11 @@ from bqueryd_tpu_torch.models.query import extremum_fill
 _MERGE_RULES = {
     "sum": np.add,
     "count": np.add,
+    "distinct": np.add,
     "min": np.minimum,
     "max": np.maximum,
+    # ("distinct_values", "distinct_offsets") pairs merge by set union in
+    # _merge_aligned
 }
 
 
@@ -222,7 +229,20 @@ def _merge_aligned(payloads, key_cols, ops, out_cols, value_kinds):
     for ai in range(len(ops)):
         part_names = first["aggs"][ai].keys()
         merged = {}
+        if "distinct_offsets" in part_names:
+            values, offsets = _union_distinct_flat(
+                [
+                    (g, p["aggs"][ai]["distinct_values"],
+                     p["aggs"][ai]["distinct_offsets"])
+                    for g, p in zip(group_of, payloads)
+                ],
+                n_global,
+            )
+            merged["distinct_values"] = values
+            merged["distinct_offsets"] = offsets
         for pname in part_names:
+            if pname in ("distinct_values", "distinct_offsets"):
+                continue
             rule = _MERGE_RULES[pname]
             parts = [
                 (g, np.asarray(p["aggs"][ai][pname]))
@@ -246,6 +266,52 @@ def _merge_aligned(payloads, key_cols, ops, out_cols, value_kinds):
         "out_cols": out_cols,
         "value_kinds": value_kinds,
     }
+
+
+def _union_distinct_flat(parts, n_global):
+    """Union per-group distinct value sets across payloads, vectorized.
+
+    ``parts`` is ``[(local_map, values, offsets), ...]`` in the flat
+    per-group form.  Each payload's offsets expand into global group ids,
+    (group, value) pairs dedupe through composite codes, and the result is
+    one merged flat ``(values, offsets)``, with no per-group Python loop."""
+    vals_chunks, gid_chunks = [], []
+    for local_map, values, offsets in parts:
+        values = np.asarray(values)
+        if len(values) == 0:
+            continue
+        counts = np.diff(np.asarray(offsets))
+        vals_chunks.append(values)
+        gid_chunks.append(np.repeat(np.asarray(local_map), counts))
+    if not vals_chunks:
+        return np.empty(0), np.zeros(n_global + 1, dtype=np.int64)
+    all_vals = np.concatenate(vals_chunks)
+    all_gids = np.concatenate(gid_chunks)
+    span = None
+    if np.issubdtype(all_vals.dtype, np.integer):
+        vmin = int(all_vals.min())
+        vmax = int(all_vals.max())
+        span = vmax - vmin + 1
+        if n_global * span >= (1 << 62) or vmax >= (1 << 63):
+            span = None  # overflow (uint64 past int64 too): unique path
+    if span is not None:
+        # integer values in a packable range: one unique over packed
+        # (group, value) codes, no sort of the values themselves
+        pair = all_gids.astype(np.int64) * np.int64(span) + (
+            all_vals.astype(np.int64) - np.int64(vmin)
+        )
+        uniq_pairs = np.unique(pair)
+        merged_vals = (uniq_pairs % span + vmin).astype(all_vals.dtype)
+        counts = np.bincount(uniq_pairs // span, minlength=n_global)
+    else:
+        uniq_vals, vinv = np.unique(all_vals, return_inverse=True)
+        pair = all_gids.astype(np.int64) * np.int64(len(uniq_vals)) + vinv
+        uniq_pairs = np.unique(pair)
+        merged_vals = uniq_vals[uniq_pairs % len(uniq_vals)]
+        counts = np.bincount(uniq_pairs // len(uniq_vals), minlength=n_global)
+    offsets = np.zeros(n_global + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return merged_vals, offsets
 
 
 def finalize_table(merged):
@@ -278,6 +344,14 @@ def finalize_table(merged):
                 values = np.asarray(values).astype(np.int64).view(np.uint64)
         elif op in ("count", "count_na"):
             values = agg["count"]
+        elif op == "count_distinct":
+            if "distinct" in agg:
+                # a sole payload: final counts from the device sort
+                values = np.asarray(agg["distinct"])
+            else:
+                values = np.diff(np.asarray(agg["distinct_offsets"]))
+        elif op == "sorted_count_distinct":
+            values = agg["distinct"]
         elif op in ("min", "max"):
             values = agg[op]
             empty = agg["count"] == 0

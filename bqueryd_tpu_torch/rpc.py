@@ -46,9 +46,11 @@ class LocalRPC:
         self.engine = QueryEngine(device=device)
         self.executor = MeshQueryExecutor(device=self.engine.device)
         #: the kernel route and merge mode of the last groupby (the
-        #: reference worker's reply envelope keys)
+        #: reference worker's reply envelope keys), and its
+        #: (chunks_decoded, chunks_skipped) when chunk pruning ran
         self.last_effective_strategy = None
         self.last_merge_mode = None
+        self.last_chunk_prune = None
         self._tables = {}
 
     @property
@@ -63,15 +65,17 @@ class LocalRPC:
         return table
 
     def groupby(self, filenames, groupby_cols, agg_list, where_terms=None,
-                aggregate=True):
+                aggregate=True, expand_filter_column=None):
         """``(order, {column: np.ndarray})`` of the finalized result: the
         group keys then the aggregates (or the selected raw rows when
-        ``aggregate=False``)."""
+        ``aggregate=False``).  One file's payload is the whole answer, as
+        a controller marks a single-shard fan-out (``sole_payload``)."""
         if isinstance(filenames, str):
             filenames = [filenames]
         query = GroupByQuery(
             list(groupby_cols), agg_list, list(where_terms or []),
-            aggregate=aggregate,
+            aggregate=aggregate, expand_filter_column=expand_filter_column,
+            sole_payload=aggregate and len(filenames) == 1,
         )
         tables = [self._table(f) for f in filenames]
         report = {}
@@ -81,6 +85,7 @@ class LocalRPC:
         )
         self.last_effective_strategy = report["effective_strategy"]
         self.last_merge_mode = report["merge_mode"]
+        self.last_chunk_prune = report.get("chunk_prune")
         merged = hostmerge.merge_payloads([payload])
         return hostmerge.finalize_table(merged)
 

@@ -4,8 +4,9 @@ The port's own copy of ``bqueryd_tpu/storage/ctable.py`` with the same
 on-disk format, so either package reads what the other writes.  pandas is
 imported only by the DataFrame entry points (``append_dataframe``,
 ``fromdataframe``, ``todataframe``); :meth:`ctable.append` writes a mapping
-of numpy arrays without it.  The chunk views of the JAX package wait for
-the chunk-pruning slice.
+of numpy arrays without it.  Chunk pruning reads the per-chunk zone maps
+the writer stores (:meth:`ctable.chunk_zone_maps`) and runs a query over a
+:class:`ChunkView` of the surviving chunks.
 
 Format notes:
 
@@ -439,6 +440,42 @@ class ctable:
             acc += int(c["nrows"])
         return out if acc == self.nrows else None
 
+    def chunk_rows(self, name=None):
+        """Per-chunk row counts of the committed chunk grid (every column
+        of a table shares one grid: each append chunks all columns by the
+        same batch and chunklen), or None when the grid is unreadable."""
+        if name is None:
+            if not self._order:
+                return None
+            name = self._order[0]
+        chunks = self.committed_chunks(name)
+        if chunks is None:
+            return None
+        return [int(c["nrows"]) for c in chunks]
+
+    def chunk_zone_maps(self, name):
+        """Per-chunk ``(min, max)`` zone maps over the committed chunks of a
+        numeric/datetime column (physical values, datetimes in int64 ns),
+        or None when the column kind carries none.  An entry is None for a
+        chunk written without a zone map or holding no stats-able value
+        (all-NaN/NaT): such a chunk matches every predicate."""
+        col = self._columns[name]
+        if col.kind not in (KIND_NUMERIC, KIND_DATETIME):
+            return None
+        chunks = self.committed_chunks(name)
+        if chunks is None:
+            return None
+        return [
+            (c["min"], c["max"])
+            if c.get("min") is not None and c.get("max") is not None
+            else None
+            for c in chunks
+        ]
+
+    def chunk_view(self, chunk_ids):
+        """A :class:`ChunkView` over the given committed-chunk indices."""
+        return ChunkView(self, chunk_ids)
+
     def _column_cache_key(self, name, extra=()):
         """Content key of one column's decoded bytes.  Beyond the data
         file's (mtime, size), the key carries this INSTANCE's committed
@@ -521,6 +558,33 @@ class ctable:
             b"".join(parts) if len(parts) > 1 else parts[0], rebased,
             dtype.itemsize, self.codec_id, out, self.nthreads,
         )
+
+    def column_raw_chunks(self, name, chunk_ids):
+        """The rows of the given committed-chunk indices (ascending) of a
+        column, concatenated: only those chunks' byte ranges are read and
+        decoded.  Cached like :meth:`column_raw`, keyed also by the
+        selection."""
+        chunk_ids = [int(i) for i in chunk_ids]
+        col = self._columns[name]
+        key = self._column_cache_key(name, extra=("sel", tuple(chunk_ids)))
+        if self.auto_cache:
+            hit = _cache_get(key)
+            if hit is not None:
+                return hit
+        snap = self.committed_chunks(name)
+        if snap is None:
+            raise IOError(
+                f"inconsistent table {self.rootdir!r}: column {name!r} "
+                f"chunk index does not cover the committed row count"
+            )
+        chosen = [snap[i] for i in chunk_ids]
+        out = np.empty(sum(c["nrows"] for c in chosen),
+                       dtype=np.dtype(col.dtype))
+        self._read_decode_chunks(name, chosen, out)
+        if self.auto_cache:
+            out.setflags(write=False)
+            _cache_put(key, out)
+        return out
 
     def column(self, name):
         """Logical column values: strings decoded from the dictionary,
@@ -773,6 +837,120 @@ def _logical_values(table, name, raw):
     if kind == KIND_DATETIME:
         return raw.view("datetime64[ns]")
     return raw
+
+
+class ChunkView:
+    """Read-only row subset of a ctable at chunk granularity: what a query
+    runs over once zone-map pruning
+    (:func:`bqueryd_tpu_torch.ops.predicates.chunk_pruned_table`) has
+    proved the other chunks unmatchable, so decode, alignment and upload
+    touch only the surviving chunks.
+
+    The view answers every query-time read a table does (engine, executor,
+    raw rows): ``column_raw`` decodes only the selected chunks, rows in
+    ascending chunk order; ``col_stats`` folds the selected chunks' zone
+    maps (the parent's column stats when a chunk has none); dictionaries
+    and dtypes delegate.  It deliberately has no sidecar methods
+    (``factor_stamp``, ``factor_cache_load``, the composite ones): a
+    sidecar stored for a chunk subset must never serve a full-table load,
+    so factorizations of a view live only in memory, keyed by the view's
+    own cache identity."""
+
+    def __init__(self, parent, chunk_ids):
+        self.parent = parent
+        self.chunk_ids = sorted(int(i) for i in chunk_ids)
+        counts = parent.chunk_rows()
+        if counts is None:
+            raise IOError(
+                f"table {parent.rootdir!r} has no readable chunk grid"
+            )
+        if self.chunk_ids and self.chunk_ids[-1] >= len(counts):
+            raise IndexError(
+                f"chunk id {self.chunk_ids[-1]} out of range "
+                f"({len(counts)} committed chunks)"
+            )
+        self.nrows = sum(counts[i] for i in self.chunk_ids)
+        self.rootdir = None  # table_cache_key falls through to the token
+        self.mode = "r"
+        self.auto_cache = parent.auto_cache
+        # deterministic cache identity: the parent's meta identity, its row
+        # count and the selection; a rewritten parent or another selection
+        # gives another token, so every cache keyed by table_cache_key
+        # (factorize, align, codes, blocks) invalidates as for a table
+        pkey = rootdir_cache_key(getattr(parent, "rootdir", None))
+        if pkey is None:
+            pkey = ("unstable", os.urandom(8).hex())
+        sig = zlib.crc32(np.asarray(self.chunk_ids, dtype=np.int64).tobytes())
+        self._bqueryd_cache_token = (
+            f"{pkey}|r{int(parent.nrows)}|c{len(self.chunk_ids)}:{sig:08x}"
+        )
+
+    # -- delegated metadata ------------------------------------------------
+    @property
+    def names(self):
+        return self.parent.names
+
+    def __len__(self):
+        return self.nrows
+
+    def __contains__(self, name):
+        return name in self.parent
+
+    def kind(self, name):
+        return self.parent.kind(name)
+
+    def physical_dtype(self, name):
+        return self.parent.physical_dtype(name)
+
+    def dictionary(self, name):
+        return self.parent.dictionary(name)
+
+    def dict_lookup(self, name):
+        return self.parent.dict_lookup(name)
+
+    def chunk_rows(self, name=None):
+        counts = self.parent.chunk_rows(name)
+        if counts is None:
+            return None
+        return [counts[i] for i in self.chunk_ids]
+
+    def chunk_zone_maps(self, name):
+        maps = self.parent.chunk_zone_maps(name)
+        if maps is None:
+            return None
+        return [maps[i] for i in self.chunk_ids]
+
+    def col_stats(self, name):
+        """(min, max) over the selected chunks' zone maps when every one
+        carries a zone map; the parent's column stats (a superset range)
+        otherwise."""
+        maps = self.chunk_zone_maps(name)
+        if maps and all(m is not None for m in maps):
+            return (min(m[0] for m in maps), max(m[1] for m in maps))
+        return self.parent.col_stats(name)
+
+    # -- data --------------------------------------------------------------
+    def column_raw(self, name):
+        return self.parent.column_raw_chunks(name, self.chunk_ids)
+
+    def column(self, name):
+        return _logical_values(self.parent, name, self.column_raw(name))
+
+    def __getitem__(self, name):
+        return self.column(name)
+
+    def prefetch(self, names):
+        """:meth:`ctable.prefetch` over the selected chunks only."""
+        from bqueryd_tpu_torch.parallel import pipeline
+
+        def decode(name):
+            with pipeline.stage("decode"):
+                return self.column_raw(name)
+
+        return [
+            pipeline.submit(decode, name) for name in names
+            if name in self.parent
+        ]
 
 
 def _classify_dtype(dtype):

@@ -3,17 +3,22 @@
 :func:`execute` is the port of ``bqueryd_tpu/worker.py``
 ``WorkerNode._execute``:
 
+* a filter whose per-chunk zone maps prove most chunks unmatchable runs
+  over views of the surviving chunks (``ops.chunk_pruned_table``), on
+  every route below; basket expansion skips this, as it re-selects rows of
+  a basket that live in pruned chunks;
 * mergeable aggregate queries go to the executor
   (:class:`~bqueryd_tpu_torch.parallel.executor.MeshQueryExecutor`): one
   key alignment, one kernel call over every shard's rows, the merge on the
   device;
 * a composite key space past int64 (``ops.CompositeOverflow``) is served
   by the per-shard engine, which factorizes key tuples instead;
-* a single shard that the executor does not take (raw rows, other ops)
-  goes to :meth:`QueryEngine.execute_local`;
-* anything else runs per shard, then merges on the host by key value:
-  each shard's host work (key factorize, column decode) runs on the
-  pipeline pool, its device work on the calling thread.
+* a single shard that the executor does not take (raw rows, the distinct
+  ops) goes to :meth:`QueryEngine.execute_local`;
+* anything else runs per shard, then merges on the host by key value
+  (distinct value sets by union): each shard's host work (key factorize,
+  column decode) runs on the pipeline pool, its device work on the calling
+  thread.
 
 :class:`WorkerNode` runs :func:`execute` behind the reference's control
 plane: one ROUTER socket with a random hex identity connected out to every
@@ -25,10 +30,11 @@ runs on the node's loop thread.
 
 A device error is never caught on the query path: inside a node it
 becomes an ``ErrorMessage`` for the controller, never a retry on the host
-or on a plain version.  Latency-aware host routing and chunk pruning wait
-for later slices, so the port never routes a query around the device.
+or on a plain version.  Latency-aware host routing waits for a later slice,
+so the port never routes a query around the device.
 """
 
+import contextlib
 import logging
 import os
 import signal
@@ -61,19 +67,34 @@ SHARD_EXTENSIONS = (".bcolz", ".bcolzs")
 
 
 def execute(tables, query, engine, executor=None, strategy=None,
-            report=None):
+            report=None, timer=None):
     """Run ``query`` over ``tables``; always returns ONE payload.
 
     ``executor`` serves the mergeable aggregations when given; ``engine``
     the rest.  ``report``, a dict when given, receives the reply envelope
     keys of the reference worker: ``effective_strategy`` (the kernel
     route) and ``merge_mode`` ("device" for the executor, "host" for the
-    per-shard host merge, "none" for one shard's payload)."""
+    per-shard host merge, "none" for one shard's payload), and, only when
+    the filter ran through chunk pruning, ``chunk_prune``:
+    ``(chunks_decoded, chunks_skipped)`` over all shards.  ``timer``, a
+    :class:`PhaseTimer` when given, times the ``prune`` phase."""
     from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.ops import predicates
 
     if report is None:
         report = {}
     report["effective_strategy"] = report["merge_mode"] = None
+    report.pop("chunk_prune", None)
+    if (query.where_terms and not query.expand_filter_column
+            and predicates.chunk_prune_enabled()):
+        with timer.phase("prune") if timer else contextlib.nullcontext():
+            pruned = [predicates.chunk_pruned_table(t, query.where_terms)
+                      for t in tables]
+        decoded = sum(p[1] for p in pruned)
+        skipped = sum(p[2] for p in pruned)
+        if decoded or skipped:
+            tables = [p[0] for p in pruned]
+            report["chunk_prune"] = (decoded, skipped)
     if executor is not None and executor.supports(query):
         try:
             result = executor.execute(tables, query, strategy=strategy)
@@ -101,15 +122,21 @@ def execute(tables, query, engine, executor=None, strategy=None,
 
 
 def _host_stage(engine, query):
-    """One shard's host work for ``query``: its key columns' factorize and
-    its column decodes, left in the engine's and the storage's caches for
-    :meth:`QueryEngine.execute_local` (decodes only where the table keeps
-    them in the decoded-column cache).  A shard the filter's stats rule
-    out is skipped, as ``execute_local`` skips it."""
+    """One shard's host work for ``query``: the factorize of its key
+    columns, of its count_distinct value columns and of its basket column,
+    and its column decodes, left in the engine's and the storage's caches
+    for :meth:`QueryEngine.execute_local` (decodes only where the table
+    keeps them in the decoded-column cache).  A shard the filter's stats
+    rule out is skipped, as ``execute_local`` skips it."""
     from bqueryd_tpu_torch import ops
 
     columns = list(dict.fromkeys(
         list(query.in_cols) + [term[0] for term in query.where_terms or []]
+    ))
+    factorized = list(dict.fromkeys(
+        list(query.groupby_cols)
+        + [c for c, op in zip(query.in_cols, query.ops)
+           if op == "count_distinct"]
     ))
 
     def run(table):
@@ -117,8 +144,10 @@ def _host_stage(engine, query):
             table, query.where_terms
         ):
             return
-        for col in query.groupby_cols:
+        for col in factorized:
             engine._key_codes(table, col)
+        if query.expand_filter_column:
+            engine._basket_codes(table, query.expand_filter_column)
         if table.auto_cache:
             for col in columns:
                 table.column_raw(col)
@@ -506,14 +535,21 @@ class WorkerNode(WorkerBase):
                 tables.append(self._open_table(rootdir))
         report = {}
         with timer.phase("execute"):
+            # the prune phase, when it runs, is timed inside execute
             payload = execute(tables, query, self.engine,
                               executor=self.executor, strategy=strategy,
-                              report=report)
+                              report=report, timer=timer)
         with timer.phase("serialize"):
             data = payload.to_bytes()
         reply = msg.copy()
         reply["data"] = data
         reply["phase_timings"] = timer.as_dict()
+        if "chunk_prune" in report:
+            # counts beside the prune phase, underscore-named like _total
+            # so that no consumer reads them as seconds of a phase
+            decoded, skipped = report["chunk_prune"]
+            reply["phase_timings"]["_chunks_decoded"] = decoded
+            reply["phase_timings"]["_chunks_skipped"] = skipped
         remaining = msg.deadline_remaining()
         if remaining is not None:
             reply["deadline_remaining"] = round(remaining, 4)

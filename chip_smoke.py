@@ -6,51 +6,65 @@
 2. builds the CUDA kernels of bqueryd_tpu_torch from the sources in this
    checkout (and the native codec library, in parallel);
 3. writes the BASELINE dataset with the port's ctable: bench.py's taxi
-   schema and generator (seed 42), 10,000,000 rows in 10 shards of 1M;
-4. drives the executor path in-process: the five BASELINE configs (single,
-   sharded, multikey, filtered, highcard) through ``LocalRPC.groupby`` on
-   cuda, which routes them to ``MeshQueryExecutor`` (one key alignment, one
-   kernel call over every shard's rows, the merge on the device).  Per
-   config: one cold query after the executor's and engine's caches are
-   cleared (printing what stays warm: the on-disk sidecars and the
-   decoded-column cache), then 3 warm queries.  Each query is checked
-   against a NumPy reference of the generated arrays (int sums and counts
-   bit-exact, the float mean within rtol=2e-5), must launch its config's
-   kernel branch exactly once at the executor's shape (R, G, n), and the
-   warm queries must hit every working-set segment;
+   schema and generator (seed 42), 10,000,000 rows in 10 shards of 1M,
+   with pickup_ts sorted within each shard so that its zone maps prune;
+4. drives every config through ``LocalRPC.groupby`` on cuda, the
+   in-process reference: the five BASELINE configs (single, sharded,
+   multikey, filtered, highcard) and the rest of the groupby verb
+   (distinct: count_distinct value sets unioned across 10 shards;
+   distinct_sole: one shard's count_distinct on the device sort; runs:
+   sorted_count_distinct; basket: basket expansion; pruned: a time filter
+   that chunk pruning serves from 10 of 40 chunks, then pruned_off, the
+   same query with ``BQUERYD_TPU_CHUNK_PRUNE=0``).  Mergeable configs go
+   to ``MeshQueryExecutor`` (one key alignment, one kernel call over every
+   shard's rows, the merge on the device), the distinct ones per shard to
+   the engine.  Per config: one cold query after the executor's and
+   engine's caches are cleared (printing what stays warm: the on-disk
+   sidecars and the decoded-column cache), then 3 warm queries.  Each
+   query is checked against a NumPy reference of the generated arrays
+   (int sums, counts, distinct counts and run counts bit-exact, the float
+   mean within rtol=2e-5), must launch its config's kernel branch the
+   expected times at the expected shape (R, G, n), merge as expected and
+   report the expected chunk counts, and the executor configs' warm
+   queries must hit every working-set segment;
 5. drives the main path, the system's own entry points: a controller and a
    worker on cuda as threads of this process, talking TCP ZMQ through a
-   file:// store beside the shards, and the five configs through
-   ``RPC.groupby`` (controller fan-out, one CalcMessage per shard group,
-   the worker's executor, the client's merge): per config one cold query
-   after the worker's caches are cleared and 3 warm ones, each checked,
-   launching its branch once at the executor's shape, merged on the device
-   and reporting the route ``LocalRPC`` took; walls split into the
-   worker's phases, the client's merge and the rest, beside ``LocalRPC``'s;
+   file:// store beside the shards, and every config through
+   ``RPC.groupby`` (controller fan-out: one CalcMessage per shard group,
+   one per shard for the distinct ops; the worker's executor or engine;
+   the client's merge): per config one cold query after the worker's
+   caches are cleared and 3 warm ones, each checked the same way and
+   reporting the route ``LocalRPC`` took; walls split into the worker's
+   phases (prune included), the client's merge and the rest, beside
+   ``LocalRPC``'s;
 6. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
-   ``... worker --device=cuda`` as processes, one checked query per config,
-   both stopped by SIGTERM and exiting 0;
+   ``... worker --device=cuda`` as processes, one checked query per config
+   (but the unpruned leg, whose environment the worker process does not
+   have), both stopped by SIGTERM and exiting 0;
 7. drives the per-shard engine path (``QueryEngine.execute_local`` per
-   shard + ``hostmerge``) for the five configs, 1 warm-up + 1 timed query,
-   checked the same way, each query launching its branch once per shard;
-   the launch counters are set to 0 just before each path (executor,
-   cluster, engine) and read just after, and every kernel of each path
-   must have launched there;
+   shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
+   timed query, checked the same way, each query launching its branch once
+   per shard; the launch counters are set to 0 just before each path
+   (executor, cluster, engine) and read just after, and every kernel of
+   each path must have launched there;
 8. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
-   executor path cold and warm, the engine path warm;
+   BASELINE configs on the executor path cold and warm and on the engine
+   path warm, the other configs through ``LocalRPC`` (cold and warm on the
+   executor, warm per shard);
 9. holds every branch of each kernel against its plain PyTorch version at
-   every recorded shape: the executor path's inputs (captured from a warm
-   query of each config; highcard's also forced onto the hicard "global"
-   branch), the engine path's per-shard shapes, plus one shape per other
-   branch (base "table" at G = 8192, hicard "global" past the cluster
-   table), with ints bit-exact, float rows within rtol=2e-5,
-   atol=1e-6*max, and the base kernel's output bit-identical across two
-   launches; times each kernel warm and with L2 flushed (device time per
-   launch, from torch.profiler), beside its plain version, one library
-   call (``index_add_``, used nowhere in the port) and a plain streaming
-   read of the same bytes;
+   every recorded shape: each config's own inputs (captured from a warm
+   ``LocalRPC`` query: the executor's one call, or a per-shard config's
+   first shard; highcard's also forced onto the hicard "global" branch),
+   the engine path's per-shard shapes, plus one shape per other branch
+   (base "table" at G = 8192, hicard "global" past the cluster table),
+   with ints bit-exact, float rows within rtol=2e-5, atol=1e-6*max, and
+   the base kernel's output bit-identical across two launches; times each
+   kernel warm and with L2 flushed (device time per launch, from
+   torch.profiler), beside its plain version, one library call
+   (``index_add_``, used nowhere in the port) and a plain streaming read
+   of the same bytes;
 10. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
 11. prints the sweeps, the ``kernels`` JSON line, then the device JSON
@@ -60,6 +74,7 @@ Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.  Any failed phase fails the run.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -83,6 +98,11 @@ BF16_TC_FLOPS = 989e12
 #: bytes written between launches to push the inputs out of the 50 MB L2
 FLUSH_BYTES = 128 << 20
 
+#: start of bench.py's synthetic day of pickups, ns since the epoch, and
+#: the pruned configs' bound: the day's last 3 hours
+DAY_START_NS = 1_700_000_000_000_000_000
+PRUNE_FROM = np.datetime64(DAY_START_NS + 21 * 3600 * 10**9, "ns")
+
 CONFIGS = {
     # name: (shard slice, groupby cols, agg list, where terms)
     "single": (slice(0, 1), ["passenger_count"],
@@ -98,7 +118,53 @@ CONFIGS = {
                  [["trip_distance", ">", 5.0]]),
     "highcard": (slice(None), ["PULocationID", "DOLocationID"],
                  [["fare_amount", "sum", "fare_amount"]], []),
+    # the rest of the groupby verb: distinct value sets unioned at the
+    # client, a sole payload's device sort, run counts, basket expansion
+    # and chunk-zone-map pruning (then the same query unpruned)
+    "distinct": (slice(None), ["passenger_count"],
+                 [["fare_amount", "sum", "fare_amount"],
+                  ["PULocationID", "count_distinct", "pu_distinct"]], []),
+    "distinct_sole": (slice(0, 1), ["payment_type"],
+                      [["DOLocationID", "count_distinct", "do_distinct"]],
+                      []),
+    "runs": (slice(None), ["VendorID"],
+             [["fare_amount", "sum", "fare_amount"],
+              ["payment_type", "sorted_count_distinct", "pay_runs"]], []),
+    "basket": (slice(None), ["passenger_count"],
+               [["fare_amount", "sum", "fare_amount"]],
+               [["fare_amount", "==", 19999], ["trip_distance", ">", 25.0]]),
+    "pruned": (slice(None), ["passenger_count"],
+               [["fare_amount", "sum", "fare_amount"]],
+               [["pickup_ts", ">=", PRUNE_FROM]]),
+    "pruned_off": (slice(None), ["passenger_count"],
+                   [["fare_amount", "sum", "fare_amount"]],
+                   [["pickup_ts", ">=", PRUNE_FROM]]),
 }
+
+#: the five BASELINE configs, which the per-shard engine path and the
+#: breakdown also run
+BASE_CONFIGS = ("single", "sharded", "multikey", "filtered", "highcard")
+
+#: groupby keyword arguments beyond the four positional ones
+OPTIONS = {"basket": {"expand_filter_column": "PULocationID"}}
+
+#: environment a config runs under: the comparison leg of "pruned"
+ENV = {"pruned_off": {"BQUERYD_TPU_CHUNK_PRUNE": "0"}}
+
+#: configs the worker serves per shard on the engine (their distinct ops
+#: are not mergeable): {config: (R, G) of each shard's contraction}, one
+#: launch per shard per query; a sole payload's count_distinct adds a
+#: device sort, a distinct-only query stacks the count row alone
+PER_SHARD_SHAPE = {
+    "distinct": (9, 9),
+    "distinct_sole": (1, 5),
+    "runs": (9, 2),
+}
+
+#: (decoded, skipped) chunks of the pruned config over all shards: each
+#: 1M-row shard is written in 4 chunks of ctable's default length, and
+#: only its last chunk holds pickups from 21 h on
+PRUNED_CHUNKS = (10, 30)
 
 #: the (kernel, branch) each config's contraction must launch
 CONFIG_KERNEL = {
@@ -107,6 +173,12 @@ CONFIG_KERNEL = {
     "multikey": ("onehot_rows_dot", "mma"),
     "filtered": ("onehot_rows_dot", "mma"),
     "highcard": ("onehot_rows_dot_hicard", "cluster"),
+    "distinct": ("onehot_rows_dot", "mma"),
+    "distinct_sole": ("onehot_rows_dot", "mma"),
+    "runs": ("onehot_rows_dot", "mma"),
+    "basket": ("onehot_rows_dot", "mma"),
+    "pruned": ("onehot_rows_dot", "mma"),
+    "pruned_off": ("onehot_rows_dot", "mma"),
 }
 
 #: the CUDA kernel (csrc/onehot_groupby.cu) behind each (wrapper, branch)
@@ -134,7 +206,17 @@ EXEC_SHAPE = {
     "multikey": (7, 10),
     "filtered": (3, 9),
     "highcard": (3, 73_728),
+    "basket": (3, 9),
+    "pruned": (3, 9),
+    "pruned_off": (3, 9),
 }
+
+#: how each config's payloads merge: "device" on the executor, "host"
+#: for LocalRPC's per-shard union, "none" for one payload; through the
+#: cluster every per-shard message is one payload
+MERGE_MODE = {c: "device" for c in EXEC_SHAPE}
+MERGE_MODE.update({"distinct": "host", "runs": "host",
+                   "distinct_sole": "none"})
 
 #: (R, G) of each shard's contraction on the per-shard engine path:
 #: int64 fare_amount stacks 8 limbs
@@ -160,9 +242,10 @@ def log(msg):
 
 def make_dataset(data_dir, rows=ROWS, shards=SHARDS):
     """bench.py's generator (same RandomState stream, column order and
-    ranges) written with the port's ctable from plain arrays.  pickup_ts is
-    drawn to keep the stream identical but not written: no config reads
-    it.  Returns (shard names, per-shard {column: array})."""
+    ranges) written with the port's ctable from plain arrays.  pickup_ts
+    comes from the same draws, sorted within each shard, so that its
+    per-chunk zone maps let a time filter prune chunks.  Returns (shard
+    names, per-shard {column: array})."""
     from bqueryd_tpu_torch.storage.ctable import ctable
 
     rng = np.random.RandomState(SEED)
@@ -179,7 +262,11 @@ def make_dataset(data_dir, rows=ROWS, shards=SHARDS):
             "DOLocationID": rng.randint(1, 266, n).astype(np.int64),
             "trip_distance": (rng.random(n) * 30).astype(np.float32),
         }
-        rng.randint(0, 86_400, n)  # pickup_ts, not written
+        cols["pickup_ts"] = (
+            np.int64(DAY_START_NS)
+            + np.sort(rng.randint(0, 86_400, n)).astype(np.int64)
+            * np.int64(1_000_000_000)
+        ).view("datetime64[ns]")
         name = f"taxi_{i}.bcolzs"
         t = ctable(os.path.join(data_dir, name), mode="w")
         t.append(cols)
@@ -189,16 +276,30 @@ def make_dataset(data_dir, rows=ROWS, shards=SHARDS):
     return names, parts
 
 
+def _kept(config, part):
+    """The rows of one shard that ``config`` aggregates: its filter, then
+    basket expansion within the shard."""
+    _sl, _gcols, _aggs, where = CONFIGS[config]
+    keep = np.ones(len(part["fare_amount"]), dtype=bool)
+    for col, op, value in where:
+        # a float32 column against a Python float compares in float32
+        keep &= {">": np.greater, ">=": np.greater_equal,
+                 "==": np.equal}[op](part[col], value)
+    basket = OPTIONS.get(config, {}).get("expand_filter_column")
+    if basket is not None:
+        keep = np.isin(part[basket], np.unique(part[basket][keep]))
+    return keep
+
+
 def reference(config, parts):
     """NumPy reference of one config: {key tuple: {out col: value}}."""
-    sl, gcols, aggs, where = CONFIGS[config]
-    cols = {c: np.concatenate([p[c] for p in parts[sl]]) for c in parts[0]}
-    keep = np.ones(len(cols["fare_amount"]), dtype=bool)
-    for col, op, value in where:
-        assert op == ">"
-        keep &= cols[col] > value  # float32 against a Python float: float32
-    keys = [cols[c][keep] for c in gcols]
-    cards = [int(k.max()) + 1 for k in keys]
+    sl, gcols, aggs, _where = CONFIGS[config]
+    shards = parts[sl]
+    kept = [_kept(config, p) for p in shards]
+    cols = {c: np.concatenate([p[c][k] for p, k in zip(shards, kept)])
+            for c in shards[0]}
+    keys = [cols[c] for c in gcols]
+    cards = [int(max(p[c].max() for p in shards)) + 1 for c in gcols]
     packed = keys[0].copy()
     for k, card in zip(keys[1:], cards[1:]):
         packed = packed * card + k
@@ -206,7 +307,7 @@ def reference(config, parts):
     count = np.bincount(packed, minlength=size)
     out = {}
     for in_col, op, out_col in aggs:
-        v = cols[in_col][keep]
+        v = cols[in_col]
         if op == "sum":
             s = np.zeros(size, dtype=np.int64)
             np.add.at(s, packed, v)
@@ -217,6 +318,21 @@ def reference(config, parts):
             out[out_col] = np.bincount(
                 packed, weights=v.astype(np.float64), minlength=size
             ) / np.maximum(count, 1)
+        elif op == "count_distinct":
+            # distinct (group, value) pairs over every shard's rows
+            pairs = np.unique(packed * (int(v.max()) + 1) + v)
+            out[out_col] = np.bincount(pairs // (int(v.max()) + 1),
+                                       minlength=size)
+        elif op == "sorted_count_distinct":
+            # runs of equal (group, value) in each shard's row order,
+            # summed over the shards
+            runs = np.zeros(size, dtype=np.int64)
+            for p, k in zip(shards, kept):
+                g, w = p[gcols[0]][k], p[in_col][k]
+                new = np.ones(len(g), dtype=bool)
+                new[1:] = (g[1:] != g[:-1]) | (w[1:] != w[:-1])
+                runs += np.bincount(g[new], minlength=size)
+            out[out_col] = runs
     present = np.flatnonzero(count)
     result = {}
     for slot in present:
@@ -247,6 +363,73 @@ def check_result(config, order, columns, want):
                 assert columns[out_col].dtype == np.int64
                 assert int(got) == int(ref[out_col]), (
                     config, key, out_col, int(got), int(ref[out_col]))
+
+
+def selected_share(config, parts):
+    """The share of the config's shards' rows its filter (and basket
+    expansion) selects."""
+    sl = CONFIGS[config][0]
+    kept = sum(int(_kept(config, p).sum()) for p in parts[sl])
+    return kept / _rows_of(parts, sl)
+
+
+def _exec_rows(config, parts):
+    """Rows of the executor's one contraction, before the row grid: the
+    pruned config's views hold only the chunks with pickups from 21 h on."""
+    from bqueryd_tpu_torch.storage.ctable import DEFAULT_CHUNKLEN
+
+    sl = CONFIGS[config][0]
+    if config != "pruned":
+        return _rows_of(parts, sl)
+    rows = 0
+    for p in parts[sl]:
+        ts = p["pickup_ts"]
+        for start in range(0, len(ts), DEFAULT_CHUNKLEN):
+            chunk = ts[start:start + DEFAULT_CHUNKLEN]
+            if chunk.max() >= PRUNE_FROM:
+                rows += len(chunk)
+    return rows
+
+
+def expected_launches(config, parts):
+    """{shape key: launches} of one query of ``config``: one contraction
+    at the executor's shape, or one per shard at the shard's shape."""
+    from bqueryd_tpu_torch import ops
+
+    kernel, branch = CONFIG_KERNEL[config]
+    sl = CONFIGS[config][0]
+    if config in PER_SHARD_SHAPE:
+        out = {}
+        for p in parts[sl]:
+            key = shape_key(kernel, branch, *PER_SHARD_SHAPE[config],
+                            len(p["fare_amount"]))
+            out[key] = out.get(key, 0) + 1
+        return out
+    n = ops.program_bucket(_exec_rows(config, parts), fine=True)
+    return {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
+
+
+@contextlib.contextmanager
+def _env(config):
+    """The environment ``config`` runs under (``ENV``), restored after."""
+    saved = {k: os.environ.get(k) for k in ENV.get(config, {})}
+    os.environ.update(ENV.get(config, {}))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _query(rpc, names, config):
+    """One groupby of ``config`` through ``rpc`` (LocalRPC or RPC)."""
+    sl, gcols, aggs, where = CONFIGS[config]
+    with _env(config):
+        return rpc.groupby(names[sl], gcols, aggs, where,
+                           **OPTIONS.get(config, {}))
 
 
 def _launch_delta(before):
@@ -288,19 +471,26 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def _check_prune(config, label, counts):
+    """The pruned config decodes :data:`PRUNED_CHUNKS`; with pruning off,
+    nothing is pruned."""
+    want = PRUNED_CHUNKS if config == "pruned" else None
+    if config in ("pruned", "pruned_off") and counts != want:
+        raise AssertionError(f"{label}: chunk counts {counts}, expected "
+                             f"{want}")
+
+
 def run_executor_path(rpc, names, parts, data_dir, warm=3):
-    """The main path: per config one cold query (executor and engine caches
-    cleared) and ``warm`` warm queries through ``LocalRPC.groupby``; every
-    query checked, launching its branch once at the executor's shape."""
-    from bqueryd_tpu_torch import ops
+    """The in-process reference path: per config one cold query (executor
+    and engine caches cleared) and ``warm`` warm queries through
+    ``LocalRPC.groupby``; every query checked, launching its branch the
+    expected times at the expected shape and merging as expected."""
     from bqueryd_tpu_torch.ops import onehot
 
     report = {}
-    for config, (sl, gcols, aggs, where) in CONFIGS.items():
+    for config in CONFIGS:
         want = reference(config, parts)
-        kernel, branch = CONFIG_KERNEL[config]
-        n = ops.program_bucket(_rows_of(parts, sl), fine=True)
-        expect = {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
+        expect = expected_launches(config, parts)
         rpc.executor.clear_caches()
         rpc.engine.clear_caches()
         stays_warm = _warm_state(data_dir)
@@ -308,25 +498,28 @@ def run_executor_path(rpc, names, parts, data_dir, warm=3):
         for rep in range(warm + 1):
             before = dict(onehot.LAUNCHES)
             (order, columns), wall = _timed(
-                lambda: rpc.groupby(names[sl], gcols, aggs, where))
+                lambda: _query(rpc, names, config))
             check_result(config, order, columns, want)
             launched = _launch_delta(before)
             launches += sum(launched.values())
-            if launched != expect or rpc.last_merge_mode != "device":
+            if launched != expect or rpc.last_merge_mode != MERGE_MODE[config]:
                 raise AssertionError(
-                    f"{config} query {rep}: expected {expect} on the "
-                    f"executor's device merge, launched {launched} "
+                    f"{config} query {rep}: expected {expect} and merge "
+                    f"mode {MERGE_MODE[config]}, launched {launched} "
                     f"({rpc.last_merge_mode})")
+            _check_prune(config, f"{config} query {rep}", rpc.last_chunk_prune)
             if rep == 0:
                 cold_stats = rpc.executor.workingset.stats()
             walls.append(wall)
         stats = rpc.executor.workingset.stats()
-        for seg in ("align", "codes", "blocks"):
-            if (stats[seg]["misses"] != cold_stats[seg]["misses"]
-                    or stats[seg]["hits"] - cold_stats[seg]["hits"] < warm):
-                raise AssertionError(
-                    f"{config}: warm queries missed the {seg} segment: "
-                    f"{cold_stats[seg]} -> {stats[seg]}")
+        if config in EXEC_SHAPE:
+            for seg in ("align", "codes", "blocks"):
+                if (stats[seg]["misses"] != cold_stats[seg]["misses"]
+                        or stats[seg]["hits"] - cold_stats[seg]["hits"]
+                        < warm):
+                    raise AssertionError(
+                        f"{config}: warm queries missed the {seg} segment: "
+                        f"{cold_stats[seg]} -> {stats[seg]}")
         report[config] = {
             "cold_wall_s": walls[0],
             "warm_walls_s": walls[1:],
@@ -334,8 +527,10 @@ def run_executor_path(rpc, names, parts, data_dir, warm=3):
             "groups": len(want),
             "route": rpc.last_effective_strategy,
             "merge_mode": rpc.last_merge_mode,
-            "launch_shape": next(iter(expect)),
+            "launch_shapes": expect,
             "launches": launches,
+            "chunk_prune": rpc.last_chunk_prune,
+            "selected_share": selected_share(config, parts),
             "stays_warm_at_cold": stays_warm,
             "workingset": stats,
         }
@@ -361,15 +556,17 @@ def _served(rpc, names):
 def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
     """The system's own entry points: a port controller and a port worker
     on cuda, as threads of this process, talking TCP ZMQ through a file://
-    store; the five configs through ``RPC.groupby``, per config one cold
-    query after the worker's caches are cleared and ``warm`` warm ones.
-    Each query is checked, must launch its branch once at the executor's
-    shape, merge on the device and report the route that ``LocalRPC``
-    (``local``, the executor path's report) took.  The walls are split
-    into the worker's phases, the client's merge and the rest (controller,
-    ZMQ hops, pickling), beside the median of 20 pings (client to
-    controller and back) and the worker's table opens timed outside its
-    loop."""
+    store; every config through ``RPC.groupby``, per config one cold query
+    after the worker's caches are cleared and ``warm`` warm ones.  Each
+    query is checked, must launch its branch the expected times at the
+    expected shape, merge as expected (one device merge for a shard group
+    on the executor, one payload per shard message otherwise) and report
+    the route that ``LocalRPC`` (``local``, the executor path's report)
+    took.  The walls are split into the worker's phases (summed over a
+    query's shard messages, which the worker serves one after another),
+    the client's merge and the rest (controller, ZMQ hops, pickling),
+    beside the median of 20 pings (client to controller and back) and the
+    worker's table opens timed outside its loop."""
     import logging
 
     from bqueryd_tpu_torch import ops
@@ -403,11 +600,18 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                 raise AssertionError("the controller did not answer a ping")
             pings.append(time.perf_counter() - t0)
         report["ping_s_median"] = float(np.median(pings))
-        for config, (sl, gcols, aggs, where) in CONFIGS.items():
+        for config in CONFIGS:
+            sl = CONFIGS[config][0]
             want = reference(config, parts)
-            kernel, branch = CONFIG_KERNEL[config]
-            n = ops.program_bucket(_rows_of(parts, sl), fine=True)
-            expect = {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
+            expect = expected_launches(config, parts)
+            # one message per shard group: the executor configs' shards
+            # are one group, the per-shard configs' go one by one
+            groups = (len(names[sl]) if config in PER_SHARD_SHAPE else 1)
+            modes_want = [
+                "device" if MERGE_MODE[config] == "device" else "none"
+            ] * groups
+            route = local[config]["route"]
+            routes_want = [route] * groups if route else []
             # the worker's loop thread idles between queries
             worker.executor.clear_caches()
             worker.engine.clear_caches()
@@ -415,28 +619,38 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
             for rep in range(warm + 1):
                 before = dict(onehot.LAUNCHES)
                 (order, columns), wall = _timed(
-                    lambda: rpc.groupby(names[sl], gcols, aggs, where))
+                    lambda: _query(rpc, names, config))
                 check_result(config, order, columns, want)
                 launched = _launch_delta(before)
                 modes = list(rpc.last_call_merge_modes.values())
                 routes = list(rpc.last_call_strategies["effective"].values())
-                if (launched != expect or modes != ["device"]
-                        or routes != [local[config]["route"]]):
+                if (launched != expect or modes != modes_want
+                        or routes != routes_want):
                     raise AssertionError(
                         f"cluster {config} query {rep}: expected {expect}, "
-                        f"one device merge and route "
-                        f"{local[config]['route']}; launched {launched}, "
-                        f"merge modes {modes}, routes {routes}")
-                (phases,) = rpc.last_call_timings.values()
+                        f"merge modes {modes_want} and routes {routes_want}; "
+                        f"launched {launched}, merge modes {modes}, routes "
+                        f"{routes}")
+                timings = list(rpc.last_call_timings.values())
+                phases = {}
+                for t in timings:
+                    for k, v in t.items():
+                        phases[k] = phases.get(k, 0) + v
+                prune = None
+                if "_chunks_decoded" in phases:
+                    prune = (phases["_chunks_decoded"],
+                             phases["_chunks_skipped"])
+                _check_prune(config, f"cluster {config} query {rep}", prune)
                 queries.append({
                     "wall_s": wall,
                     "worker_s": phases["_total"],
                     "worker_phases_s": {k: v for k, v in phases.items()
-                                        if k != "_total"},
+                                        if not k.startswith("_")},
                     "client_merge_s": rpc.last_call_client_merge_s,
                     "rest_s": (wall - phases["_total"]
                                - rpc.last_call_client_merge_s),
                     "reply_bytes": rpc.last_call_reply_bytes,
+                    "chunk_prune": prune,
                 })
             warm_q = queries[1:]
             # the worker's table opens for these shards, called from this
@@ -448,6 +662,24 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                 for path in paths:
                     worker._open_table(path)
                 opens.append(time.perf_counter() - t0)
+            # and the prune seam over them, split into the zone-map test
+            # and the views' creation
+            where = CONFIGS[config][3]
+            prune_direct = None
+            if where and config not in OPTIONS:
+                tables = [worker._open_table(path) for path in paths]
+                select, views = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    keeps = [ops.chunk_selection(t, where) for t in tables]
+                    t1 = time.perf_counter()
+                    for t, keep in zip(tables, keeps):
+                        if keep is not None:
+                            t.chunk_view(np.flatnonzero(keep))
+                    views.append(time.perf_counter() - t1)
+                    select.append(t1 - t0)
+                prune_direct = {"selection_s_median": float(np.median(select)),
+                                "views_s_median": float(np.median(views))}
             report[config] = {
                 "cold": queries[0],
                 "warm": warm_q,
@@ -457,12 +689,20 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                     k: float(np.median([q[k] for q in warm_q]))
                     for k in ("worker_s", "client_merge_s", "rest_s")
                 },
+                "warm_worker_phases_median_s": {
+                    k: float(np.median([q["worker_phases_s"].get(k, 0.0)
+                                        for q in warm_q]))
+                    for k in warm_q[-1]["worker_phases_s"]
+                },
+                "messages": groups,
                 "reply_bytes": warm_q[-1]["reply_bytes"],
                 "open_direct_s_median": float(np.median(opens)),
-                "route": routes[0],
-                "merge_mode": modes[0],
-                "launch_shape": next(iter(expect)),
-                "launches": warm + 1,
+                "prune_direct": prune_direct,
+                "routes": routes,
+                "merge_modes": modes,
+                "launch_shapes": expect,
+                "launches": sum(expect.values()) * (warm + 1),
+                "chunk_prune": warm_q[-1]["chunk_prune"],
                 "local_rpc_cold_wall_s": local[config]["cold_wall_s"],
                 "local_rpc_warm_wall_s_median":
                     local[config]["warm_wall_s_median"],
@@ -520,12 +760,14 @@ def run_cli_check(names, parts, data_dir, store_dir):
         _wait(lambda: _served(rpc, names), 120,
               "the CLI worker serving every shard")
         report["start_s"] = time.perf_counter() - t0
-        for config, (sl, gcols, aggs, where) in CONFIGS.items():
+        # one query per config; the worker process keeps the environment
+        # it started with, so the unpruned leg has no run here
+        for config in (c for c in CONFIGS if c not in ENV):
             (order, columns), wall = _timed(
-                lambda: rpc.groupby(names[sl], gcols, aggs, where))
+                lambda: _query(rpc, names, config))
             check_result(config, order, columns, reference(config, parts))
-            modes = list(rpc.last_call_merge_modes.values())
-            if modes != ["device"]:
+            modes = set(rpc.last_call_merge_modes.values())
+            if modes != {"none" if config in PER_SHARD_SHAPE else "device"}:
                 raise AssertionError(f"CLI {config}: merge modes {modes}")
             report[config] = {"first_query_wall_s": wall}
         rpc._close_socket()
@@ -581,7 +823,8 @@ def run_engine_path(rpc, names, parts, repeats=1):
     from bqueryd_tpu_torch.ops import onehot
 
     report = {}
-    for config, (sl, _gcols, _aggs, _where) in CONFIGS.items():
+    for config in BASE_CONFIGS:
+        sl = CONFIGS[config][0]
         want = reference(config, parts)
         kernel, branch = CONFIG_KERNEL[config]
         shard_rows = {len(p["fare_amount"]) for p in parts[sl]}
@@ -625,6 +868,24 @@ EXEC_PHASES = (
     ("partial_tables", "partial_tables"),
     ("fetch", "_fetch"),
     ("collect", "_collect_payload"),
+    ("finalize", "finalize_table"),
+    ("prune", "chunk_pruned_table"),
+    ("views", "chunk_view"),
+    ("basket", "expand_mask_by_group"),
+    ("stat", "<built-in method posix.stat>"),
+    ("realpath", "realpath"),
+)
+
+#: the same for the per-shard configs of the rest of the groupby verb
+SLICE_PHASES = (
+    ("decode", "column_raw"),
+    ("factorize", "_key_codes"),
+    ("h2d", "as_tensor"),
+    ("partial_tables", "partial_tables"),
+    ("value_sets", "_group_distinct_flat"),
+    ("device_sort", "groupby_count_distinct"),
+    ("runs", "groupby_sorted_count_distinct"),
+    ("hostmerge", "merge_payloads"),
     ("finalize", "finalize_table"),
 )
 
@@ -703,15 +964,16 @@ def _profile_query(run, phases, reset=None):
 
 def breakdown(rpc, names):
     """The executor path cold (caches cleared) and warm, and the engine
-    path warm, per config."""
+    path warm, per BASELINE config; then the other configs through
+    ``LocalRPC``."""
     def clear():
         rpc.executor.clear_caches()
         rpc.engine.clear_caches()
 
     out = {"executor": {}, "engine": {}}
-    for config, (sl, gcols, aggs, where) in CONFIGS.items():
+    for config in BASE_CONFIGS:
         def run():
-            return rpc.groupby(names[sl], gcols, aggs, where)
+            return _query(rpc, names, config)
 
         cold = _profile_query(run, EXEC_PHASES, reset=clear)
         warm = _profile_query(run, EXEC_PHASES)
@@ -722,19 +984,40 @@ def breakdown(rpc, names):
             lambda: _engine_query(rpc, names, config), ENGINE_PHASES)
         log(f"breakdown engine {config}: "
             f"{json.dumps(out['engine'][config])}")
+    # the rest of the verb through LocalRPC: the per-shard configs warm,
+    # the executor ones cold and warm
+    out["slice"] = {}
+    for config in CONFIGS:
+        if config in BASE_CONFIGS:
+            continue
+
+        def run():
+            return _query(rpc, names, config)
+
+        if config in PER_SHARD_SHAPE:
+            run()  # warm the engine's caches first
+            out["slice"][config] = {"warm": _profile_query(run,
+                                                           SLICE_PHASES)}
+        else:
+            out["slice"][config] = {
+                "cold": _profile_query(run, EXEC_PHASES, reset=clear),
+                "warm": _profile_query(run, EXEC_PHASES),
+            }
+        log(f"breakdown slice {config}: {json.dumps(out['slice'][config])}")
     return out
 
 
-def capture_executor_inputs(rpc, names):
-    """The (codes, rows) each config's one kernel call receives on the
-    executor path, captured from one warm query per config: ``{config:
-    (kernel, branch, codes, rows, R, G, int rows)}``.  Configs with the
-    same shape keep their own inputs (filtered's codes carry its folded
-    filter).  The launches of these queries are outside the counted
-    runs."""
+def capture_executor_inputs(rpc, names, parts):
+    """The (codes, rows) each config's kernel call receives through
+    ``LocalRPC``, captured from one warm query per config: ``{config:
+    (kernel, branch, codes, rows, R, G, int rows)}``; a per-shard config's
+    first shard stands for its shards.  Configs with the same shape keep
+    their own inputs (filtered's codes carry its folded filter).  The
+    launches of these queries are outside the counted runs."""
     from bqueryd_tpu_torch.ops import onehot
 
     captured = {}
+    calls = []
     current = []
     launchers = {"onehot_rows_dot": onehot._launch_base,
                  "onehot_rows_dot_hicard": onehot._launch_hicard}
@@ -742,11 +1025,11 @@ def capture_executor_inputs(rpc, names):
     def capturing(name, launch):
         def run(codes, rows, n_rows, n_groups, plan):
             config = current[0]
-            if config in captured:
-                raise AssertionError(f"{config}: more than one kernel call")
-            captured[config] = (name, plan.branch, codes, rows, n_rows,
-                                n_groups,
-                                n_rows - FLOAT_ROWS.get(config, 0))
+            calls.append(config)
+            if config not in captured:
+                captured[config] = (name, plan.branch, codes, rows, n_rows,
+                                    n_groups,
+                                    n_rows - FLOAT_ROWS.get(config, 0))
             return launch(codes, rows, n_rows, n_groups, plan)
         return run
 
@@ -755,9 +1038,14 @@ def capture_executor_inputs(rpc, names):
     onehot._launch_hicard = capturing("onehot_rows_dot_hicard",
                                       launchers["onehot_rows_dot_hicard"])
     try:
-        for config, (sl, gcols, aggs, where) in CONFIGS.items():
+        for config in CONFIGS:
             current[:] = [config]
-            rpc.groupby(names[sl], gcols, aggs, where)
+            calls.clear()
+            _query(rpc, names, config)
+            want = sum(expected_launches(config, parts).values())
+            if len(calls) != want:
+                raise AssertionError(f"{config}: {len(calls)} kernel calls, "
+                                     f"expected {want}")
     finally:
         onehot._launch_base = launchers["onehot_rows_dot"]
         onehot._launch_hicard = launchers["onehot_rows_dot_hicard"]
@@ -1125,6 +1413,13 @@ def sweeps(parts, device, iters=30):
                              "n": codes.shape[0]}}
 
 
+def _input_label(config):
+    """The kernel row of a config's own captured inputs: the executor's
+    one contraction, or a per-shard config's first shard."""
+    return (f"per-shard {config}" if config in PER_SHARD_SHAPE
+            else f"executor {config}")
+
+
 def counted_launches(path):
     """The launch counts of the run just driven, per shape key; raises if
     a kernel of the main path never launched in it."""
@@ -1176,7 +1471,8 @@ def main():
         log(f"dataset: {ROWS} rows in {SHARDS} shards, "
             f"{time.perf_counter() - t0:.1f}s")
         print(json.dumps({"reduced": [
-            "pickup_ts column not written (no BASELINE config reads it)",
+            "pickup_ts sorted within each shard (bench.py writes the same "
+            "draws unsorted), so that its zone maps prune chunks",
         ]}), flush=True)
         rpc = LocalRPC(data_dir)  # cuda
         # set-up outside every timed query: the CUDA context and the
@@ -1216,8 +1512,8 @@ def main():
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
-        inputs = {f"executor {config}": entry for config, entry in
-                  capture_executor_inputs(rpc, names).items()}
+        inputs = {_input_label(config): entry for config, entry in
+                  capture_executor_inputs(rpc, names, parts).items()}
         name, _branch, *rest = inputs["executor highcard"]
         inputs["executor highcard global"] = (name, "global", *rest)
         inputs.update(_shard_inputs(parts, device))
@@ -1233,7 +1529,7 @@ def main():
                 if counted.get(key):
                     launches[label][path] = counted[key]
         for config in configs:
-            launches[f"executor {config}"] = {
+            launches[_input_label(config)] = {
                 "executor": configs[config]["launches"],
                 "cluster": cluster[config]["launches"],
             }

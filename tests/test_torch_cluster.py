@@ -42,11 +42,7 @@ from test_differential_fuzz import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RPC_TIMEOUT = 30
-MERGEABLE = ("sum", "mean", "count", "count_na", "min", "max")
-PORT_CASES = [
-    i for i, (_g, aggs, _w) in enumerate(CASES)
-    if all(op in MERGEABLE for _i, op, _o in aggs)
-]
+PORT_CASES = list(range(len(CASES)))
 QUIET = logging.WARNING
 
 
@@ -285,17 +281,84 @@ def test_unsupported_op_is_a_structured_error(shards, port):
 
 
 @pytest.mark.parametrize("op", ["count_distinct", "sorted_count_distinct"])
-def test_unported_op_names_not_implemented(shards, port, op):
-    """The distinct ops reach a port worker, which raises; the client gets
-    the worker's error, not a hang or a retry, and the cluster still
-    answers afterwards."""
+@pytest.mark.parametrize("n_files", [1, 3])
+def test_distinct_ops_match_reference_cluster(shards, port, ref, op,
+                                              n_files):
+    """The distinct ops go one shard per message; one file's payload is
+    sole (count_distinct ships device-sorted counts), several files'
+    count_distinct sets union at the client.  Ints bit for bit against the
+    reference cluster."""
     _data_dir, frames, names = shards
-    err = _timed_error(port["rpc"], names, ["k_int"],
-                       [["v_small", op, "d"]], [])
-    assert "NotImplementedError" in str(err)
-    gcols, aggs = ["k_int"], [["v_small", "sum", "s"]]
-    got = frame(port["rpc"].groupby(names, gcols, aggs, []))
-    _compare(got, _expected(frames, gcols, aggs, []), gcols, aggs)
+    gcols = ["k_str"]
+    aggs = [["v_small", op, "d"], ["v_float", "sum", "s"]]
+    rpc = port["rpc"]
+    got = frame(rpc.groupby(names[:n_files], gcols, aggs, []))
+    want = ref["rpc"].groupby(names[:n_files], gcols, aggs, [])
+    _compare(got, want, gcols, aggs)
+    got = got.sort_values(gcols).reset_index(drop=True)
+    want = want.sort_values(gcols).reset_index(drop=True)
+    assert got["d"].dtype == np.int64
+    np.testing.assert_array_equal(got["d"].to_numpy(), want["d"].to_numpy())
+    assert len(rpc.last_call_timings) == n_files
+    assert set(rpc.last_call_merge_modes.values()) == {"none"}
+    if op == "count_distinct":
+        _compare(got, _expected(frames[:n_files], gcols, aggs[:1], []),
+                 gcols, aggs[:1])
+
+
+@pytest.mark.parametrize(
+    "where", [[["sel", ">", 0.97]], [["v_small", ">", 900]]])
+def test_basket_expansion_matches_reference_cluster(shards, port, ref,
+                                                    where):
+    """expand_filter_column through both clusters: the shard group runs on
+    the worker's executor, each shard's filter widened to whole baskets."""
+    _data_dir, frames, names = shards
+    gcols, aggs = ["k_int"], [["v_small", "sum", "s"],
+                              ["v_float", "mean", "m"]]
+    rpc = port["rpc"]
+    got = frame(rpc.groupby(names, gcols, aggs, where,
+                            expand_filter_column="basket"))
+    want = ref["rpc"].groupby(names, gcols, aggs, where,
+                              expand_filter_column="basket")
+    _compare(got, want, gcols, aggs)
+    expanded = []
+    for df in frames:
+        hit = _filter_df(df, where).index
+        expanded.append(df[df["basket"].isin(df.loc[hit, "basket"].unique())])
+    _compare(got, _expected(expanded, gcols, aggs, []), gcols, aggs)
+    assert set(rpc.last_call_merge_modes.values()) == {"device"}
+
+
+def test_sorted_count_distinct_on_basket_sorted_data(shards, port, ref):
+    """Shards sorted by (group, value), the layout the op exists for: the
+    run counts summed across shards equal pandas nunique per shard, through
+    both clusters (the reference fuzz's test of the same name)."""
+    data_dir, _frames, _names = shards
+    rng = np.random.default_rng(77)
+    frames, names = [], []
+    for i in range(2):
+        n = 3_000
+        df = pd.DataFrame({
+            "g": np.sort(rng.integers(0, 5, n)).astype(np.int64),
+            "v": rng.integers(0, 40, n).astype(np.int64),
+        }).sort_values(["g", "v"], kind="stable").reset_index(drop=True)
+        name = f"sorted_{i}.bcolzs"
+        jax_ctable.fromdataframe(df, os.path.join(data_dir, name))
+        frames.append(df)
+        names.append(name)
+    for cluster in (port, ref):
+        wait_until(lambda c=cluster: all(
+            n in c["controller"].files_map for n in names),
+            desc="the sorted shards' registration")
+    aggs = [["v", "sorted_count_distinct", "nd"]]
+    expected = sum(
+        df.groupby("g")["v"].nunique() for df in frames
+    ).sort_index()
+    for got in (frame(port["rpc"].groupby(names, ["g"], aggs, [])),
+                ref["rpc"].groupby(names, ["g"], aggs, [])):
+        got = got.sort_values("g").reset_index(drop=True)
+        assert got["g"].tolist() == expected.index.tolist()
+        assert got["nd"].tolist() == expected.tolist()
 
 
 def test_messages_parse_under_either_package(shards):
@@ -359,6 +422,14 @@ def test_reference_client_reads_a_port_cluster(loopback, shards, ref,
                 assert list(got.columns) == list(want.columns)
                 assert client.last_call_merge_modes == {
                     f"{names[0]}+{len(names) - 1}more": "device"}
+            # count_distinct: the reference client unions the port
+            # workers' value sets, one payload per shard
+            for gcols, aggs, where in (CASES[17], CASES[18]):
+                got = client.groupby(names, gcols, aggs, where)
+                want = ref["rpc"].groupby(names, gcols, aggs, where)
+                _compare(got, want, gcols, aggs)
+                assert client.last_call_merge_modes == {
+                    n: "none" for n in names}
             assert client.ping() == "pong"
         finally:
             client._close_socket()

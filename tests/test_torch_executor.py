@@ -35,7 +35,13 @@ from bqueryd_tpu_torch.parallel import pipeline
 from bqueryd_tpu_torch.parallel.executor import MeshQueryExecutor
 from bqueryd_tpu_torch.rpc import LocalRPC
 from bqueryd_tpu_torch.storage.ctable import ctable
-from test_differential_fuzz import CASES, _compare, _dataset, _expected
+from test_differential_fuzz import (
+    CASES,
+    _compare,
+    _dataset,
+    _expected,
+    _filter_df,
+)
 
 MERGEABLE = ("sum", "mean", "count", "count_na", "min", "max")
 PORT_CASES = [
@@ -354,7 +360,7 @@ def test_composite_overflow_takes_the_per_shard_path(shards, monkeypatch):
 
 
 def test_non_mergeable_ops_are_refused(shards):
-    root, _frames, names = shards
+    root, frames, names = shards
     executor = MeshQueryExecutor(device="cpu")
     query = GroupByQuery(["k_int"], [["v_float", "count_distinct", "nd"]])
     assert not executor.supports(query)
@@ -363,9 +369,42 @@ def test_non_mergeable_ops_are_refused(shards):
     tables = [ctable(str(root / n), mode="r") for n in names]
     with pytest.raises(ValueError, match="mergeable"):
         executor.execute(tables, query)
-    with pytest.raises(NotImplementedError, match="distinct"):
-        LocalRPC(str(root), device="cpu").groupby(names, ["k_int"],
-                                                  query.agg_list)
+    # LocalRPC serves them per shard and unions the value sets on the host
+    rpc = LocalRPC(str(root), device="cpu")
+    order, columns = rpc.groupby(names, ["k_int"], query.agg_list)
+    assert rpc.last_merge_mode == "host"
+    got = pd.DataFrame({c: columns[c] for c in order}, columns=order)
+    _compare(got, _expected(frames, ["k_int"], query.agg_list, []),
+             ["k_int"], query.agg_list)
+
+
+@pytest.mark.parametrize(
+    "where", [[["sel", ">", 0.97]], [["v_small", ">", 900]]])
+def test_basket_expansion_matches_jax_executor(shards, port, where):
+    """Each shard's mask widens to whole baskets on the device before the
+    fold; the folded codes are cached under the expansion column, so the
+    same filter without it is another working-set entry."""
+    root, frames, names = shards
+    executor, tables = port
+    gcols = ["k_int"]
+    aggs = [["v_small", "sum", "s"], ["v_float", "mean", "m"],
+            ["v_big", "max", "hi"]]
+    query = GroupByQuery(gcols, aggs, where, expand_filter_column="basket")
+    got = _payload_frame(executor.execute(tables, query))
+    want = _payload_frame(JaxExecutor(mesh=make_mesh()).execute(
+        [jax_ctable(str(root / n), mode="r") for n in names],
+        JaxQuery(gcols, aggs, where, expand_filter_column="basket")))
+    _compare(got, want, gcols, aggs)
+    expanded = []
+    for df in frames:
+        hit = _filter_df(df, where).index
+        expanded.append(df[df["basket"].isin(df.loc[hit, "basket"].unique())])
+    _compare(got, _expected(expanded, gcols, aggs, []), gcols, aggs)
+    misses = executor.workingset.stats()["codes"]["misses"]
+    plain = _payload_frame(executor.execute(
+        tables, GroupByQuery(gcols, aggs, where)))
+    assert executor.workingset.stats()["codes"]["misses"] == misses + 1
+    _compare(plain, _expected(frames, gcols, aggs, where), gcols, aggs)
 
 
 def test_worker_routes_by_query_shape(port):

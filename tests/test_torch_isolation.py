@@ -57,6 +57,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.messages",
                    "bqueryd_tpu_torch.coordination",
                    "bqueryd_tpu_torch.plan.logical",
+                   "bqueryd_tpu_torch.plan.stats",
+                   "bqueryd_tpu_torch.ops.predicates",
                    "bqueryd_tpu_torch.utils.tracing"):
         assert module in result["imported"]
 
