@@ -1,8 +1,8 @@
-"""ControllerNode: discovery, dispatch and the sink of ``groupby`` queries.
+"""ControllerNode: discovery, dispatch and the sink of queries and appends.
 
 The port's copy of the part of ``bqueryd_tpu/controller.py`` that answers
-``groupby``, ``ping``, ``info`` and ``loglevel``, with the reference's
-wire behaviour:
+``groupby``, ``query``, ``append``, ``ping``, ``info`` and ``loglevel``,
+with the reference's wire behaviour:
 
 * one ROUTER socket bound to a random port in 14300-14399, its identity
   ``tcp://ip:port`` registered in the coordination store;
@@ -16,13 +16,19 @@ wire behaviour:
   of them;
 * each group's reply payload is kept in memory until every requested
   shard is covered, then the client gets one pickled envelope of
-  per-group payloads, which it merges by key value.
+  per-group payloads, which it merges by key value;
+* a ``query`` spec compiles to an operator DAG (``plan.dag``) and its
+  groupby-shaped plan, and is dispatched like a groupby with the wire DAG
+  on every ``CalcMessage`` (one message per shard group when its
+  aggregations merge by part kind, else one per shard);
+* an ``append`` goes to every holder of the shard, once per distinct
+  (node, data_dir), and is answered when all holders confirmed, or with
+  an error naming the failed ones.
 
 The controller imports neither torch nor pandas.  Not ported yet:
 admission and micro-batch windows, shared-scan bundles, plan-time shard
 pruning and calibrated strategy hints, stale-dispatch retries and hedging,
-peer gossip, observability, chaos, downloads, appends, rollups and the
-``query`` verb.
+peer gossip, observability, chaos, downloads and rollups.
 
 Framing on the ROUTER socket:
 
@@ -31,6 +37,7 @@ Framing on the ROUTER socket:
 * 2 frames                     = a worker control message.
 """
 
+import base64
 import binascii
 import logging
 import os
@@ -51,6 +58,7 @@ from bqueryd_tpu_torch.messages import (
     CalcMessage,
     DoneMessage,
     ErrorMessage,
+    Message,
     StopMessage,
     WorkerRegisterMessage,
     msg_factory,
@@ -64,9 +72,12 @@ HEARTBEAT_INTERVAL = 2.0     # store re-registration period
 DISPATCH_TIMEOUT = 120.0     # a worker holding younger work is not culled
 DISPATCH_HARD_TIMEOUT = 1800.0  # a heartbeat-only worker is culled after it
 MAX_DISPATCH_RETRIES = 2
+#: how long an append fan-out waits for every holder's reply
+APPEND_TIMEOUT = 120.0
 RUNFILE_DIR = os.environ.get("BQUERYD_TPU_RUNFILE_DIR", "/srv")
 
-CONTROLLER_VERBS = ("ping", "loglevel", "info", "groupby")
+CONTROLLER_VERBS = ("ping", "loglevel", "info", "groupby", "query",
+                    "append")
 
 
 class ControllerNode:
@@ -121,6 +132,8 @@ class ControllerNode:
         self.pending = []             # CalcMessages waiting for a worker
         self.inflight = {}            # work token -> {worker, sent_at, msg}
         self.rpc_segments = {}        # parent token -> fan-out bookkeeping
+        self._append_segments = {}    # append fan-out key -> its state
+        self._append_waiters = {}     # append dispatch token -> fan-out key
         self.msg_count_in = 0
         self.start_time = time.time()
         self.running = False
@@ -183,6 +196,7 @@ class ControllerNode:
                                 break
                             self.handle_in(frames)
                     self.dispatch_pending()
+                    self._sweep_append_segments()
                 except Exception:
                     self.logger.exception("error in controller loop")
         finally:
@@ -257,6 +271,19 @@ class ControllerNode:
             self.files_map[filename].discard(worker_id)
             if not self.files_map[filename]:
                 del self.files_map[filename]
+        # an append waiting on this holder fails fast: the fan-out cannot
+        # complete any more
+        for seg_key, segment in list(self._append_segments.items()):
+            gone = [t for t, w in segment["pending"].items()
+                    if w == worker_id]
+            for t in gone:
+                segment["pending"].pop(t)
+                self._append_waiters.pop(t, None)
+                segment["errors"][worker_id] = (
+                    "holder removed (worker lost before confirming)"
+                )
+            if gone and not segment["pending"]:
+                self._finish_append_segment(seg_key, segment)
         for token, entry in list(self.inflight.items()):
             if entry["worker"] == worker_id:
                 self.inflight.pop(token)
@@ -264,7 +291,10 @@ class ControllerNode:
 
     def _requeue(self, msg, reason):
         """Queue a work unit again, or fail its query once it has used
-        ``max_dispatch_retries`` retries."""
+        ``max_dispatch_retries`` retries.  An append goes to one holder
+        only: its fan-out records that holder's failure instead."""
+        if msg.get("target") is not None:
+            return
         retries = msg.get("_retries", 0)
         if retries >= self.max_dispatch_retries:
             self.abort_parent(
@@ -295,6 +325,16 @@ class ControllerNode:
         no worker holds any more."""
         queue, self.pending = self.pending, []
         for msg in queue:
+            target = msg.get("target")
+            if target is not None:
+                # an append to one holder, while its fan-out waits
+                if msg["token"] not in self._append_waiters:
+                    continue
+                if self.worker_map.get(target, {}).get("busy", True):
+                    self.pending.append(msg)
+                else:
+                    self._send_to_worker(target, msg)
+                continue
             if msg.get("parent_token") not in self.rpc_segments:
                 continue  # its query was aborted
             if msg.deadline_expired():
@@ -459,6 +499,14 @@ class ControllerNode:
         self.process_worker_result(msg)
 
     def process_worker_result(self, msg):
+        token = msg.get("token")
+        if token in self._append_waiters:
+            self._absorb_append_reply(token, msg)
+            return
+        if isinstance(token, str) and token.startswith("append_"):
+            # its fan-out already failed fast or timed out: the client
+            # was answered
+            return
         parent = msg.get("parent_token")
         segment = self.rpc_segments.get(parent)
         if segment is None:
@@ -659,7 +707,10 @@ class ControllerNode:
                         "ok": False,
                         "error_class": "UnsupportedOp",
                         "error": (f"unsupported aggregation op(s) {bad}; "
-                                  f"groupby supports {list(AGG_OPS)}"),
+                                  f"groupby supports {list(AGG_OPS)}; "
+                                  f"joins, top-k, quantiles and window "
+                                  f"rollups go through the query verb "
+                                  f"(rpc.query)"),
                     },
                     protocol=messages.PICKLE_PROTOCOL,
                 ),
@@ -673,6 +724,39 @@ class ControllerNode:
         unknown = [f for f in plan.filenames if f not in self.files_map]
         if unknown:
             raise ValueError(f"filenames not found on any worker: {unknown}")
+        parent_token = self._open_query_segment(msg, plan)
+        self._dispatch_plan(msg, plan, kwargs, parent_token)
+
+    def rpc_query(self, msg):
+        """The operator-DAG verb: compile the ``rpc.query(spec)`` dict into
+        an :class:`~bqueryd_tpu_torch.plan.dag.OperatorDAG` (broadcast hash
+        joins, per-group top-k, mergeable quantile sketches, time-window
+        rollups), derive its groupby-shaped plan and dispatch it as a
+        groupby, with the wire DAG on every message.  A spec that fails
+        validation gets a structured envelope (``error_class``
+        "UnsupportedOp" or "InvalidPlan")."""
+        from bqueryd_tpu_torch.plan import dag as dagmod
+
+        args, kwargs = msg.get_args_kwargs()
+        if len(args) != 1 or not isinstance(args[0], dict):
+            raise ValueError("query needs one spec dict argument")
+        try:
+            dag = dagmod.compile_query(args[0])
+            plan, dag_kwargs = dagmod.groupby_equivalent(dag)
+        except dagmod.DagValidationError as exc:
+            self.reply_rpc_raw(
+                msg["token"],
+                pickle.dumps(
+                    {"ok": False, "error_class": exc.error_class,
+                     "error": str(exc)},
+                    protocol=messages.PICKLE_PROTOCOL,
+                ),
+            )
+            return
+        unknown = [f for f in plan.filenames if f not in self.files_map]
+        if unknown:
+            raise ValueError(f"filenames not found on any worker: {unknown}")
+        kwargs = dict(kwargs, **dag_kwargs)
         parent_token = self._open_query_segment(msg, plan)
         self._dispatch_plan(msg, plan, kwargs, parent_token)
 
@@ -692,9 +776,16 @@ class ControllerNode:
 
     def _dispatch_plan(self, msg, plan, kwargs, parent_token):
         """Queue one CalcMessage per shard group, each with its plan
-        fragment.  No strategy hint is issued: the worker routes."""
+        fragment and, for the ``query`` verb, the wire DAG.  No strategy
+        hint is issued: the worker routes."""
         from bqueryd_tpu_torch.plan import fragment_for
 
+        dag_blob = None
+        if kwargs.get("dag") is not None:
+            # encoded once: the wire DAG carries the whole join table
+            dag_blob = base64.b64encode(
+                pickle.dumps(kwargs["dag"], protocol=messages.PICKLE_PROTOCOL)
+            ).decode("ascii")
         groupby_cols = list(plan.groupby.keys)
         agg_list = plan.physical_agg_list()
         where_terms = plan.where_terms
@@ -723,22 +814,31 @@ class ControllerNode:
             if msg.get("deadline") is not None:
                 shard["deadline"] = msg["deadline"]
             shard.add_as_binary("plan", fragment_for(plan, group, sole=sole))
+            if dag_blob is not None:
+                shard["dag"] = dag_blob
             self.pending.append(shard)
 
     def _shard_groups(self, filenames, groupby_cols, agg_list, kwargs):
         """Shards held by the same set of workers go out as ONE message,
-        so a worker runs one executor call over all of them and merges on
-        the device.  Only mergeable aggregations batch; raw rows and the
-        distinct ops go one shard per message, as does ``batch=False``."""
+        so a worker runs one executor call over all of them.  Only
+        aggregations that merge by part kind batch: the mergeable ops, and
+        for a DAG dispatch (``kwargs["dag"]``, whose ``batch`` flag
+        ``plan.dag.groupby_equivalent`` sets) the top-k and sketch ops; raw
+        rows and the distinct ops go one shard per message, as does
+        ``batch=False``."""
         from bqueryd_tpu_torch.models.query import (
             MERGEABLE_OPS,
             normalize_agg_list,
         )
+        from bqueryd_tpu_torch.plan.dag import is_extended_op
 
+        dag_riding = kwargs.get("dag") is not None
         batchable = (
             kwargs.get("batch", True)
             and kwargs.get("aggregate", True)
-            and all(a[1] in MERGEABLE_OPS for a in normalize_agg_list(agg_list))
+            and all(a[1] in MERGEABLE_OPS
+                    or (dag_riding and is_extended_op(a[1]))
+                    for a in normalize_agg_list(agg_list))
         )
         if not batchable:
             return [[f] for f in filenames]
@@ -747,3 +847,111 @@ class ControllerNode:
             placement = tuple(sorted(self.files_map.get(f, ())))
             groups.setdefault(placement, []).append(f)
         return list(groups.values())
+
+    # -- streaming append ---------------------------------------------------
+    def rpc_append(self, msg):
+        """``rpc.append(filename, dataframe_like)``: send the batch to every
+        holder of the shard, once per distinct (node, data_dir), so that
+        workers sharing one directory apply it once, and reply when ALL
+        holders confirmed.  A holder that fails leaves the replicas
+        diverged: the error reply names it, and re-issuing the append is
+        the repair."""
+        args, _kwargs = msg.get_args_kwargs()
+        if len(args) != 2:
+            raise ValueError("append needs (filename, dataframe_like)")
+        filename = args[0]
+        holders = sorted(self.files_map.get(filename) or ())
+        if not holders:
+            raise ValueError(
+                f"file {filename!r} is not served by any worker"
+            )
+        targets = {}
+        for worker_id in holders:
+            info = self.worker_map.get(worker_id) or {}
+            group = (info.get("node"), info.get("data_dir") or worker_id)
+            targets.setdefault(group, worker_id)
+        deadline = msg.get("deadline")
+        seg_key = f"append_{os.urandom(8).hex()}"
+        segment = {
+            "client_token": msg["token"],
+            "filename": filename,
+            "expires": (float(deadline) if deadline is not None
+                        else time.time() + APPEND_TIMEOUT),
+            "pending": {},   # dispatch token -> worker_id
+            "results": {},   # worker_id -> result dict
+            "errors": {},    # worker_id -> error text
+        }
+        for worker_id in sorted(targets.values()):
+            calc = CalcMessage(dict(msg))
+            calc["payload"] = "append"
+            calc["filename"] = filename
+            calc["token"] = f"append_{os.urandom(8).hex()}"
+            calc["target"] = worker_id
+            segment["pending"][calc["token"]] = worker_id
+            self._append_waiters[calc["token"]] = seg_key
+            self.pending.append(calc)
+        self._append_segments[seg_key] = segment
+
+    def _absorb_append_reply(self, token, msg):
+        """One holder's append reply; when every holder answered, the
+        client's reply."""
+        seg_key = self._append_waiters.pop(token, None)
+        segment = self._append_segments.get(seg_key)
+        if segment is None:
+            return
+        worker_id = segment["pending"].pop(token, None)
+        if worker_id is None:
+            return
+        if msg.isa(ErrorMessage):
+            text = str(msg.get("payload") or "append failed")
+            # a worker's traceback: its last line names the error
+            text = (text.strip().splitlines() or ["append failed"])[-1]
+            segment["errors"][worker_id] = text[:300]
+        else:
+            segment["results"][worker_id] = (
+                msg.get_from_binary("result") or {}
+            )
+        if not segment["pending"]:
+            self._finish_append_segment(seg_key, segment)
+
+    def _finish_append_segment(self, seg_key, segment, timeout=False):
+        self._append_segments.pop(seg_key, None)
+        for token in list(segment["pending"]):
+            self._append_waiters.pop(token, None)
+        filename = segment["filename"]
+        reply_to = segment["client_token"]
+        if segment["errors"] or timeout:
+            detail = "; ".join(
+                f"{w}: {e}" for w, e in sorted(segment["errors"].items())
+            )
+            if timeout and segment["pending"]:
+                waiting = ", ".join(sorted(segment["pending"].values()))
+                detail = (f"{detail}; " if detail else "") + (
+                    f"no reply from {waiting}")
+            applied = (
+                f" ({len(segment['results'])} holder(s) DID apply the "
+                f"append: replicas may have diverged; re-issue the append)"
+                if segment["results"] else ""
+            )
+            err = ErrorMessage({"token": reply_to})
+            err["payload"] = f"append {filename!r} failed: {detail}{applied}"
+            self.reply_rpc_message(reply_to, err)
+            return
+        reply = Message({"token": reply_to, "payload": "append"})
+        reply.add_as_binary("result", {
+            "filename": filename,
+            "holders": segment["results"],
+            "appended": max(
+                (r.get("appended", 0) for r in segment["results"].values()),
+                default=0,
+            ),
+        })
+        self.reply_rpc_message(reply_to, reply)
+
+    def _sweep_append_segments(self):
+        """Fail append fan-outs whose holders never answered (a lost
+        reply) instead of leaving the client waiting past its timeout."""
+        now = time.time()
+        for seg_key, segment in list(self._append_segments.items()):
+            if now > segment["expires"]:
+                self._finish_append_segment(seg_key, segment, timeout=True)

@@ -19,8 +19,11 @@ segments it shares.  Tensors are accounted by their own bytes.
 :meth:`WorkingSet.evict_under_pressure` sheds LRU device entries (blocks
 before codes) while the device's allocated bytes stand above
 ``BQUERYD_TPU_HBM_EVICT_WATERMARK`` x its memory; on the CPU there is no
-sample and it does nothing.  The delta-maintained aggregates of streaming
-ingest (``DeltaAggCache``) wait for the ingest slice.
+sample and it does nothing.
+
+:class:`DeltaAggCache` keeps the worker's delta-maintained aggregates of
+streaming ingest: a cached result of a shard group whose tables only grew
+is refreshed from the appended chunks alone (:func:`growth_since`).
 
 A :class:`WorkingSet` belongs to one executor, never to the process.
 """
@@ -156,3 +159,147 @@ class WorkingSet:
                 freed, in_use, watermark * 100, limit,
             )
         return freed
+
+
+# -- delta-maintained hot aggregates (streaming ingest) ---------------------
+#
+# A cached groupby result for a shard group whose ctables only GREW (the
+# streaming-append signature) is refreshed by running the kernels over the
+# appended chunks alone and
+# merging the delta partial into the cached partial through the same
+# value-keyed hostmerge forms every cross-shard merge uses — sum/count/
+# count_na/min/max merge exactly, mean merges through its (sum, count)
+# partials.  Non-mergeable shapes (distinct counts, basket expansion, raw
+# rows) never enter; the existing identity-keyed (meta inode + row count)
+# invalidation of every other cache remains the correctness backstop: any
+# non-append change (reshard, activation, rewrite) fails the chunk-prefix
+# validation below and drops the entry to a full recompute.
+
+def delta_serve_enabled():
+    """Delta maintenance kill switch (``BQUERYD_TPU_DELTA_SERVE``,
+    default on)."""
+    return os.environ.get("BQUERYD_TPU_DELTA_SERVE", "1") == "1"
+
+
+def _delta_budget():
+    try:
+        return int(
+            os.environ.get(
+                "BQUERYD_TPU_DELTA_CACHE_BYTES", 128 * 1024**2
+            )
+        )
+    except ValueError:
+        return 128 * 1024**2
+
+
+def table_growth_base(table):
+    """The append-diff base of one table INSTANCE: its committed per-column
+    chunk indexes + row count, captured from the snapshot the computation
+    actually read.  None when the table exposes no committed chunk grid
+    (legacy formats, torn state) — such tables never delta-serve."""
+    committed = getattr(table, "committed_chunks", None)
+    if committed is None:
+        return None
+    cols = {}
+    for name in table.names:
+        snap = committed(name)
+        if snap is None:
+            return None
+        cols[name] = [dict(c) for c in snap]
+    return {
+        "rows": int(table.nrows),
+        "names": list(table.names),
+        "cols": cols,
+    }
+
+
+def growth_since(base, table):
+    """The NEW committed chunk ids of ``table`` relative to ``base``
+    (possibly empty), or None when the table is not an append-only growth
+    of the base.  Validation is exact: the base's chunk dicts (offset,
+    csize, crc, zone map) must be a verbatim prefix of the current index
+    for EVERY column — any rewrite mismatches and the caller recomputes."""
+    if base is None or not isinstance(base, dict):
+        return None
+    committed = getattr(table, "committed_chunks", None)
+    if committed is None:
+        return None
+    if list(table.names) != base.get("names"):
+        return None
+    if int(table.nrows) < base.get("rows", 0):
+        return None
+    new_ids = None
+    grown_rows = None
+    for name, bchunks in base.get("cols", {}).items():
+        cur = committed(name)
+        if cur is None or len(cur) < len(bchunks):
+            return None
+        if cur[: len(bchunks)] != bchunks:
+            return None
+        ids = list(range(len(bchunks), len(cur)))
+        rows = sum(int(c["nrows"]) for c in cur[len(bchunks):])
+        if new_ids is None:
+            new_ids, grown_rows = ids, rows
+        elif ids != new_ids or rows != grown_rows:
+            return None  # desynchronized chunk grid: not a clean append
+    if new_ids is None:
+        new_ids, grown_rows = [], 0
+    if grown_rows != int(table.nrows) - base["rows"]:
+        return None
+    return new_ids
+
+
+class DeltaAggCache:
+    """Byte-bounded cache of delta-maintainable aggregate results.
+
+    Entries are keyed by (table identity tuple, query signature) —
+    supplied by the worker — and hold the serialized merged
+    :class:`~bqueryd_tpu_torch.models.query.ResultPayload` plus the growth base
+    of every table it covers.  ``refresh_ids`` validates a later lookup
+    against live tables and names the appended chunks to re-aggregate."""
+
+    def __init__(self, max_bytes=None):
+        self._cache = BytesCappedCache(
+            _delta_budget() if max_bytes is None else max_bytes
+        )
+        #: cached results refreshed by aggregating only appended chunks
+        self.refreshes = 0
+        #: rows the delta kernels aggregated instead of the full tables
+        self.delta_rows = 0
+
+    def get(self, key):
+        return self._cache.get(key)
+
+    def discard(self, key):
+        self._cache.delete(key)
+
+    def store(self, key, tables, data):
+        """Record ``data`` (serialized payload bytes) as the delta base for
+        ``tables`` — a no-op when any table exposes no growth base."""
+        bases = [table_growth_base(t) for t in tables]
+        if any(b is None for b in bases):
+            return False
+        # refreshes REPLACE the entry (put() keeps an existing key)
+        self._cache.delete(key)
+        self._cache.put(
+            key, {"bases": bases, "data": data}, nbytes=len(data)
+        )
+        return True
+
+    def refresh_ids(self, entry, tables):
+        """Per-table NEW chunk ids for a cached entry against live tables,
+        or None when any table is not an append-only growth of its base
+        (the caller drops the entry and recomputes)."""
+        bases = entry.get("bases") or []
+        if len(bases) != len(tables):
+            return None
+        out = []
+        for base, table in zip(bases, tables):
+            ids = growth_since(base, table)
+            if ids is None:
+                return None
+            out.append(ids)
+        return out
+
+    def clear(self):
+        self._cache.clear()

@@ -12,9 +12,13 @@ shards and workers and combines them:
   value seen on several shards counts once; a sole payload's final counts
   (``distinct``) and ``sorted_count_distinct``'s run counts add.
 
+* the operator DAG's part kinds: per-group top-k lists (``topk_values``,
+  ``topk_offsets``) merge by a k-way re-select, quantile sketches
+  (``sketch_keys``, ``sketch_counts``, ``sketch_offsets``) by bucket-count
+  addition (:mod:`bqueryd_tpu_torch.parallel.opexec`).
+
 Payloads of ``bqueryd_tpu`` and of the port share one format, so either
-package's merge takes the other's payloads.  The operator-DAG part kinds
-wait for the slice that ports those ops.
+package's merge takes the other's payloads.
 """
 
 import numpy as np
@@ -229,6 +233,36 @@ def _merge_aligned(payloads, key_cols, ops, out_cols, value_kinds):
     for ai in range(len(ops)):
         part_names = first["aggs"][ai].keys()
         merged = {}
+        if "topk_offsets" in part_names:
+            from bqueryd_tpu_torch.parallel import opexec
+            from bqueryd_tpu_torch.plan.dag import parse_op
+
+            _kind, k, largest = parse_op(ops[ai])
+            values, offsets = opexec.merge_topk_parts(
+                [
+                    (g, p["aggs"][ai]["topk_values"],
+                     p["aggs"][ai]["topk_offsets"])
+                    for g, p in zip(group_of, payloads)
+                ],
+                k, largest, n_global,
+            )
+            aggs.append({"topk_values": values, "topk_offsets": offsets})
+            continue
+        if "sketch_offsets" in part_names:
+            from bqueryd_tpu_torch.parallel import opexec
+
+            keys, counts, offsets = opexec.merge_sketch_parts(
+                [
+                    (g, p["aggs"][ai]["sketch_keys"],
+                     p["aggs"][ai]["sketch_counts"],
+                     p["aggs"][ai]["sketch_offsets"])
+                    for g, p in zip(group_of, payloads)
+                ],
+                n_global,
+            )
+            aggs.append({"sketch_keys": keys, "sketch_counts": counts,
+                         "sketch_offsets": offsets})
+            continue
         if "distinct_offsets" in part_names:
             values, offsets = _union_distinct_flat(
                 [
@@ -352,6 +386,15 @@ def finalize_table(merged):
                 values = np.diff(np.asarray(agg["distinct_offsets"]))
         elif op == "sorted_count_distinct":
             values = agg["distinct"]
+        elif isinstance(op, str) and op.startswith("topk:"):
+            # object array of per-group best-first value arrays
+            from bqueryd_tpu_torch.parallel import opexec
+
+            values = opexec.finalize_topk(agg, vkind=vkind)
+        elif isinstance(op, str) and op.startswith("quantile:"):
+            from bqueryd_tpu_torch.parallel import opexec
+
+            values = opexec.finalize_quantile(agg, op)
         elif op in ("min", "max"):
             values = agg[op]
             empty = agg["count"] == 0

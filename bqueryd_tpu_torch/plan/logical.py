@@ -67,6 +67,7 @@ class LogicalPlan:
     aggregate_rows: bool = True         # the RPC ``aggregate=`` kwarg
     expand_filter_column: str = None
     rewrites: list = field(default_factory=list)  # applied rule names
+    dag_sig: tuple = None               # OperatorDAG.signature() of a query
 
     @property
     def filenames(self):
@@ -98,15 +99,18 @@ class LogicalPlan:
     def signature(self):
         """Hashable identity of the plan minus the shard set: two queries
         with equal signatures over the same shard group compute identical
-        payloads.  The last field is the reference's operator-DAG slot,
-        always None here (DAG queries are not ported)."""
+        payloads.  The last field is the operator DAG's signature
+        (``dag_sig``, set by :func:`bqueryd_tpu_torch.plan.dag.
+        groupby_equivalent`), None for a plain groupby: a DAG's join
+        table, window and post-derivation filter are invisible to the
+        groupby-shaped fields."""
         return (
             tuple(self.groupby.keys),
             freeze_value(self.physical_agg_list()),
             freeze_value(self.where_terms),
             bool(self.aggregate_rows),
             self.expand_filter_column,
-            None,
+            self.dag_sig,
         )
 
 

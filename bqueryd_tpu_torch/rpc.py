@@ -9,8 +9,10 @@ backoff, and ``last_call_duration``.  A ``groupby`` reply is a pickled
 envelope of per-shard-group payloads, which the client merges by key value
 and finalizes.  Unlike the reference it returns ``(order, {column:
 np.ndarray})`` from ``hostmerge.finalize_table``, not a DataFrame, so no
-pandas is needed.  One instance is single-thread lockstep: concurrent
-callers each hold their own.
+pandas is needed.  ``RPC.query(spec)`` (the operator DAG: joins, top-k,
+quantiles, window rollups) returns the same form, and ``RPC.append(
+filename, data)`` adds rows to a served shard.  One instance is
+single-thread lockstep: concurrent callers each hold their own.
 
 :class:`LocalRPC` takes the same ``groupby`` arguments and runs the query
 in-process through :func:`bqueryd_tpu_torch.worker.execute` with the
@@ -116,8 +118,10 @@ class RPC:
         #: attempts the most recent call consumed (1 = first try answered)
         self.last_call_attempts = None
         #: per-shard-group phase timings, the planner's hints and executed
-        #: routes ({"hints": ..., "effective": ...}) and merge modes
-        #: ("device", "host", "none") of the most recent groupby reply
+        #: routes ({"hints": ..., "effective": ...}; a route is "cached" for
+        #: a result-cache hit and "delta" for a delta refresh) and merge
+        #: modes ("device", "host", "none") of the most recent groupby or
+        #: query reply
         self.last_call_timings = None
         self.last_call_strategies = None
         self.last_call_merge_modes = None
@@ -236,11 +240,39 @@ class RPC:
             f"{last_error}"
         )
 
+    def query(self, spec, deadline=None):
+        """The operator-DAG verb: ``spec`` as
+        :func:`bqueryd_tpu_torch.plan.dag.compile_query` takes it (broadcast
+        hash joins of small dimension tables, per-group top-k, quantile
+        sketches, time-window rollups).  Returns ``(order, {column:
+        np.ndarray})`` as ``groupby`` does: a top-k column holds each
+        group's best-first values as an array, a quantile column the
+        sketch's estimate (relative error at most the op's alpha).  The
+        spec is validated here first, so a malformed one fails without a
+        round trip; the controller validates it again."""
+        from bqueryd_tpu_torch.plan import dag as dagmod
+
+        dagmod.compile_query(spec)
+        kwargs = {} if deadline is None else {"deadline": deadline}
+        return self._rpc("query", (spec,), kwargs)
+
+    def append(self, filename, data, deadline=None):
+        """Append a batch of rows (a DataFrame or a mapping of column
+        arrays) to a served shard: the controller sends it to every holder
+        of ``filename`` (one per distinct (node, data_dir)) and replies
+        once all confirmed.  Returns ``{"filename", "appended", "holders":
+        {worker: {...}}}``.  Queries racing the append see the pre- or the
+        post-append snapshot, never a torn one; a repeated query after it
+        is refreshed from the appended chunks alone where it can be.  A
+        holder's failure raises, naming it."""
+        kwargs = {} if deadline is None else {"deadline": deadline}
+        return self._rpc("append", (filename, data), kwargs)
+
     def _backoff_delay(self, attempt):
         return backoff.backoff_delay(attempt - 1, f"{self.identity}:{attempt}")
 
     def _parse_reply(self, name, reply):
-        if name == "groupby":
+        if name in ("groupby", "query"):
             return self._parse_groupby_reply(reply)
         msg = msg_factory(reply)
         if isinstance(msg, ErrorMessage):

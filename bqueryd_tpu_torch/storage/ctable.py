@@ -194,6 +194,13 @@ class ctable:
         self.nthreads = nthreads
         self._meta_path = os.path.join(rootdir, "meta.json")
         self._attrs_path = os.path.join(rootdir, "__attrs__.json")
+        #: (st_ino, st_mtime_ns) of the meta.json this instance read, None
+        #: for a table created here
+        self.meta_stat = None
+        #: the cache identity ``(realpath, st_ino, st_mtime_ns)`` of the
+        #: snapshot this instance reads, when its opener pinned one (see
+        #: :func:`table_cache_key`); None otherwise
+        self.identity = None
         if mode == "w":
             rm_file_or_dir(rootdir)
             mkdir_p(os.path.join(rootdir, "cols"))
@@ -209,7 +216,11 @@ class ctable:
             if not os.path.exists(self._meta_path):
                 raise IOError(f"not a tpucolz table: {rootdir}")
             with open(self._meta_path) as f:
+                # the stat of the very file read: an append renames a new
+                # meta.json over it, so these name this snapshot alone
+                st = os.fstat(f.fileno())
                 meta = json.load(f)
+            self.meta_stat = (st.st_ino, st.st_mtime_ns)
             if meta.get("format") != FORMAT_NAME:
                 raise IOError(f"unknown table format in {rootdir}")
             self.nrows = meta["nrows"]
@@ -487,7 +498,8 @@ class ctable:
         data_path = self._col_path(name, "data.tpc")
         st = os.stat(data_path) if os.path.exists(data_path) else None
         return (
-            os.path.realpath(self.rootdir),
+            self.identity[0] if self.identity
+            else os.path.realpath(self.rootdir),
             name,
             st.st_mtime_ns if st else 0,
             st.st_size if st else 0,
@@ -779,9 +791,11 @@ class ctable:
                         dictionary.append(v)
                         lookup[v] = code
                     remap[j] = code
-                codes = np.where(
-                    local_codes < 0, np.int32(-1), remap[local_codes]
-                ).astype(np.int32)
+                # only the non-null codes index the remap: an all-null
+                # batch has no uniques and an empty remap
+                codes = np.full(len(local_codes), -1, dtype=np.int32)
+                present = local_codes >= 0
+                codes[present] = remap[local_codes[present]]
                 _atomic_json_dump(
                     dictionary, self._col_path(name, "dictionary.json")
                 )
@@ -877,7 +891,8 @@ class ChunkView:
         # count and the selection; a rewritten parent or another selection
         # gives another token, so every cache keyed by table_cache_key
         # (factorize, align, codes, blocks) invalidates as for a table
-        pkey = rootdir_cache_key(getattr(parent, "rootdir", None))
+        pkey = getattr(parent, "identity", None) or rootdir_cache_key(
+            getattr(parent, "rootdir", None))
         if pkey is None:
             pkey = ("unstable", os.urandom(8).hex())
         sig = zlib.crc32(np.asarray(self.chunk_ids, dtype=np.int64).tobytes())
@@ -983,13 +998,27 @@ def rootdir_cache_key(rootdir):
     return (os.path.realpath(rootdir), st.st_ino, st.st_mtime_ns)
 
 
+def pin_identity(table, realpath):
+    """Pin ``(realpath, st_ino, st_mtime_ns)`` of the meta.json ``table``
+    read as its cache identity, so that :func:`table_cache_key` and a
+    :class:`ChunkView` of it take no stat and no realpath per call.  The
+    identity names the snapshot the instance reads (its row count and chunk
+    index are fixed at open), and an append commits a new meta.json by
+    rename, so a later open of the grown table gets another identity."""
+    table.identity = (realpath,) + tuple(table.meta_stat)
+    return table.identity
+
+
 def table_cache_key(table):
     """Cache identity of an on-disk table: path + metadata mtime + rows, so
     reshard/activation (which rewrites meta.json) invalidates naturally.
-    Tables without a stat-able meta.json get a one-time random token pinned
-    to the instance (NOT id(): CPython reuses addresses after GC, which
-    would let a new table hit a dead table's cached blocks)."""
-    key = rootdir_cache_key(getattr(table, "rootdir", None))
+    A table whose opener pinned its identity (:func:`pin_identity`) keys on
+    that; another one stats its meta.json.  Tables without a stat-able
+    meta.json get a one-time random token pinned to the instance (NOT
+    id(): CPython reuses addresses after GC, which would let a new table
+    hit a dead table's cached blocks)."""
+    key = getattr(table, "identity", None) or rootdir_cache_key(
+        getattr(table, "rootdir", None))
     if key is not None:
         return key + (int(table.nrows),)
     token = getattr(table, "_bqueryd_cache_token", None)

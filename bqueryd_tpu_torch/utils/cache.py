@@ -82,6 +82,14 @@ class BytesCappedCache:
             self._bytes -= freed
         return freed, count
 
+    def delete(self, key):
+        """Drop ``key`` if present (a refreshed entry replaces its old
+        value this way: ``put`` keeps an existing key)."""
+        with self._lock:
+            if key in self._data:
+                self._data.pop(key)
+                self._bytes -= self._sizes.pop(key)
+
     def clear(self):
         with self._lock:
             self._data.clear()

@@ -20,8 +20,11 @@
   column decode) runs on the pipeline pool, its device work on the calling
   thread.
 
-:class:`WorkerNode` runs :func:`execute` behind the reference's control
-plane: one ROUTER socket with a random hex identity connected out to every
+:class:`WorkerNode` answers ``groupby`` messages (and the operator DAGs of
+the ``query`` verb, which ride them) through the DAG layer, its result
+cache, its delta cache and then :func:`execute` or the per-shard
+``DagExecutor``, and ``append`` messages by writing the rows, behind the
+reference's control plane: one ROUTER socket with a random hex identity connected out to every
 controller in the coordination store, a WorkerRegisterMessage (WRM) with
 the served ``*.bcolz``/``*.bcolzs`` files every heartbeat, liveness WRMs
 from a second thread on sockets of its own, Busy/Done around each work
@@ -441,8 +444,12 @@ class WorkerBase:
 
 
 class WorkerNode(WorkerBase):
-    """The calc worker: answers ``groupby`` CalcMessages with
-    :func:`execute` on its own engine and executor.
+    """The calc worker: answers ``groupby`` CalcMessages (plain ones and
+    the operator DAGs of the ``query`` verb) and ``append`` ones, on its
+    own engine and executor, in the reference worker's order: the DAG
+    layer, the result cache, the delta cache, then :func:`execute` (a
+    plain DAG) or :class:`~bqueryd_tpu_torch.parallel.opexec.DagExecutor`
+    (an extended one).
 
     ``device`` is resolved when the node is built: ``cuda`` unless
     ``device="cpu"`` is passed; without a card it raises before any socket
@@ -459,7 +466,14 @@ class WorkerNode(WorkerBase):
         super().__init__(*args, **kw)
         self.engine = QueryEngine(device=device)
         self.executor = MeshQueryExecutor(device=device)
-        self._table_cache = {}
+        self._table_cache = {}   # pinned identity -> table instance
+        self._realpaths = {}     # rootdir as named -> its realpath
+        self._result_cache = None
+        self._delta_cache = None
+        #: delta refreshes served, and appends applied with their rows
+        self.delta_refreshes = 0
+        self.appends = 0
+        self.append_rows = 0
 
     @property
     def device(self):
@@ -479,31 +493,215 @@ class WorkerNode(WorkerBase):
         super().go()
 
     def _open_table(self, rootdir):
-        """Tables cached by meta.json identity: a rewritten shard misses,
-        and the executor's working set keys on the same identity."""
-        from bqueryd_tpu_torch.storage.ctable import ctable, rootdir_cache_key
+        """The table instance of ``rootdir``'s current snapshot, with its
+        identity pinned (``storage.ctable.pin_identity``): one ``stat`` of
+        meta.json per call, and a ``realpath`` once per rootdir name, as a
+        shard's path does not change under a running worker.  An append
+        commits a new meta.json by rename, so the next call opens a new
+        instance under a new identity, and every cache keyed on it (the
+        result cache, the working set, the factorize cache) misses."""
+        from bqueryd_tpu_torch.storage.ctable import ctable, pin_identity
 
-        key = rootdir_cache_key(rootdir)
-        if key is not None:
-            hit = self._table_cache.get(key)
-            if hit is not None:
-                return hit
+        real = self._realpaths.get(rootdir)
+        if real is None:
+            real = self._realpaths[rootdir] = os.path.realpath(rootdir)
+        try:
+            st = os.stat(os.path.join(rootdir, "meta.json"))
+        except FileNotFoundError:
+            if not os.path.exists(rootdir):
+                raise ValueError(f"Path {rootdir} does not exist") from None
+            raise
+        hit = self._table_cache.get((real, st.st_ino, st.st_mtime_ns))
+        if hit is not None:
+            return hit
         table = ctable(rootdir, mode="r", auto_cache=True)
-        if key is not None:
-            if len(self._table_cache) > 512:
-                self._table_cache.clear()
-            self._table_cache[key] = table
+        # pinned from the meta.json the instance read, which a concurrent
+        # append may have replaced since the stat above
+        identity = pin_identity(table, real)
+        if len(self._table_cache) > 512:
+            self._table_cache.clear()
+        self._table_cache[identity] = table
         return table
 
-    def handle_work(self, msg):
-        if not msg.isa("groupby"):
-            return super().handle_work(msg)
+    # -- caches ------------------------------------------------------------
+    @property
+    def result_cache(self):
+        """Serialized-result cache keyed by (table identities, query or
+        DAG signature): a repeated query on unchanged shards costs one dict
+        lookup and no kernel.  Bounded by
+        ``BQUERYD_TPU_RESULT_CACHE_BYTES`` (default 256 MiB; 0 disables)."""
+        if self._result_cache is None:
+            from bqueryd_tpu_torch.utils.cache import BytesCappedCache
+
+            try:
+                cap = int(os.environ.get("BQUERYD_TPU_RESULT_CACHE_BYTES",
+                                         256 * 1024**2))
+            except ValueError:
+                self.logger.warning(
+                    "unparseable BQUERYD_TPU_RESULT_CACHE_BYTES, cache off"
+                )
+                cap = 0
+            self._result_cache = BytesCappedCache(cap) if cap > 0 else False
+        # an EMPTY cache is len()-falsy: compare with False explicitly
+        return None if self._result_cache is False else self._result_cache
+
+    def delta_cache(self):
+        """The worker's :class:`~bqueryd_tpu_torch.ops.workingset.
+        DeltaAggCache` (None while ``BQUERYD_TPU_DELTA_SERVE=0``)."""
+        from bqueryd_tpu_torch.ops import workingset
+
+        if not workingset.delta_serve_enabled():
+            return None
+        if self._delta_cache is None:
+            self._delta_cache = workingset.DeltaAggCache()
+        return self._delta_cache
+
+    def clear_caches(self):
+        """Drop every query cache of the node: results, delta bases, the
+        executor's working set and the engine's factorizations."""
+        if self._result_cache:
+            self._result_cache.clear()
+        if self._delta_cache is not None:
+            self._delta_cache.clear()
+        self.executor.clear_caches()
+        self.engine.clear_caches()
+
+    @staticmethod
+    def _delta_eligible(query):
+        """Shapes whose cached result a tail-only partial can refresh:
+        plain mergeable aggregations.  Basket expansion re-selects OLD rows
+        when a NEW row of the same basket matches; distinct counts carry
+        value sets the flat merge forms don't cover here."""
+        from bqueryd_tpu_torch import ops
+
+        return (
+            query is not None
+            and query.aggregate
+            and not query.expand_filter_column
+            and all(op in ops.MERGEABLE_OPS for op in query.ops)
+        )
+
+    @staticmethod
+    def _delta_key(tables, query):
+        """The delta entry of a shard group: its tables' paths (the pinned
+        identity's realpath, so that a grown table finds the entry of its
+        earlier snapshot) and the query's signature."""
+        return (
+            tuple(t.identity[0] if t.identity else os.path.realpath(t.rootdir)
+                  for t in tables),
+            query.signature(),
+        )
+
+    def _serve_delta(self, cache, tables, query, timer):
+        """Serve a grown shard group from the delta cache: aggregate ONLY
+        the appended chunks of each grown table on the engine (one kernel
+        launch per tail view) and merge the tail partials into the cached
+        payload.  Returns the refreshed serialized payload, or None (no
+        entry, no growth, or not an append-only growth: the caller
+        recomputes)."""
+        key = self._delta_key(tables, query)
+        with timer.phase("delta"):
+            entry = cache.get(key)
+            if entry is None:
+                return None
+            per_table_ids = cache.refresh_ids(entry, tables)
+            if per_table_ids is None:
+                # a rewrite, reshard or shrink: recompute (and re-base)
+                cache.discard(key)
+                return None
+        tails = [table.chunk_view(ids)
+                 for table, ids in zip(tables, per_table_ids) if ids]
+        if not tails:
+            # no growth: an identical repeat is the RESULT cache's job, so
+            # that BQUERYD_TPU_RESULT_CACHE_BYTES=0 really recomputes
+            return None
+        payloads = [ResultPayload.from_bytes(entry["data"])]
+        with timer.phase("execute"):
+            for view in tails:
+                payloads.append(self.engine.execute_local(view, query))
+        with timer.phase("hostmerge"):
+            merged = ResultPayload(hostmerge.merge_payloads(payloads))
+        with timer.phase("serialize"):
+            data = merged.to_bytes()
+        with timer.phase("delta"):
+            cache.store(key, tables, data)
+        cache.refreshes += 1
+        cache.delta_rows += sum(int(v.nrows) for v in tails)
+        self.delta_refreshes += 1
+        return data
+
+    # -- work --------------------------------------------------------------
+    def _append_rows(self, msg):
+        """The ``append`` verb: apply a batch of rows (a DataFrame or a
+        mapping of column arrays) to a shard this worker serves.  Column
+        data and chunk indexes commit before the meta.json row count, so
+        queries on this worker keep a consistent snapshot."""
+        from bqueryd_tpu_torch.storage.ctable import ctable
+
+        if os.environ.get("BQUERYD_TPU_APPEND", "1") == "0":
+            raise ValueError(
+                "streaming append disabled on this worker "
+                "(BQUERYD_TPU_APPEND=0)"
+            )
+        args, _kwargs = msg.get_args_kwargs()
+        if len(args) != 2:
+            raise ValueError("append needs (filename, dataframe_like)")
+        filename, frame = args
+        rootdir = os.path.realpath(os.path.join(self.data_dir, filename))
+        if not rootdir.startswith(os.path.realpath(self.data_dir) + os.sep):
+            raise ValueError(f"path {filename!r} escapes data_dir")
+        if not os.path.exists(os.path.join(rootdir, "meta.json")):
+            raise ValueError(f"Path {rootdir} does not exist")
+        table = ctable(rootdir, mode="a")
+        appended = table.append(frame)
+        self.appends += 1
+        self.append_rows += int(appended)
+        reply = msg.copy()
+        # the request's params carry the whole batch: echoing them back
+        # per holder would double the wire cost
+        reply.pop("params", None)
+        reply.add_as_binary("result", {
+            "filename": filename,
+            "appended": int(appended),
+            "rows": int(table.nrows),
+            "worker": self.worker_id,
+            "node": self.node_name,
+        })
+        return reply
+
+    def _execute_dag(self, tables, dag, timer, report):
+        """An extended operator DAG (join, top-k, quantile sketch, window)
+        through the per-shard :class:`DagExecutor` and the host merge;
+        ``report`` as :func:`execute` fills it, ``merge_mode`` "host" or
+        "none"."""
+        from bqueryd_tpu_torch.parallel.opexec import DagExecutor
+
+        executor = DagExecutor(self.engine)
+        payload = executor.execute(tables, dag, timer=timer)
+        report["effective_strategy"] = executor.last_effective_strategy
+        report["merge_mode"] = executor.last_merge_mode
+        decoded = sum(c[0] for c in executor._prune_counts)
+        skipped = sum(c[1] for c in executor._prune_counts)
+        if decoded or skipped:
+            report["chunk_prune"] = (decoded, skipped)
+        return payload
+
+    def _query_of(self, msg, args, kwargs):
+        """``(query, dag, strategy)`` of a groupby CalcMessage.  Every
+        message compiles through the DAG layer: a ``dag`` envelope key is
+        the authoritative program (the ``query`` verb); otherwise the plan
+        fragment (or the bare params) builds a plain DAG.  ``query`` is the
+        plain DAG's field-exact :class:`GroupByQuery`, None for an extended
+        DAG."""
         from bqueryd_tpu_torch.models.query import GroupByQuery
+        from bqueryd_tpu_torch.plan import dag as dagmod
         from bqueryd_tpu_torch.plan import fragment_to_query
 
-        timer = PhaseTimer()
-        args, kwargs = msg.get_args_kwargs()
-        filename, groupby_cols, agg_list, where_terms = args[:4]
+        if msg.get("dag"):
+            dag = dagmod.OperatorDAG.from_wire(msg.get_from_binary("dag"))
+            dag.sole_payload = bool(msg.get("sole_shard"))
+            return dag.plain_groupby_query(), dag, None
+        _filename, groupby_cols, agg_list, where_terms = args[:4]
         # a planning controller sends the rewritten plan fragment beside
         # the positional params: the fragment is authoritative; bare
         # params serve older controllers and direct callers
@@ -525,23 +723,71 @@ class WorkerNode(WorkerBase):
                 expand_filter_column=kwargs.get("expand_filter_column"),
                 sole_payload=bool(msg.get("sole_shard")),
             )
+        dag = dagmod.dag_from_query(query)
+        return dag.plain_groupby_query(), dag, strategy
+
+    def handle_work(self, msg):
+        if msg.isa("append"):
+            return self._append_rows(msg)
+        if not msg.isa("groupby"):
+            return super().handle_work(msg)
+        from bqueryd_tpu_torch.storage.ctable import table_cache_key
+
+        timer = PhaseTimer()
+        args, kwargs = msg.get_args_kwargs()
+        query, dag, strategy = self._query_of(msg, args, kwargs)
+        filename = args[0]
         filenames = filename if isinstance(filename, list) else [filename]
-        tables = []
         with timer.phase("open"):
-            for name in filenames:
-                rootdir = os.path.join(self.data_dir, name)
-                if not os.path.exists(rootdir):
-                    raise ValueError(f"Path {rootdir} does not exist")
-                tables.append(self._open_table(rootdir))
-        report = {}
-        with timer.phase("execute"):
-            # the prune phase, when it runs, is timed inside execute
-            payload = execute(tables, query, self.engine,
-                              executor=self.executor, strategy=strategy,
-                              report=report, timer=timer)
-        with timer.phase("serialize"):
-            data = payload.to_bytes()
+            tables = [self._open_table(os.path.join(self.data_dir, name))
+                      for name in filenames]
+        report = {"effective_strategy": None, "merge_mode": None}
+        cache = self.result_cache
+        cache_key = data = None
+        if cache is not None:
+            cache_key = (
+                tuple(table_cache_key(t) for t in tables),
+                # an extended DAG has no GroupByQuery form: its identity is
+                # the DAG signature (join table, window, sketch params)
+                query.signature() if query is not None else dag.signature(),
+            )
+            data = cache.get(cache_key)
+            if data is not None:
+                # a hit compiled nothing: the route says so
+                report["effective_strategy"] = "cached"
+        delta_cache = None
+        if data is None and self._delta_eligible(query):
+            delta_cache = self.delta_cache()
+        if delta_cache is not None:
+            data = self._serve_delta(delta_cache, tables, query, timer)
+            if data is not None:
+                report["effective_strategy"] = "delta"
+                report["merge_mode"] = "host"
+                if cache is not None and len(data) <= cache.max_bytes // 8:
+                    cache.put(cache_key, data, nbytes=len(data))
+        if data is None:
+            with timer.phase("execute"):
+                # the prune phase, when it runs, is timed inside execute
+                if query is not None:
+                    payload = execute(tables, query, self.engine,
+                                      executor=self.executor,
+                                      strategy=strategy, report=report,
+                                      timer=timer)
+                else:
+                    payload = self._execute_dag(tables, dag, timer, report)
+            with timer.phase("serialize"):
+                data = payload.to_bytes()
+            if cache is not None and len(data) <= cache.max_bytes // 8:
+                cache.put(cache_key, data, nbytes=len(data))
+            if delta_cache is not None:
+                # the delta base: the snapshots of the very table
+                # instances this result was computed from
+                with timer.phase("delta"):
+                    delta_cache.store(self._delta_key(tables, query),
+                                      tables, data)
         reply = msg.copy()
+        # the request's DAG carries the whole join table: no echo
+        reply.pop("dag", None)
         reply["data"] = data
         reply["phase_timings"] = timer.as_dict()
         if "chunk_prune" in report:

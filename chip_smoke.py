@@ -36,28 +36,52 @@
    caches are cleared and 3 warm ones, each checked the same way and
    reporting the route ``LocalRPC`` took; walls split into the worker's
    phases (prune included), the client's merge and the rest, beside
-   ``LocalRPC``'s;
-6. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
+   ``LocalRPC``'s; the worker's result cache is off, so that every warm
+   query runs its kernels, and its delta cache on (its bookkeeping is the
+   ``delta`` phase);
+6. drives the operator-DAG verb on a cluster of its own over the same
+   shards: five configs through ``RPC.query`` (dag_join: a 265-row zone
+   table joined on PULocationID; dag_topk: fare's top 5 and trip_distance's
+   3 smallest; dag_quantile: trip_distance p50 and p99 sketches; dag_window:
+   fare per hour of pickup; dag_plain: multikey's shape, which must equal
+   ``RPC.groupby``'s bytes), 1 cold + 3 warm with the result cache off,
+   each checked against NumPy (ints bit-exact, top-k lists equal to a NumPy
+   sort, quantiles within alpha), launching its contractions as expected,
+   then one query served from the result cache ("cached", no launch); the
+   card's sketch keys of every trip_distance value equal the host
+   formula's;
+7. drives the append verb on bench.py's ingest deployment (2,000,000 rows
+   in 4 shards of its own, its own cluster): the query ``[g]: v sum, f
+   mean, v min``, two cycles of ``RPC.append`` (a 24th of a shard each)
+   followed by the query, which must be a delta refresh of the appended
+   chunks alone, a cold recompute equal to it, a ``seq`` filter that chunk
+   pruning serves and one ``RPC.query`` over the grown shards, all checked
+   against NumPy of the concatenated frames;
+8. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
    ``... worker --device=cuda`` as processes, one checked query per config
    (but the unpruned leg, whose environment the worker process does not
-   have), both stopped by SIGTERM and exiting 0;
-7. drives the per-shard engine path (``QueryEngine.execute_local`` per
+   have), dag_join through ``RPC.query`` and an append to a small shard
+   of its own (the repeat query a delta refresh), both stopped by SIGTERM
+   and exiting 0;
+9. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
-   (executor, cluster, engine) and read just after, and every kernel of
-   each path must have launched there;
-8. breaks queries down into host phases and pipeline stage busy time
+   (executor, cluster, DAG, append, engine) and read just after, and every
+   kernel of each path must have launched there;
+10. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-9. holds every branch of each kernel against its plain PyTorch version at
+11. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
-   the engine path's per-shard shapes, plus one shape per other branch
+   the engine path's per-shard shapes, the DAG configs' per-shard shapes
+   and the append leg's (the executor's and a delta refresh's tail view),
+   captured from their own runs, plus one shape per other branch
    (base "table" at G = 8192, hicard "global" past the cluster table),
    with ints bit-exact, float rows within rtol=2e-5, atol=1e-6*max, and
    the base kernel's output bit-identical across two launches; times each
@@ -65,9 +89,9 @@
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-10. sweeps the base kernel's two branches over G (the crossover behind
+12. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-11. prints the sweeps, the ``kernels`` JSON line, then the device JSON
+13. prints the sweeps, the ``kernels`` JSON line, then the device JSON
     line last.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -230,6 +254,67 @@ ENGINE_SHAPE = {
 
 #: float (Dekker) rows at the end of each config's stacked rows
 FLOAT_ROWS = {"multikey": 3}
+
+
+def _zone_table():
+    """dag_join's dimension table: each of the 265 pickup locations to one
+    of five zones ``z{id % 5}``."""
+    ids = np.arange(1, 266, dtype=np.int64)
+    return {"PULocationID": ids,
+            "zone": np.array([f"z{i % 5}" for i in ids], dtype=object)}
+
+
+#: the relational operators through ``RPC.query`` on the same 10 shards,
+#: the shapes of bench.py's operators section: a broadcast join, per-group
+#: top-k (fare's top 5 are all ties at 19,999, so trip_distance's 3
+#: smallest add a float measure and the ascending side), quantile
+#: sketches, a time-window rollup, and a plain groupby shape
+DAG_SPECS = {
+    "dag_join": {"groupby": ["zone"],
+                 "aggs": [["fare_amount", "sum", "fare_sum"],
+                          ["fare_amount", "count", "n"]],
+                 "join": {"table": _zone_table(), "on": "PULocationID",
+                          "select": ["zone"]}},
+    "dag_topk": {"groupby": ["passenger_count"],
+                 "aggs": [["fare_amount", "topk", "fare_top5", {"k": 5}],
+                          ["trip_distance", "topk", "dist_low3",
+                           {"k": 3, "largest": False}]]},
+    "dag_quantile": {"groupby": ["passenger_count"],
+                     "aggs": [["trip_distance", "quantile", "p50",
+                               {"q": 0.5, "alpha": 0.01}],
+                              ["trip_distance", "quantile", "p99",
+                               {"q": 0.99, "alpha": 0.01}]]},
+    "dag_window": {"groupby": [{"window": {"on": "pickup_ts", "every": "1h",
+                                           "alias": "hour"}}],
+                   "aggs": [["fare_amount", "sum", "fare_sum"]]},
+    "dag_plain": {"groupby": ["VendorID", "payment_type"],
+                  "aggs": CONFIGS["multikey"][2]},
+}
+
+#: the sketches' relative accuracy in DAG_SPECS
+SKETCH_ALPHA = 0.01
+
+#: (R, G) of each shard's contraction of a DAG config: the per-shard
+#: ``DagExecutor`` stacks int64 fare's count row and 8 limbs; top-k and
+#: quantile DAGs count rows alone (R = 1); the day of pickups starts at
+#: 22:13:20 UTC, so it spans 25 one-hour windows (bucketed to 26 groups);
+#: dag_plain is multikey on the executor
+DAG_SHAPE = {
+    "dag_join": (9, 5),
+    "dag_topk": (1, 9),
+    "dag_quantile": (1, 9),
+    "dag_window": (9, 26),
+}
+
+#: the append leg: bench.py's ingest deployment, 2,000,000 rows in 4
+#: shards of its own, chunks of a 24th of a shard, two appends of about
+#: 4% per shard
+INGEST_ROWS = 2_000_000
+INGEST_SHARDS = 4
+INGEST_SEED = 23
+INGEST_AGGS = [["v", "sum", "vs"], ["f", "mean", "fm"], ["v", "min", "vmin"]]
+#: float (Dekker) rows of the ingest query's contractions: f's mean
+INGEST_FLOAT_ROWS = 3
 
 
 def shape_key(name, branch, n_rows, n_groups, n):
@@ -409,19 +494,9 @@ def expected_launches(config, parts):
     return {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
 
 
-@contextlib.contextmanager
 def _env(config):
     """The environment ``config`` runs under (``ENV``), restored after."""
-    saved = {k: os.environ.get(k) for k in ENV.get(config, {})}
-    os.environ.update(ENV.get(config, {}))
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    return _env_set(ENV.get(config, {}))
 
 
 def _query(rpc, names, config):
@@ -567,31 +642,12 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
     the client's merge and the rest (controller, ZMQ hops, pickling),
     beside the median of 20 pings (client to controller and back) and the
     worker's table opens timed outside its loop."""
-    import logging
-
     from bqueryd_tpu_torch import ops
-    from bqueryd_tpu_torch.controller import ControllerNode
     from bqueryd_tpu_torch.ops import onehot
-    from bqueryd_tpu_torch.rpc import RPC
-    from bqueryd_tpu_torch.worker import WorkerNode
 
-    url = f"file://{store_dir}"
-    quiet = logging.WARNING
-    controller = ControllerNode(coordination_url=url, loglevel=quiet,
-                                runfile_dir=store_dir, heartbeat_interval=0.5)
-    worker = WorkerNode(coordination_url=url, data_dir=data_dir,
-                        loglevel=quiet, heartbeat_interval=1.0,
-                        poll_timeout=0.1)  # cuda
-    threads = [threading.Thread(target=n.go, daemon=True)
-               for n in (controller, worker)]
-    for t in threads:
-        t.start()
+    rpc, controller, worker, threads = _start_cluster(data_dir, store_dir)
     report = {}
     try:
-        _wait(lambda: all(n in controller.files_map for n in names), 60,
-              "the worker's registration")
-        rpc = RPC(coordination_url=url, timeout=300, retries=1,
-                  loglevel=quiet)
         # one client <-> controller round trip with no worker behind it
         pings = []
         for _ in range(20):
@@ -613,8 +669,7 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
             route = local[config]["route"]
             routes_want = [route] * groups if route else []
             # the worker's loop thread idles between queries
-            worker.executor.clear_caches()
-            worker.engine.clear_caches()
+            worker.clear_caches()
             queries = []
             for rep in range(warm + 1):
                 before = dict(onehot.LAUNCHES)
@@ -631,28 +686,9 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                         f"merge modes {modes_want} and routes {routes_want}; "
                         f"launched {launched}, merge modes {modes}, routes "
                         f"{routes}")
-                timings = list(rpc.last_call_timings.values())
-                phases = {}
-                for t in timings:
-                    for k, v in t.items():
-                        phases[k] = phases.get(k, 0) + v
-                prune = None
-                if "_chunks_decoded" in phases:
-                    prune = (phases["_chunks_decoded"],
-                             phases["_chunks_skipped"])
-                _check_prune(config, f"cluster {config} query {rep}", prune)
-                queries.append({
-                    "wall_s": wall,
-                    "worker_s": phases["_total"],
-                    "worker_phases_s": {k: v for k, v in phases.items()
-                                        if not k.startswith("_")},
-                    "client_merge_s": rpc.last_call_client_merge_s,
-                    "rest_s": (wall - phases["_total"]
-                               - rpc.last_call_client_merge_s),
-                    "reply_bytes": rpc.last_call_reply_bytes,
-                    "chunk_prune": prune,
-                })
-            warm_q = queries[1:]
+                queries.append(_reply_split(rpc, wall))
+                _check_prune(config, f"cluster {config} query {rep}",
+                             queries[-1]["chunk_prune"])
             # the worker's table opens for these shards, called from this
             # thread while the nodes idle: the open phase without the loop
             paths = [os.path.join(data_dir, f) for f in names[sl]]
@@ -680,42 +716,515 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                     select.append(t1 - t0)
                 prune_direct = {"selection_s_median": float(np.median(select)),
                                 "views_s_median": float(np.median(views))}
-            report[config] = {
-                "cold": queries[0],
-                "warm": warm_q,
-                "warm_wall_s_median": float(np.median(
-                    [q["wall_s"] for q in warm_q])),
-                "warm_median_s": {
-                    k: float(np.median([q[k] for q in warm_q]))
-                    for k in ("worker_s", "client_merge_s", "rest_s")
-                },
-                "warm_worker_phases_median_s": {
-                    k: float(np.median([q["worker_phases_s"].get(k, 0.0)
-                                        for q in warm_q]))
-                    for k in warm_q[-1]["worker_phases_s"]
-                },
-                "messages": groups,
-                "reply_bytes": warm_q[-1]["reply_bytes"],
-                "open_direct_s_median": float(np.median(opens)),
-                "prune_direct": prune_direct,
-                "routes": routes,
-                "merge_modes": modes,
-                "launch_shapes": expect,
-                "launches": sum(expect.values()) * (warm + 1),
-                "chunk_prune": warm_q[-1]["chunk_prune"],
-                "local_rpc_cold_wall_s": local[config]["cold_wall_s"],
-                "local_rpc_warm_wall_s_median":
-                    local[config]["warm_wall_s_median"],
-            }
+            report[config] = dict(
+                _warm_summary(queries),
+                messages=groups,
+                reply_bytes=queries[-1]["reply_bytes"],
+                open_direct_s_median=float(np.median(opens)),
+                prune_direct=prune_direct,
+                routes=routes,
+                merge_modes=modes,
+                launch_shapes=expect,
+                launches=sum(expect.values()) * (warm + 1),
+                chunk_prune=queries[-1]["chunk_prune"],
+                local_rpc_cold_wall_s=local[config]["cold_wall_s"],
+                local_rpc_warm_wall_s_median=local[config][
+                    "warm_wall_s_median"],
+            )
             log(f"cluster {config}: {json.dumps(report[config])}")
-        rpc._close_socket()
     finally:
-        for n in (controller, worker):
-            n.running = False
-        for t in threads:
-            t.join(timeout=20)
+        _stop_cluster(rpc, controller, worker, threads)
+    return report
+
+
+@contextlib.contextmanager
+def _env_set(values):
+    """``os.environ`` updated with ``values`` inside the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _set_result_cache(worker, nbytes):
+    """Turn an idle in-process worker's result cache off (0) or on: the
+    worker reads ``BQUERYD_TPU_RESULT_CACHE_BYTES`` at its next query."""
+    os.environ["BQUERYD_TPU_RESULT_CACHE_BYTES"] = str(int(nbytes))
+    worker._result_cache = None
+
+
+@contextlib.contextmanager
+def capturing(store, label, n_float=0):
+    """Record under ``label`` the inputs of the first launch of each
+    kernel shape not yet in ``store`` (label -> (kernel, branch, codes,
+    rows, R, G, int rows)), for the kernel rows; nothing more is launched.
+    A second new shape in one block gets the label with its shape."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    known = {shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
+             for e in store.values()}
+    launchers = {"onehot_rows_dot": onehot._launch_base,
+                 "onehot_rows_dot_hicard": onehot._launch_hicard}
+
+    def wrap(name, launch):
+        def run(codes, rows, n_rows, n_groups, plan):
+            key = shape_key(name, plan.branch, n_rows, n_groups,
+                            codes.shape[0])
+            if key not in known:
+                known.add(key)
+                at = label if label not in store else f"{label} {key}"
+                store[at] = (name, plan.branch, codes, rows, n_rows,
+                             n_groups, n_rows - n_float)
+            return launch(codes, rows, n_rows, n_groups, plan)
+        return run
+
+    onehot._launch_base = wrap("onehot_rows_dot",
+                               launchers["onehot_rows_dot"])
+    onehot._launch_hicard = wrap("onehot_rows_dot_hicard",
+                                 launchers["onehot_rows_dot_hicard"])
+    try:
+        yield
+    finally:
+        onehot._launch_base = launchers["onehot_rows_dot"]
+        onehot._launch_hicard = launchers["onehot_rows_dot_hicard"]
+
+
+def _start_cluster(data_dir, store_dir):
+    """A port controller and a port calc worker on cuda as threads of this
+    process, found through a file:// store; returns (rpc, controller,
+    worker, threads) once the worker serves every shard of ``data_dir``."""
+    import logging
+
+    from bqueryd_tpu_torch.controller import ControllerNode
+    from bqueryd_tpu_torch.rpc import RPC
+    from bqueryd_tpu_torch.worker import WorkerNode
+
+    url = f"file://{store_dir}"
+    quiet = logging.WARNING
+    controller = ControllerNode(coordination_url=url, loglevel=quiet,
+                                runfile_dir=store_dir, heartbeat_interval=0.5)
+    worker = WorkerNode(coordination_url=url, data_dir=data_dir,
+                        loglevel=quiet, heartbeat_interval=1.0,
+                        poll_timeout=0.1)  # cuda
+    threads = [threading.Thread(target=n.go, daemon=True)
+               for n in (controller, worker)]
+    for t in threads:
+        t.start()
+    shards = [f for f in os.listdir(data_dir) if f.endswith(".bcolzs")]
+    _wait(lambda: all(n in controller.files_map for n in shards), 60,
+          "the worker's registration")
+    rpc = RPC(coordination_url=url, timeout=300, retries=1, loglevel=quiet)
+    return rpc, controller, worker, threads
+
+
+def _stop_cluster(rpc, controller, worker, threads):
+    rpc._close_socket()
+    for n in (controller, worker):
+        n.running = False
+    for t in threads:
+        t.join(timeout=20)
     if any(t.is_alive() for t in threads):
         raise AssertionError("a cluster node did not stop")
+
+
+def _reply_split(rpc, wall):
+    """A cluster query's wall split into the worker's phases (summed over
+    its messages), the client's merge and the rest."""
+    phases = {}
+    for t in rpc.last_call_timings.values():
+        for k, v in t.items():
+            phases[k] = phases.get(k, 0) + v
+    prune = None
+    if "_chunks_decoded" in phases:
+        prune = (phases["_chunks_decoded"], phases["_chunks_skipped"])
+    return {
+        "wall_s": wall,
+        "worker_s": phases["_total"],
+        "worker_phases_s": {k: v for k, v in phases.items()
+                            if not k.startswith("_")},
+        "client_merge_s": rpc.last_call_client_merge_s,
+        "rest_s": wall - phases["_total"] - rpc.last_call_client_merge_s,
+        "reply_bytes": rpc.last_call_reply_bytes,
+        "chunk_prune": prune,
+    }
+
+
+def _warm_summary(queries):
+    warm = queries[1:]
+    return {
+        "cold": queries[0],
+        "warm": warm,
+        "warm_wall_s_median": float(np.median([q["wall_s"] for q in warm])),
+        "warm_median_s": {
+            k: float(np.median([q[k] for q in warm]))
+            for k in ("worker_s", "client_merge_s", "rest_s")
+        },
+        "warm_worker_phases_median_s": {
+            k: float(np.median([q["worker_phases_s"].get(k, 0.0)
+                                for q in warm]))
+            for k in warm[-1]["worker_phases_s"]
+        },
+    }
+
+
+def dag_reference(config, parts):
+    """NumPy reference of one DAG config over every shard's rows:
+    {key: {out col: value}}."""
+    cols = {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+    pc, fare = cols["passenger_count"], cols["fare_amount"]
+    out = {}
+    if config == "dag_join":
+        zone = cols["PULocationID"] % 5
+        for z in np.unique(zone):
+            sel = zone == z
+            out[f"z{z}"] = {"fare_sum": int(fare[sel].sum()),
+                            "n": int(sel.sum())}
+    elif config == "dag_topk":
+        dist = cols["trip_distance"]
+        for g in np.unique(pc):
+            sel = pc == g
+            out[int(g)] = {"fare_top5": np.sort(fare[sel])[::-1][:5],
+                           "dist_low3": np.sort(dist[sel])[:3]}
+    elif config == "dag_quantile":
+        dist = cols["trip_distance"].astype(np.float64)
+        for g in np.unique(pc):
+            sel = dist[pc == g]
+            out[int(g)] = {q: float(np.quantile(sel, float(q[1:]) / 100,
+                                                method="lower"))
+                           for q in ("p50", "p99")}
+    elif config == "dag_window":
+        hour_ns = np.int64(3600 * 10**9)
+        ts = cols["pickup_ts"].view(np.int64)
+        hours, inv = np.unique(ts // hour_ns * hour_ns, return_inverse=True)
+        sums = np.zeros(len(hours), dtype=np.int64)
+        np.add.at(sums, inv, fare)
+        for h, s in zip(hours, sums):
+            out[np.datetime64(int(h), "ns")] = {"fare_sum": int(s)}
+    else:
+        raise ValueError(config)
+    return out
+
+
+def check_dag(config, order, columns, want):
+    """One DAG config's result against :func:`dag_reference`: ints bit for
+    bit, top-k lists equal to a NumPy sort, quantiles within alpha of the
+    lower order statistic."""
+    spec = DAG_SPECS[config]
+    key = order[0]
+    assert order == [key] + [a[2] for a in spec["aggs"]], order
+    got_keys = [k.item() if isinstance(k, np.generic) else k
+                for k in columns[key]]
+    if config == "dag_window":
+        got_keys = list(columns[key])
+    assert len(got_keys) == len(want), (config, len(got_keys), len(want))
+    for i, k in enumerate(got_keys):
+        ref = want[k]
+        for out_col, value in ref.items():
+            got = columns[out_col][i]
+            if config == "dag_topk":
+                assert got.dtype == value.dtype and np.array_equal(
+                    got, value), (config, k, out_col, got, value)
+            elif config == "dag_quantile":
+                assert abs(got - value) <= SKETCH_ALPHA * abs(value) + 1e-12, (
+                    config, k, out_col, got, value)
+            else:
+                assert columns[out_col].dtype == np.int64
+                assert int(got) == value, (config, k, out_col, got, value)
+
+
+def dag_expected_launches(config, parts):
+    """{shape key: launches} of one query of a DAG config: one contraction
+    per shard, or the executor's one for dag_plain."""
+    if config == "dag_plain":
+        return expected_launches("multikey", parts)
+    out = {}
+    for p in parts:
+        key = shape_key("onehot_rows_dot", "mma", *DAG_SHAPE[config],
+                        len(p["fare_amount"]))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def run_dag_path(names, parts, data_dir, store_dir, captured, warm=3):
+    """The operator-DAG verb on the 10 taxi shards: its own controller and
+    worker on cuda (threads, file:// store), each DAG config through
+    ``RPC.query``: one cold query after the worker's caches are cleared and
+    ``warm`` warm ones with the result cache off, each checked against
+    NumPy, launching its contractions the expected times at the expected
+    shapes and merging as expected; then, with the result cache on, one
+    query to fill it and one that must be served from it ("cached", no
+    launch).  dag_plain's result must be the very bytes of ``RPC.groupby``
+    of the same shape, on the same route.  Records each config's kernel
+    inputs (its cold query's first launch) into ``captured``, and holds
+    the card's sketch keys of every trip_distance value against the host
+    formula's."""
+    from bqueryd_tpu_torch.ops import onehot, relops
+    from bqueryd_tpu_torch.parallel import opexec
+
+    report = {}
+    with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}):
+        rpc, controller, worker, threads = _start_cluster(data_dir,
+                                                          store_dir)
+        try:
+            for config, spec in DAG_SPECS.items():
+                query = dict(spec, table=list(names))
+                plain = config == "dag_plain"
+                want = (reference("multikey", parts) if plain
+                        else dag_reference(config, parts))
+                expect = dag_expected_launches(config, parts)
+                modes_want = ["device" if plain else "host"]
+                _set_result_cache(worker, 0)
+                worker.clear_caches()
+                queries, routes = [], None
+                at_start = dict(onehot.LAUNCHES)
+                for rep in range(warm + 1):
+                    before = dict(onehot.LAUNCHES)
+                    block = (capturing(captured, f"dag {config}")
+                             if rep == 0 and not plain
+                             else contextlib.nullcontext())
+                    with block:
+                        (order, columns), wall = _timed(
+                            lambda: rpc.query(query))
+                    if plain:
+                        check_result("multikey", order, columns, want)
+                    else:
+                        check_dag(config, order, columns, want)
+                    launched = _launch_delta(before)
+                    modes = list(rpc.last_call_merge_modes.values())
+                    routes = list(
+                        rpc.last_call_strategies["effective"].values())
+                    if launched != expect or modes != modes_want:
+                        raise AssertionError(
+                            f"{config} query {rep}: expected {expect} and "
+                            f"merge modes {modes_want}; launched "
+                            f"{launched}, merge modes {modes}")
+                    queries.append(_reply_split(rpc, wall))
+                if plain:
+                    # RPC.groupby of the same shape: the same bytes, the
+                    # same route
+                    g_order, g_columns = _query(rpc, names, "multikey")
+                    if (g_order != order or routes != list(
+                            rpc.last_call_strategies["effective"].values())
+                            or any(g_columns[c].tobytes()
+                                   != columns[c].tobytes() for c in order)):
+                        raise AssertionError(
+                            "dag_plain differs from RPC.groupby of its shape")
+                _set_result_cache(worker, 256 * 1024**2)
+                rpc.query(query)  # fills the result cache
+                before = dict(onehot.LAUNCHES)
+                order, columns = rpc.query(query)
+                cached_routes = list(
+                    rpc.last_call_strategies["effective"].values())
+                if _launch_delta(before) or cached_routes != ["cached"]:
+                    raise AssertionError(
+                        f"{config} with the result cache on: routes "
+                        f"{cached_routes}, launched {_launch_delta(before)}")
+                if plain:
+                    check_result("multikey", order, columns, want)
+                else:
+                    check_dag(config, order, columns, want)
+                report[config] = dict(
+                    _warm_summary(queries),
+                    routes=routes,
+                    merge_modes=modes,
+                    launch_shapes=expect,
+                    # the checked queries, the cache fill and, for
+                    # dag_plain, its RPC.groupby
+                    launches=_launch_delta(at_start),
+                    cached_routes=cached_routes,
+                    groups=len(want),
+                )
+                log(f"dag {config}: {json.dumps(report[config])}")
+        finally:
+            _stop_cluster(rpc, controller, worker, threads)
+    # the card's sketch keys of every trip_distance value, against the host
+    # formula that defines the bucket layout
+    dist = np.concatenate([p["trip_distance"] for p in parts])
+    device = worker.device
+    card = relops.sketch_bin(dist, SKETCH_ALPHA, device)
+    host = opexec.sketch_keys_host(dist, SKETCH_ALPHA)
+    if not np.array_equal(card, host):
+        raise AssertionError(
+            f"sketch keys differ on {int((card != host).sum())} values")
+    report["sketch_keys_checked"] = int(len(dist))
+    return report
+
+
+def _ingest_frame(rng, rows, seq_offset):
+    """bench.py's ingest rows (``_ingest_frame``) as plain arrays."""
+    return {
+        "g": rng.randint(0, 7, rows).astype(np.int64),
+        "v": rng.randint(-10000, 10000, rows).astype(np.int64),
+        "f": rng.random(rows).astype(np.float32),
+        "seq": np.arange(seq_offset, seq_offset + rows, dtype=np.int64),
+    }
+
+
+def write_ingest(base_dir, rows, shards, seed=INGEST_SEED):
+    """bench.py's ingest dataset with the port's ctable: ``shards`` shards,
+    chunks of a 24th of a shard.  Returns ({name: {column: array}},
+    chunklen)."""
+    from bqueryd_tpu_torch.storage.ctable import ctable
+
+    rng = np.random.RandomState(seed)
+    per = rows // shards
+    chunklen = max(4096, per // 24)
+    frames = {}
+    for i in range(shards):
+        name = f"ing_{i}.bcolzs"
+        frames[name] = _ingest_frame(rng, per, 0)
+        t = ctable(os.path.join(base_dir, name), mode="w", chunklen=chunklen)
+        t.append(frames[name])
+        t.flush()
+    return frames, chunklen, rng
+
+
+def ingest_reference(frames, where=None):
+    """{g: {vs, fm, vmin}} of the ingest query over ``frames``."""
+    cols = {c: np.concatenate([f[c] for f in frames.values()])
+            for c in ("g", "v", "f", "seq")}
+    keep = np.ones(len(cols["g"]), dtype=bool)
+    if where is not None:
+        keep = cols["seq"] > where
+    g, v, f = cols["g"][keep], cols["v"][keep], cols["f"][keep]
+    out = {}
+    for k in np.unique(g):
+        sel = g == k
+        out[int(k)] = {"vs": int(v[sel].sum()),
+                       "fm": float(f[sel].astype(np.float64).mean()),
+                       "vmin": int(v[sel].min()),
+                       "v_top3": np.sort(v[sel])[::-1][:3],
+                       "f_p90": float(np.quantile(f[sel].astype(np.float64),
+                                                  0.9, method="lower"))}
+    return out
+
+
+def check_ingest(order, columns, want, outs=("vs", "fm", "vmin")):
+    assert order == ["g"] + list(outs), order
+    assert len(columns["g"]) == len(want), (len(columns["g"]), len(want))
+    for i, k in enumerate(columns["g"]):
+        ref = want[int(k)]
+        for out in outs:
+            got = columns[out][i]
+            if out == "fm":
+                assert abs(got - ref[out]) <= 2e-5 * abs(ref[out]), (k, got)
+            elif out == "f_p90":
+                assert abs(got - ref[out]) <= SKETCH_ALPHA * abs(ref[out]), (
+                    k, got, ref[out])
+            elif out == "v_top3":
+                assert np.array_equal(got, ref[out]), (k, got, ref[out])
+            else:
+                assert int(got) == ref[out], (k, out, got, ref[out])
+
+
+def run_append_path(scratch, captured):
+    """The append verb on bench.py's ingest deployment: its own dataset
+    (2,000,000 rows in 4 shards) and its own controller and worker on cuda,
+    so the taxi shards are never mutated.  The query ``[g]: v sum, f mean,
+    v min`` once (the delta base), then two cycles of ``RPC.append`` of a
+    24th of a shard to each shard, each followed by the query, which must
+    be a delta refresh (route "delta", one launch per grown shard at the
+    appended rows); a cold recompute after the worker's caches are
+    cleared, equal to the refreshed result; a ``seq`` filter that chunk
+    pruning serves; one ``RPC.query`` over the grown shards.  Every result
+    is checked against NumPy of the concatenated frames (ints bit for bit,
+    the mean within rtol 2e-5, the quantile within alpha)."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    base_dir = tempfile.mkdtemp(prefix="ingest_", dir=scratch)
+    store = tempfile.mkdtemp(prefix="store_", dir=base_dir)
+    t0 = time.perf_counter()
+    frames, chunklen, rng = write_ingest(base_dir, INGEST_ROWS, INGEST_SHARDS)
+    names = sorted(frames)
+    per = INGEST_ROWS // INGEST_SHARDS
+    report = {"rows": INGEST_ROWS, "shards": INGEST_SHARDS,
+              "chunklen": chunklen,
+              "write_s": time.perf_counter() - t0}
+    rpc, controller, worker, threads = _start_cluster(base_dir, store)
+    try:
+        def query(where=None, label=None, n_float=INGEST_FLOAT_ROWS):
+            terms = [] if where is None else [["seq", ">", where]]
+            block = (capturing(captured, label, n_float) if label
+                     else contextlib.nullcontext())
+            before = dict(onehot.LAUNCHES)
+            with block:
+                (order, columns), wall = _timed(lambda: rpc.groupby(
+                    names, ["g"], INGEST_AGGS, terms))
+            check_ingest(order, columns, ingest_reference(frames, where))
+            routes = list(rpc.last_call_strategies["effective"].values())
+            return (columns, dict(_reply_split(rpc, wall), routes=routes,
+                                  launched=_launch_delta(before)))
+
+        _, report["base"] = query(label="append executor")
+        append_rows = per // 24
+        seq_base = per
+        report["append_walls_s"], report["delta"] = [], []
+        for cycle in range(2):
+            t0 = time.perf_counter()
+            for name in names:
+                extra = _ingest_frame(rng, append_rows, seq_base)
+                frames[name] = {c: np.concatenate([frames[name][c], extra[c]])
+                                for c in extra}
+                res = rpc.append(name, extra)
+                if res["appended"] != append_rows or len(res["holders"]) != 1:
+                    raise AssertionError(f"append {name}: {res}")
+            report["append_walls_s"].append(time.perf_counter() - t0)
+            seq_base += append_rows
+            delta_cols, q = query(label="append tail" if cycle == 0
+                                  else None)
+            if (q["routes"] != ["delta"]
+                    or sum(q["launched"].values()) != INGEST_SHARDS
+                    or any(not k.endswith(f"/n={append_rows}")
+                           for k in q["launched"])):
+                raise AssertionError(
+                    f"delta cycle {cycle}: routes {q['routes']}, launched "
+                    f"{q['launched']}")
+            report["delta"].append(q)
+        worker.clear_caches()
+        cold_cols, report["cold"] = query()
+        if report["cold"]["routes"] in (["delta"], ["cached"]):
+            raise AssertionError(f"cold recompute: {report['cold']}")
+        for out in ("vs", "vmin"):
+            if not np.array_equal(cold_cols[out], delta_cols[out]):
+                raise AssertionError(f"delta vs cold {out} differ")
+        report["delta_vs_cold_fm_max_rel"] = float(np.max(
+            np.abs(cold_cols["fm"] - delta_cols["fm"])
+            / np.abs(cold_cols["fm"])))
+        threshold = int((per + 2 * append_rows) * 0.92)
+        _, report["pruned"] = query(where=threshold)
+        decoded, skipped = report["pruned"]["chunk_prune"] or (0, 0)
+        if not skipped:
+            raise AssertionError(f"the seq filter pruned nothing: "
+                                 f"{report['pruned']}")
+        spec = {"table": names, "groupby": ["g"],
+                "aggs": [["v", "topk", "v_top3", {"k": 3}],
+                         ["f", "quantile", "f_p90",
+                          {"q": 0.9, "alpha": SKETCH_ALPHA}],
+                         ["v", "sum", "vs"]]}
+        before = dict(onehot.LAUNCHES)
+        (order, columns), wall = _timed(lambda: rpc.query(spec))
+        check_ingest(order, columns, ingest_reference(frames),
+                     outs=("v_top3", "f_p90", "vs"))
+        report["query"] = dict(_reply_split(rpc, wall),
+                               launched=_launch_delta(before),
+                               merge_modes=list(
+                                   rpc.last_call_merge_modes.values()))
+        report["delta_refreshes"] = worker.delta_refreshes
+        report["append_rows_per_shard"] = 2 * append_rows
+        report["delta_wall_s"] = report["delta"][-1]["wall_s"]
+        report["cold_wall_s"] = report["cold"]["wall_s"]
+        report["cold_over_delta"] = (report["cold_wall_s"]
+                                     / report["delta_wall_s"])
+    finally:
+        _stop_cluster(rpc, controller, worker, threads)
+        shutil.rmtree(base_dir, ignore_errors=True)
+    log(f"append: {json.dumps(report)}")
     return report
 
 
@@ -723,8 +1232,11 @@ def run_cli_check(names, parts, data_dir, store_dir):
     """The CLI on the card: ``python -m bqueryd_tpu_torch.node controller``
     and ``... worker --device=cuda`` as processes of their own, found
     through a file:// store, one checked query per config from the port
-    client; SIGTERM stops both, which must exit 0.  The worker process
-    loads the kernel library this process built."""
+    client, then dag_join through ``RPC.query`` and an ``RPC.append`` to a
+    small ingest shard written beside the taxi shards for the check (the
+    repeat query after it a delta refresh); SIGTERM stops both, which must
+    exit 0.  The worker process runs with its result cache off and loads
+    the kernel library this process built."""
     import logging
 
     from bqueryd_tpu_torch.rpc import RPC
@@ -732,7 +1244,14 @@ def run_cli_check(names, parts, data_dir, store_dir):
     root = os.path.dirname(os.path.abspath(__file__))
     url = f"file://{store_dir}"
     env = dict(os.environ, BQUERYD_TPU_RUNFILE_DIR=store_dir,
-               PYTHONPATH=root)
+               PYTHONPATH=root, BQUERYD_TPU_RESULT_CACHE_BYTES="0")
+    # a shard of its own for the append: the taxi shards stay as written
+    ingest_dir = tempfile.mkdtemp(prefix="cli_ingest_", dir=store_dir)
+    frames, _chunklen, rng = write_ingest(ingest_dir, 96_000, 1)
+    cli_shard = "cli_ingest.bcolzs"
+    os.rename(os.path.join(ingest_dir, "ing_0.bcolzs"),
+              os.path.join(data_dir, cli_shard))
+    frames = {cli_shard: frames["ing_0.bcolzs"]}
     node = [sys.executable, "-m", "bqueryd_tpu_torch.node"]
     roles = {
         "controller": node + ["controller", f"--coordination={url}"],
@@ -770,6 +1289,28 @@ def run_cli_check(names, parts, data_dir, store_dir):
             if modes != {"none" if config in PER_SHARD_SHAPE else "device"}:
                 raise AssertionError(f"CLI {config}: merge modes {modes}")
             report[config] = {"first_query_wall_s": wall}
+        (order, columns), wall = _timed(lambda: rpc.query(
+            dict(DAG_SPECS["dag_join"], table=list(names))))
+        check_dag("dag_join", order, columns,
+                  dag_reference("dag_join", parts))
+        report["dag_join"] = {"first_query_wall_s": wall}
+        _wait(lambda: _served(rpc, [cli_shard]), 60,
+              "the CLI worker serving the ingest shard")
+
+        def ingest_query():
+            order, columns = rpc.groupby([cli_shard], ["g"], INGEST_AGGS, [])
+            check_ingest(order, columns, ingest_reference(frames))
+            return list(rpc.last_call_strategies["effective"].values())
+
+        ingest_query()  # the delta base
+        extra = _ingest_frame(rng, 4_000, 96_000)
+        res, wall = _timed(lambda: rpc.append(cli_shard, extra))
+        frames[cli_shard] = {c: np.concatenate([frames[cli_shard][c],
+                                                extra[c]]) for c in extra}
+        routes = ingest_query()
+        if res["appended"] != 4_000 or routes != ["delta"]:
+            raise AssertionError(f"CLI append: {res}, then routes {routes}")
+        report["append"] = {"append_wall_s": wall, "routes": routes}
         rpc._close_socket()
     except BaseException:
         for role, f in logs.items():
@@ -788,6 +1329,7 @@ def run_cli_check(names, parts, data_dir, store_dir):
                 p.wait(timeout=10)
         for f in logs.values():
             f.close()
+        shutil.rmtree(os.path.join(data_dir, cli_shard), ignore_errors=True)
     codes = {role: p.returncode for role, p in procs.items()}
     if any(codes.values()):
         raise AssertionError(f"CLI nodes exited with {codes}")
@@ -1434,6 +1976,20 @@ def counted_launches(path):
     return launches
 
 
+def path_launches(path, kernels=(("onehot_rows_dot", "mma"),)):
+    """The launch counts of a DAG or append run just driven, per shape
+    key; raises if a kernel branch of the path never launched in it."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    launches = {shape_key(*k): v for k, v in onehot.LAUNCHES.items()}
+    for kernel, branch in kernels:
+        if not any(k.startswith(f"{kernel}/{branch}/") and v
+                   for k, v in launches.items()):
+            raise AssertionError(
+                f"{kernel} ({branch}) never launched on the {path} path")
+    return launches
+
+
 def main():
     import torch
 
@@ -1488,11 +2044,28 @@ def main():
         os.environ["BQUERYD_TPU_IP"] = "127.0.0.1"
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
-        cluster = run_cluster_path(
-            names, parts, data_dir,
-            tempfile.mkdtemp(prefix="store_", dir=data_dir), configs)
+        # the result cache off, so that every warm query runs its kernels
+        # (the delta cache stays on: its bookkeeping is in the walls)
+        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}):
+            cluster = run_cluster_path(
+                names, parts, data_dir,
+                tempfile.mkdtemp(prefix="store_", dir=data_dir), configs)
         cluster_launches = counted_launches("cluster")
         log(f"cluster path: {time.perf_counter() - t0:.1f}s")
+        # the operator DAGs and the append verb, each a path of its own
+        captured = {}
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        dag = run_dag_path(names, parts, data_dir,
+                           tempfile.mkdtemp(prefix="dag_store_",
+                                            dir=data_dir), captured)
+        dag_launches = path_launches("dag")
+        log(f"DAG path: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        append = run_append_path(data_dir, captured)
+        append_launches = path_launches("append")
+        log(f"append path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
@@ -1505,10 +2078,14 @@ def main():
         log(f"engine path: {time.perf_counter() - t0:.1f}s")
         print(json.dumps({"configs": configs,
                           "cluster_configs": cluster,
+                          "dag_configs": dag,
+                          "append": append,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
                                        "cluster": cluster_launches,
+                                       "dag": dag_launches,
+                                       "append": append_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -1517,12 +2094,15 @@ def main():
         name, _branch, *rest = inputs["executor highcard"]
         inputs["executor highcard global"] = (name, "global", *rest)
         inputs.update(_shard_inputs(parts, device))
+        inputs.update(captured)
         # launches per path: the executor rows count each config's own
         # queries on the cluster and executor paths, the other rows the
         # launches at their shape
         launches = {label: {} for label in inputs}
         for path, counted in (("executor", exec_launches),
                               ("cluster", cluster_launches),
+                              ("dag", dag_launches),
+                              ("append", append_launches),
                               ("engine", engine_launches)):
             for label, e in inputs.items():
                 key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
@@ -1533,6 +2113,9 @@ def main():
                 "executor": configs[config]["launches"],
                 "cluster": cluster[config]["launches"],
             }
+        # dag_plain runs multikey's shape on the executor
+        launches[_input_label("multikey")]["dag"] = sum(
+            dag["dag_plain"]["launches"].values())
         kernels = check_kernels(inputs, device, launches)
         print(json.dumps(sweeps(parts, device)), flush=True)
     finally:

@@ -58,6 +58,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.coordination",
                    "bqueryd_tpu_torch.plan.logical",
                    "bqueryd_tpu_torch.plan.stats",
+                   "bqueryd_tpu_torch.plan.dag",
+                   "bqueryd_tpu_torch.ops.relops",
+                   "bqueryd_tpu_torch.parallel.opexec",
                    "bqueryd_tpu_torch.ops.predicates",
                    "bqueryd_tpu_torch.utils.tracing"):
         assert module in result["imported"]
@@ -104,3 +107,17 @@ def test_entry_points_need_an_explicit_cpu_request(no_cuda, tmp_path):
     worker.stop()
     out = tg.partial_tables(codes, (values,), ("sum",), 1, device="cpu")
     assert int(out["aggs"][0]["sum"][0]) == 4
+
+
+def test_relational_operators_need_an_explicit_cpu_request(no_cuda):
+    from bqueryd_tpu_torch.ops import relops
+
+    codes = np.zeros(4, dtype=np.int64)
+    values = np.arange(4.0)
+    for call in (lambda d: relops.gather_positions(np.arange(2), codes, d),
+                 lambda d: relops.topk_partials(codes, values, 2, True, 1,
+                                                device=d),
+                 lambda d: relops.sketch_bin(values, 0.01, d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(None)
+        call("cpu")
