@@ -33,10 +33,24 @@ already carry it.  The executor runs as well over the ``ChunkView``s that
 chunk pruning hands it: every working-set entry is keyed by the view's own
 ``table_cache_key``, and a view has no sidecars.
 
+Extended operator DAGs (joins, top-k, quantile sketches, windows) take the
+same machinery through :meth:`MeshQueryExecutor.execute_dag`, the fast
+path: each shard's derivations (join probe, window buckets, post-filter,
+key codes) cached under the DAG's derivation signature, one key alignment
+over the shard group, the folded codes and every measure resident in the
+working set, and one device program (:func:`_dag_partials`) emitting the
+classic partials through ``partial_tables``, a dense per-group top-k table
+per top-k agg and a dense bucket grid per quantile agg, fetched with one
+D2H copy.  Shapes it cannot serve raise :class:`DagFastPathUnsupported`,
+and the worker runs those per shard.
+
 Waiting for later slices: several devices (the ``torch.distributed``
-merge, its host-merge kill switch and the ``psum`` mode), shared-scan
-bundles and operator-DAG programs.
+merge, its host-merge kill switch and the ``psum`` mode) and shared-scan
+bundles.
 """
+
+import contextlib
+import os
 
 import numpy as np
 
@@ -157,6 +171,11 @@ class MeshQueryExecutor:
         self.device = resolve_device(device)
         self.n_devices = 1
         self._align_engine = None
+        #: a PhaseTimer the worker sets: execute_dag's phases go there
+        self.timer = None
+        #: per-shard (decoded, skipped) chunk counts of the last
+        #: execute_dag, for the worker's reply
+        self.last_prune_counts = []
         #: the kernel route the last execute() dispatched ("matmul",
         #: "scatter" or "sort")
         self.last_effective_strategy = None
@@ -187,6 +206,11 @@ class MeshQueryExecutor:
 
             self._align_engine = QueryEngine(device=self.device)
         return self._align_engine
+
+    def _phase(self, name):
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.phase(name)
 
     @staticmethod
     def supports(query: GroupByQuery):
@@ -656,6 +680,532 @@ class MeshQueryExecutor:
             out_cols=query.out_cols,
             value_kinds=list(measure_kinds),
         )
+
+
+    # -- operator-DAG fast path ----------------------------------------------
+    def execute_dag(self, tables, dag):
+        """Run an extended operator DAG (joins, top-k, quantile sketches,
+        windows) over the whole shard group: one decode, alignment and
+        upload pass, one device program emitting every aggregation's
+        partial state, one fetch.  Returns ONE :class:`ResultPayload`
+        (``last_merge_mode`` "device").
+
+        Raises :class:`DagFastPathUnsupported` for what it cannot serve
+        (raw rows, an op without a device-mergeable partial such as
+        ``count_distinct``, object-dtype join measures, a sketch grid past
+        :func:`sketch_grid_cells_limit`), and ``ops.CompositeOverflow``
+        for a key space past int64; the worker serves those per shard.
+        Query-shape errors raise as on the per-shard route, with the same
+        class and text.  Against that route, ints, top-k value multisets
+        and sketch buckets are bit-identical; float sums and means differ
+        by summation order."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.models.query import MERGEABLE_OPS
+        from bqueryd_tpu_torch.ops import groupby as gb
+        from bqueryd_tpu_torch.parallel import opexec, pipeline
+        from bqueryd_tpu_torch.plan.dag import DagValidationError, parse_op
+
+        self.last_effective_strategy = None
+        self.last_merge_mode = None
+        self.last_prune_counts = []
+        if not dag.aggregate_rows:
+            raise DagFastPathUnsupported("raw-rows DAGs dispatch per shard")
+        parsed = [parse_op(a[1]) for a in dag.aggs]
+        classic_idx, topk_idx, sketch_idx = [], [], []
+        for i, p in enumerate(parsed):
+            if p[0] in MERGEABLE_OPS:
+                classic_idx.append(i)
+            elif p[0] == "topk":
+                topk_idx.append(i)
+            elif p[0] == "quantile":
+                sketch_idx.append(i)
+            else:
+                raise DagFastPathUnsupported(
+                    f"op {dag.aggs[i][1]!r} has no device-mergeable partial"
+                )
+
+        with self._phase("prune"):
+            if dag.scan.pushdown:
+                tables = [
+                    t for t in tables
+                    if ops.shard_can_match(t, dag.scan.pushdown)
+                ]
+                pruned = []
+                for t in tables:
+                    view, decoded, skipped = ops.chunk_pruned_table(
+                        t, dag.scan.pushdown
+                    )
+                    pruned.append(view)
+                    if decoded or skipped:
+                        self.last_prune_counts.append((decoded, skipped))
+                tables = pruned
+        if not tables:
+            return ResultPayload.empty()
+
+        first = tables[0]
+
+        def col_source(col):
+            if dag.window is not None and col == dag.window.alias:
+                return "window"
+            if dag.join is not None and col in dag.join.select:
+                return "join"
+            if col not in first:
+                raise DagValidationError(
+                    f"column {col!r} is not a fact column, a join-selected "
+                    f"column, or the window alias"
+                )
+            return "fact"
+
+        unique_cols = list(dict.fromkeys(a[0] for a in dag.aggs))
+        kind_of, sentinel_of = {}, {}
+        for col in unique_cols:
+            src = col_source(col)
+            if src == "window":
+                kind_of[col] = "datetime"
+                sentinel_of[col] = opexec.NAT_SENTINEL
+            elif src == "join":
+                dimv = np.asarray(dag.join.table[col])
+                if dimv.dtype == object:
+                    raise DagFastPathUnsupported(
+                        f"object-dtype join measure {col!r}"
+                    )
+                # the one shared copy of the dim-measure dtype rules: the
+                # two routes agree bit for bit through it
+                sentinel_of[col], kind_of[col] = opexec.dim_measure_kind(
+                    dimv.dtype
+                )
+            else:
+                kind_of[col] = _measure_kind(tables, col)
+                sentinel_of[col] = (
+                    opexec.NAT_SENTINEL if kind_of[col] == "datetime"
+                    else None
+                )
+        # query-shape validation, identical (class and text) to the
+        # per-shard route's, so the fast path never masks an error
+        for i, (in_col, _op, _out) in enumerate(dag.aggs):
+            kind = parsed[i][0]
+            if kind in ("sum", "mean") and kind_of[in_col] == "datetime":
+                raise ValueError(
+                    f"{kind!r} is not defined for datetime column {in_col!r}"
+                )
+            is_dict = (col_source(in_col) == "fact"
+                       and first.kind(in_col) == "dict")
+            if kind == "topk" and is_dict:
+                raise DagValidationError(
+                    f"topk measure {in_col!r} must be numeric or "
+                    f"datetime, not strings"
+                )
+            if kind == "quantile" and (
+                is_dict or sentinel_of[in_col] is not None
+            ):
+                raise DagValidationError(
+                    f"quantile measure {in_col!r} must be numeric "
+                    f"(strings/datetimes have no sketch ordering)"
+                )
+
+        engine = self._engine()
+        tables_key = tuple(_table_key(t) for t in tables)
+        derive_sig = dag.derive_signature()
+        n_dev = self.n_devices
+        dev_key = str(self.device)
+        self.last_merge_mode = "device"
+        dexec = opexec.DagExecutor(engine)
+
+        def derive(table):
+            """One shard's derivations, the per-shard route's own code,
+            cached under the derivation signature: a repeat query (same
+            derivations, any measures) skips them all.  Runs on the
+            pipeline pool; its mask and join gather each end in a copy to
+            the host."""
+            dkey = (_table_key(table), "dagderive", derive_sig)
+            hit = self._align_cache.get(dkey)
+            if hit is not None:
+                return hit
+            state = opexec._ShardState(table, dag)
+            mask = ops.build_mask(table, dag.scan.pushdown, self.device)
+            mask = None if mask is None else mask.cpu().numpy()
+            if dag.join is not None:
+                mask = dexec._probe_join(state, mask)
+            if dag.window is not None:
+                dexec._derive_window(state)
+            if dag.filter is not None and dag.filter.terms:
+                for col, fop, value in dag.filter.terms:
+                    m = opexec._eval_post_term(
+                        dexec._post_filter_values(state, col), fop, value
+                    )
+                    mask = m if mask is None else (mask & m)
+            per_key = [
+                dexec._key_codes_for(state, c) for c in dag.group_keys
+            ]
+            entry = (mask, per_key, state.row_pos, state.window_ints)
+            nbytes = sum(
+                np.asarray(c).nbytes + np.asarray(v).nbytes
+                for c, v in per_key
+            )
+            for extra in (mask, state.row_pos, state.window_ints):
+                if extra is not None:
+                    nbytes += np.asarray(extra).nbytes
+            self._align_cache.put(dkey, entry, nbytes=nbytes)
+            return entry
+
+        derived_memo = []
+
+        def get_derived():
+            if not derived_memo:
+                derived_memo.append(pipeline.map_ordered(derive, tables))
+            return derived_memo[0]
+
+        def block_key(col):
+            # a fact measure shares the groupby executor's block
+            if col_source(col) == "fact":
+                return (tables_key, "col", col, n_dev, dev_key)
+            return (tables_key, "dagcol", col, derive_sig, n_dev)
+
+        codes_key = (tables_key, "dagcodes", derive_sig, n_dev)
+        if (any(block_key(c) not in self._hbm_cache for c in unique_cols)
+                or codes_key not in self._codes_cache):
+            self.workingset.evict_under_pressure()
+
+        with self._phase("align"), pipeline.stage("align"):
+            akey = (tables_key, "dagalign", derive_sig)
+            cached = self._align_cache.get(akey)
+            if cached is None:
+                dense, combo_cols, key_values = self._dag_key_space(
+                    get_derived(), dag
+                )
+                self._align_cache.put(
+                    akey, (dense, combo_cols, key_values),
+                    nbytes=sum(d.nbytes for d in dense)
+                    + combo_cols.nbytes
+                    + sum(np.asarray(v).nbytes for v in key_values.values()),
+                )
+            else:
+                dense, combo_cols, key_values = cached
+            n_groups = max(len(combo_cols), 1)
+
+        # the sketch grids' budget BEFORE any upload: one dense int64
+        # [groups, width] grid per quantile agg; past the budget the flat
+        # host merge of the per-shard route is the better economics
+        n_prog = ops.program_bucket(n_groups)
+        sketch_geo = {}
+        for i in sketch_idx:
+            width, kmin = opexec.sketch_grid_layout(parsed[i][2])
+            if n_prog * width > sketch_grid_cells_limit():
+                raise DagFastPathUnsupported(
+                    f"sketch grid {n_prog}x{width} cells exceeds "
+                    f"BQUERYD_TPU_SKETCH_GRID_CELLS"
+                )
+            sketch_geo[i] = (width, kmin)
+
+        codes_d = self._codes_cache.get(codes_key)
+        if codes_d is None:
+            with self._phase("layout"):
+                with pipeline.stage("align"):
+                    cdt = _codes_dtype(n_groups)
+                    packed = self._pack(
+                        [d.astype(cdt) for d in dense], n_dev,
+                        cdt.type(-1), dtype=cdt,
+                    )
+                with pipeline.stage("h2d"):
+                    codes_d = _upload(packed, self.device)
+                self._codes_cache.put(codes_key, codes_d)
+
+        with self._phase("layout"):
+            fact_cols = [c for c in unique_cols if col_source(c) == "fact"]
+            blocks = dict(zip(fact_cols, self._measure_blocks(
+                tables, fact_cols, block_key, {}
+            )))
+            for col in unique_cols:
+                if col in blocks:
+                    continue
+                arr = self._hbm_cache.get(block_key(col))
+                if arr is None:
+                    with pipeline.stage("decode"):
+                        vals = []
+                        for _m, _pk, row_pos, window_ints in get_derived():
+                            if col_source(col) == "window":
+                                vals.append(np.asarray(window_ints))
+                            else:
+                                vals.append(opexec.gathered_dim_values(
+                                    dag.join.table[col], row_pos
+                                ))
+                        packed = self._pack(vals, n_dev, 0)
+                    with pipeline.stage("h2d"):
+                        arr = _upload(packed, self.device)
+                    self._hbm_cache.put(block_key(col), arr)
+                blocks[col] = arr
+            slot_of = {col: i for i, col in enumerate(unique_cols)}
+            measures_d = [blocks[col] for col in unique_cols]
+
+        classic_spec = tuple(
+            (slot_of[dag.aggs[i][0]], parsed[i][0],
+             sentinel_of[dag.aggs[i][0]])
+            for i in classic_idx
+        )
+        topk_spec = []
+        for i in topk_idx:
+            col = dag.aggs[i][0]
+            is_float = gb.np_dtype(measures_d[slot_of[col]].dtype).kind == "f"
+            sentinel = sentinel_of[col]
+            topk_spec.append((
+                slot_of[col], parsed[i][1], parsed[i][2], is_float,
+                None if sentinel is None else int(sentinel), is_float,
+            ))
+        sketch_spec = []
+        for i in sketch_idx:
+            _gamma, lg, imin, imax = opexec.sketch_layout(parsed[i][2])
+            width, kmin = sketch_geo[i]
+            sketch_spec.append((slot_of[dag.aggs[i][0]], float(lg),
+                                int(imin), int(imax), int(kmin), int(width)))
+
+        with self._phase("aggregate"), pipeline.stage("kernel"):
+            self.last_effective_strategy = ops.kernel_route(
+                None, tuple(measures_d[s] for s, _op, _st in classic_spec),
+                tuple(op for _s, op, _st in classic_spec),
+                int(codes_d.shape[1]), n_prog,
+            )
+            # over the program bucket: padded groups have no rows, so
+            # ``present`` drops them below
+            merged = _dag_partials(
+                n_prog, codes_d, measures_d, classic_spec, topk_spec,
+                sketch_spec,
+            )
+
+        with self._phase("collect"), pipeline.stage("merge"):
+            rows = merged["classic"]["rows"]
+            present = rows > 0
+            present_idx = np.flatnonzero(present)
+            keys = {}
+            for ci, col in enumerate(dag.group_keys):
+                vals = np.asarray(key_values[col])
+                keys[col] = vals[combo_cols[present_idx, ci]]
+            aggs_out = [None] * len(dag.aggs)
+
+            def stored_int(in_col):
+                """A fact measure's stored int dtype, else None."""
+                if col_source(in_col) != "fact":
+                    return None
+                stored = _stored_dtype(tables, in_col)
+                if stored is None or stored.kind not in "iu":
+                    return None
+                return stored
+
+            for pos, i in enumerate(classic_idx):
+                stored = stored_int(dag.aggs[i][0])
+                sel = {}
+                for kname, v in merged["classic"]["aggs"][pos].items():
+                    v = v[present]
+                    # min/max on a narrowed wire dtype: back to the stored
+                    if (kname in ("min", "max") and stored is not None
+                            and v.dtype != stored):
+                        v = v.astype(stored)
+                    sel[kname] = v
+                aggs_out[i] = sel
+            for pos, i in enumerate(topk_idx):
+                top, cnt = merged["topk"][pos]
+                top, cnt = top[present_idx], cnt[present_idx]
+                stored = stored_int(dag.aggs[i][0])
+                if stored is not None and top.dtype != stored:
+                    top = top.astype(stored)
+                flat, offsets = opexec.dense_topk_to_flat(top, cnt)
+                aggs_out[i] = {"topk_values": flat, "topk_offsets": offsets}
+            for pos, i in enumerate(sketch_idx):
+                skeys, scounts, soffs = opexec.sketch_grid_to_flat(
+                    merged["sketch"][pos][present_idx], sketch_geo[i][1]
+                )
+                aggs_out[i] = {
+                    "sketch_keys": skeys,
+                    "sketch_counts": scounts,
+                    "sketch_offsets": soffs,
+                }
+            value_kinds = [
+                None if parsed[i][0] == "quantile"
+                else kind_of[dag.aggs[i][0]]
+                for i in range(len(dag.aggs))
+            ]
+            return ResultPayload.partials(
+                key_cols=list(dag.group_keys),
+                keys=keys,
+                rows=rows[present],
+                aggs=aggs_out,
+                ops=[a[1] for a in dag.aggs],
+                out_cols=[a[2] for a in dag.aggs],
+                value_kinds=value_kinds,
+            )
+
+    def _dag_key_space(self, derived, dag):
+        """One composite key space over the DAG's (possibly derived) group
+        keys, fed by the cached per-shard derivations: the DAG twin of
+        :meth:`_global_key_space`.  The pushdown, join-miss and
+        post-derivation-filter mask is folded into the dense codes here
+        (the derivation signature keys the entry, so another filter is
+        another entry): masked rows carry code -1.  Returns ``(folded dense
+        codes per shard, combo_cols [n_combos, n_cols] global dictionary
+        positions, key_values)`` with combos in sorted composite order."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.parallel import pipeline
+
+        n_cols = len(dag.group_keys)
+        n_shards = len(derived)
+        masks = [d[0] for d in derived]
+        shard_codes = [[np.asarray(d[1][ci][0]) for d in derived]
+                       for ci in range(n_cols)]
+        shard_values = [[np.asarray(d[1][ci][1]) for d in derived]
+                        for ci in range(n_cols)]
+        cards, global_values = [], []
+        pos_maps = [[] for _ in range(n_cols)]
+        for ci in range(n_cols):
+            gvals = np.unique(np.concatenate(shard_values[ci]))
+            # null VALUES (NaN/NaT) leave the global dictionary: their rows
+            # already carry code -1, as in the groupby alignment
+            if gvals.dtype.kind == "f":
+                gvals = gvals[~np.isnan(gvals)]
+            elif gvals.dtype.kind == "M":
+                gvals = gvals[~np.isnat(gvals)]
+            cards.append(max(len(gvals), 1))
+            global_values.append(gvals)
+            for si in range(n_shards):
+                pos_maps[ci].append(
+                    np.searchsorted(gvals, shard_values[ci][si])
+                )
+
+        def mapped(si, ci):
+            codes = shard_codes[ci][si]
+            pos = pos_maps[ci][si]
+            if len(pos) == 0:
+                return np.full(len(codes), np.int64(-1))
+            return np.where(
+                codes >= 0, pos[np.clip(codes, 0, None)], np.int64(-1)
+            )
+
+        def fold(si, dense_si):
+            m = masks[si]
+            if m is None:
+                return dense_si
+            return np.where(m, dense_si, np.int64(-1))
+
+        key_values = dict(zip(dag.group_keys, global_values))
+        if n_cols == 1:
+            dense = pipeline.map_ordered(
+                lambda si: fold(si, mapped(si, 0).astype(np.int64)),
+                range(n_shards),
+            )
+            combo_cols = np.arange(
+                len(global_values[0]), dtype=np.int64
+            )[:, None]
+            return dense, combo_cols, key_values
+
+        if ops.total_cardinality(cards) >= ops.MAX_COMPOSITE:
+            raise ops.CompositeOverflow(
+                "composite group-key space "
+                f"{'x'.join(str(int(c)) for c in cards)} exceeds int64"
+            )
+
+        def shard_composites(si):
+            packed = np.asarray(ops.pack_codes(
+                [mapped(si, ci) for ci in range(n_cols)], cards
+            ))
+            packed = fold(si, packed)
+            inv, uniq = ops.factorize(packed)
+            return np.asarray(inv), np.asarray(uniq, dtype=np.int64)
+
+        composites = pipeline.map_ordered(shard_composites, range(n_shards))
+        observed = [u[u >= 0] for _inv, u in composites]
+        observed = [o for o in observed if len(o)]
+        combos = (
+            np.unique(np.concatenate(observed))
+            if observed
+            else np.empty(0, dtype=np.int64)
+        )
+        dense = []
+        for inv, uniq in composites:
+            lut = np.searchsorted(
+                combos, np.clip(uniq, 0, None)
+            ).astype(np.int64)
+            lut[uniq < 0] = -1
+            dense.append(lut[inv])
+        combo_cols = (
+            np.stack(ops.unpack_codes(combos, cards), axis=1)
+            if len(combos)
+            else np.empty((0, n_cols), dtype=np.int64)
+        )
+        return dense, combo_cols, key_values
+
+
+class DagFastPathUnsupported(Exception):
+    """The fast path cannot serve this extended-DAG dispatch (its shape,
+    a dtype or the sketch-grid budget).  Not an error the client sees: the
+    worker catches it and serves the DAG through the per-shard
+    ``DagExecutor`` and the host merge, which serve every DAG shape."""
+
+
+def sketch_grid_cells_limit():
+    """Cell budget (padded groups x bucket width) of one quantile agg's
+    dense grid on the fast path, past which the DAG keeps the per-shard
+    route: default 2^23 cells (64 MiB of int64).  Tune with
+    ``BQUERYD_TPU_SKETCH_GRID_CELLS``."""
+    return int(os.environ.get("BQUERYD_TPU_SKETCH_GRID_CELLS",
+                              str(1 << 23)))
+
+
+def _dag_partials(n_groups, codes_d, measures_d, classic_spec, topk_spec,
+                  sketch_spec):
+    """The fast path's device program on one device (the reference's
+    ``_mesh_dag_program``, whose cross-device merges have nothing to merge
+    here): ONE ``partial_tables`` call for the classic aggs (with none, the
+    row counts alone), one dense top-k emission per ``topk_spec`` entry
+    ``(slot, k, largest, drop_nan, sentinel, float_neg)`` and one bucket
+    grid per ``sketch_spec`` entry ``(slot, log_gamma, imin, imax, kmin,
+    width)``, every leaf packed into one byte buffer and fetched with ONE
+    D2H copy.  Returns ``{"classic": {"rows", "aggs"}, "topk": ((dense,
+    counts), ...), "sketch": (grid, ...)}`` of NumPy leaves over
+    ``n_groups`` (the program bucket)."""
+    import torch
+
+    from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.ops import groupby as gb
+    from bqueryd_tpu_torch.ops import relops
+
+    codes = codes_d[0].to(torch.int64)
+    per_slot = tuple(m[0] for m in measures_d)
+    classic = ops.partial_tables(
+        codes,
+        tuple(per_slot[s] for s, _op, _st in classic_spec),
+        tuple(op for _s, op, _st in classic_spec),
+        n_groups,
+        null_sentinels=tuple(st for _s, _op, st in classic_spec),
+    )
+    topk = tuple(
+        relops.topk_dense_emit(codes, per_slot[slot], None, k, largest,
+                               n_groups, drop_nan, sentinel, float_neg)
+        for slot, k, largest, drop_nan, sentinel, float_neg in topk_spec
+    )
+    sketch = tuple(
+        relops.sketch_grid_block(codes, per_slot[slot], n_groups, lg, imin,
+                                 imax, kmin, width)
+        for slot, lg, imin, imax, kmin, width in sketch_spec
+    )
+    tree = {"classic": classic, "topk": topk, "sketch": sketch}
+    leaves = _dag_leaves(tree)
+    spec = [(gb.np_dtype(leaf.dtype), tuple(leaf.shape)) for leaf in leaves]
+    flat = _fetch(torch.cat([_pack_leaf(leaf) for leaf in leaves]))
+    return _dag_unflatten(tree, _unpack_host(flat, spec))
+
+
+def _dag_leaves(tree):
+    return (_tree_leaves(tree["classic"])
+            + [a for pair in tree["topk"] for a in pair]
+            + list(tree["sketch"]))
+
+
+def _dag_unflatten(like, leaves):
+    n_classic = len(_tree_leaves(like["classic"]))
+    classic = _tree_unflatten(like["classic"], leaves[:n_classic])
+    rest = leaves[n_classic:]
+    n_topk = 2 * len(like["topk"])
+    topk = tuple(zip(rest[0:n_topk:2], rest[1:n_topk:2]))
+    return {"classic": classic, "topk": topk,
+            "sketch": tuple(rest[n_topk:])}
 
 
 # -- partial-table trees: {"rows": leaf, "aggs": ({part: leaf}, ...)} --------

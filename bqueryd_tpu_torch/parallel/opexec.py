@@ -93,11 +93,18 @@ def sketch_keys_host(values, alpha):
     Key 0 = zero/tiny bucket; +/-(i - imin + 1) for positive/negative
     magnitudes in bucket ``i``."""
     _gamma, lg, imin, imax = sketch_layout(alpha)
+    return sketch_keys_layout(values, lg, imin, imax)
+
+
+def sketch_keys_layout(values, log_gamma, imin, imax):
+    """:func:`sketch_keys_host` for a layout given by its parameters: the
+    host formula that defines the buckets, which the device binning falls
+    back to at a bucket edge."""
     v = np.asarray(values, dtype=np.float64)
     mag = np.abs(v)
     tiny = mag < SKETCH_MIN_MAGNITUDE
     with np.errstate(divide="ignore", invalid="ignore"):
-        i = np.ceil(np.log(np.where(tiny, 1.0, mag)) / lg)
+        i = np.ceil(np.log(np.where(tiny, 1.0, mag)) / log_gamma)
     i = np.clip(i, imin, imax).astype(np.int64)
     unsigned = i - np.int64(imin) + 1
     return np.where(
@@ -142,6 +149,33 @@ def sketch_flat(codes, values, n_groups, mask=None, alpha=0.01,
     k_of = uniq % span + kmin
     offsets = np.searchsorted(g_of, np.arange(n_groups + 1)).astype(np.int64)
     return k_of.astype(np.int64), counts.astype(np.int64), offsets
+
+
+def sketch_grid_layout(alpha):
+    """``(width, kmin)`` of the dense signed-bucket grid for one alpha:
+    column ``j`` of a ``[groups, width]`` grid holds bucket key
+    ``kmin + j`` (negative magnitudes, the zero bucket, positive
+    magnitudes).  A pure function of ``alpha``, so every shard group bins
+    into the same grid."""
+    _gamma, _lg, imin, imax = sketch_layout(alpha)
+    half = imax - imin + 1
+    return 2 * half + 1, -half
+
+
+def sketch_grid_to_flat(grid, kmin):
+    """Dense ``[groups, width]`` bucket-count grid -> the flat mergeable
+    form ``(keys, counts, offsets)``.  Row-major ``nonzero`` yields each
+    group's occupied buckets in ascending key order, the layout of
+    :func:`sketch_flat` and :func:`merge_sketch_parts`, so a grid converts
+    to the very flat part the host route builds (zero cells vanish)."""
+    grid = np.asarray(grid)
+    g, col = np.nonzero(grid)
+    keys = col.astype(np.int64) + np.int64(kmin)
+    counts = grid[g, col].astype(np.int64)
+    offsets = np.searchsorted(
+        g, np.arange(grid.shape[0] + 1)
+    ).astype(np.int64)
+    return keys, counts, offsets
 
 
 def merge_sketch_parts(parts, n_global):
@@ -250,6 +284,21 @@ def topk_flat(codes, values, k, largest, n_groups, mask=None, sentinel=None):
     )
 
 
+def dense_topk_to_flat(dense, counts):
+    """Dense best-first ``[groups, k]`` + per-group counts -> the flat
+    mergeable form ``(values, offsets)``: group ``g`` keeps its first
+    ``counts[g]`` slots.  The fast path's collect uses it."""
+    dense = np.asarray(dense)
+    take = np.asarray(counts, dtype=np.int64)
+    n = len(take)
+    rep = np.repeat(np.arange(n, dtype=np.int64), take)
+    loc = _segment_local_arange(take)
+    flat = dense[rep, loc] if len(rep) else dense[:0, 0]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(take, out=offsets[1:])
+    return flat, offsets
+
+
 def merge_topk_parts(parts, k, largest, n_global):
     """K-way re-select across payloads: concatenate each group's flat
     top-k lists and re-select the global top-k."""
@@ -282,6 +331,17 @@ def dim_measure_kind(dtype):
     if dtype.kind == "u":
         return None, "uint"
     return None, None
+
+
+def gathered_dim_values(dim_column, row_pos):
+    """Dimension column broadcast onto fact rows via the probe gather
+    (garbage where unmatched: those rows carry null codes and drop from
+    every reduction); datetime rides as raw int64 with the NaT sentinel.
+    Shared by both DAG routes, like :func:`dim_measure_kind`."""
+    v = np.asarray(dim_column)[np.maximum(row_pos, 0)]
+    if v.dtype.kind == "M":
+        v = v.astype("datetime64[ns]").view(np.int64)
+    return v
 
 
 def filter_flat(values_by_key, offsets, present):
@@ -472,14 +532,13 @@ class DagExecutor:
         if self._is_window_col(state, col):
             return state.window_ints, NAT_SENTINEL, "datetime"
         if self._is_join_col(state, col):
-            v = self._gathered(state, col)
-            sentinel, kind = dim_measure_kind(v.dtype)
-            if kind == "datetime":
-                return (
-                    v.astype("datetime64[ns]").view(np.int64),
-                    sentinel, kind,
-                )
-            return v, sentinel, kind
+            dim = np.asarray(state.dag.join.table[col])
+            sentinel, kind = dim_measure_kind(dim.dtype)
+            hit = state._values.get(("measure", col))
+            if hit is None:
+                hit = gathered_dim_values(dim, state.row_pos)
+                state._values[("measure", col)] = hit
+            return hit, sentinel, kind
         table = state.table
         if col not in table:
             raise DagValidationError(

@@ -346,6 +346,18 @@ class OperatorDAG:
         )
 
     # -- identity -----------------------------------------------------------
+    def derive_signature(self):
+        """Hashable identity of the derivation pipeline alone: group keys,
+        pushdown, join content, window geometry and post-derivation filter,
+        but not the agg list.  The fast path's working-set entries (join
+        probe, window buckets, folded codes) live under it, so two DAGs
+        that differ only in their measures share one decode, alignment and
+        upload."""
+        full = self.signature()
+        # ("dag", version, group_keys, aggs, pushdown, filter, join, window,
+        #  aggregate_rows, expand, sole): drop the agg list (index 3)
+        return full[:3] + full[4:]
+
     def signature(self):
         """Hashable identity (result-cache key component; folded into the
         logical plan's signature so DAG queries never dedup-fuse with a

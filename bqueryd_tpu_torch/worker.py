@@ -22,9 +22,11 @@
 
 :class:`WorkerNode` answers ``groupby`` messages (and the operator DAGs of
 the ``query`` verb, which ride them) through the DAG layer, its result
-cache, its delta cache and then :func:`execute` or the per-shard
-``DagExecutor``, and ``append`` messages by writing the rows, behind the
-reference's control plane: one ROUTER socket with a random hex identity connected out to every
+cache, its delta cache and then :func:`execute`, the executor's DAG fast
+path or the per-shard ``DagExecutor``; ``append`` messages by writing the
+rows; and ``rollup`` messages by building (or refreshing from appended
+chunks) one shard's mergeable partials, behind the reference's control
+plane: one ROUTER socket with a random hex identity connected out to every
 controller in the coordination store, a WorkerRegisterMessage (WRM) with
 the served ``*.bcolz``/``*.bcolzs`` files every heartbeat, liveness WRMs
 from a second thread on sockets of its own, Busy/Done around each work
@@ -122,6 +124,15 @@ def execute(tables, query, engine, executor=None, strategy=None,
     report["effective_strategy"] = engine.last_effective_strategy
     report["merge_mode"] = "host"
     return ResultPayload(hostmerge.merge_payloads(payloads))
+
+
+def _fold_prune(report, prune_counts):
+    """Fold a DAG run's per-shard (decoded, skipped) chunk counts into
+    ``report["chunk_prune"]`` when any chunk was looked at."""
+    decoded = sum(c[0] for c in prune_counts)
+    skipped = sum(c[1] for c in prune_counts)
+    if decoded or skipped:
+        report["chunk_prune"] = (decoded, skipped)
 
 
 def _host_stage(engine, query):
@@ -445,11 +456,11 @@ class WorkerBase:
 
 class WorkerNode(WorkerBase):
     """The calc worker: answers ``groupby`` CalcMessages (plain ones and
-    the operator DAGs of the ``query`` verb) and ``append`` ones, on its
-    own engine and executor, in the reference worker's order: the DAG
-    layer, the result cache, the delta cache, then :func:`execute` (a
-    plain DAG) or :class:`~bqueryd_tpu_torch.parallel.opexec.DagExecutor`
-    (an extended one).
+    the operator DAGs of the ``query`` verb), ``append`` and ``rollup``
+    ones, on its own engine and executor, in the reference worker's order:
+    the DAG layer, the result cache, the delta cache, then :func:`execute`
+    (a plain DAG) or :meth:`_execute_dag` (an extended one: the fast path,
+    else :class:`~bqueryd_tpu_torch.parallel.opexec.DagExecutor`).
 
     ``device`` is resolved when the node is built: ``cuda`` unless
     ``device="cpu"`` is passed; without a card it raises before any socket
@@ -670,21 +681,147 @@ class WorkerNode(WorkerBase):
         return reply
 
     def _execute_dag(self, tables, dag, timer, report):
-        """An extended operator DAG (join, top-k, quantile sketch, window)
-        through the per-shard :class:`DagExecutor` and the host merge;
-        ``report`` as :func:`execute` fills it, ``merge_mode`` "host" or
-        "none"."""
+        """An extended operator DAG (join, top-k, quantile sketch, window).
+        A batchable one (``plan.dag.dag_batchable``: the mergeable ops, top-k
+        and sketches, unless ``BQUERYD_TPU_DAG_BATCH=0``) takes the fast
+        path, :meth:`MeshQueryExecutor.execute_dag`: one pass and one
+        device program over the whole shard group, ``merge_mode`` "device".
+        What the fast path cannot serve (``DagFastPathUnsupported``) and a
+        key space past int64 (``ops.CompositeOverflow``) run through the
+        per-shard :class:`DagExecutor` and the host merge, ``merge_mode``
+        "host" or "none"; any other error, a device error included,
+        propagates.  ``report`` as :func:`execute` fills it."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.parallel.executor import (
+            DagFastPathUnsupported,
+        )
         from bqueryd_tpu_torch.parallel.opexec import DagExecutor
+        from bqueryd_tpu_torch.plan import dag as dagmod
 
+        if dagmod.dag_batchable(dag):
+            self.executor.timer = timer
+            try:
+                payload = self.executor.execute_dag(tables, dag)
+            except DagFastPathUnsupported as exc:
+                self.logger.debug("DAG fast path unavailable (%s); serving "
+                                  "it per shard", exc)
+            except ops.CompositeOverflow:
+                self.logger.info("composite key space exceeds int64; "
+                                 "serving the DAG per shard")
+            else:
+                report["effective_strategy"] = (
+                    self.executor.last_effective_strategy)
+                report["merge_mode"] = self.executor.last_merge_mode
+                _fold_prune(report, self.executor.last_prune_counts)
+                return payload
+            finally:
+                self.executor.timer = None
         executor = DagExecutor(self.engine)
         payload = executor.execute(tables, dag, timer=timer)
         report["effective_strategy"] = executor.last_effective_strategy
         report["merge_mode"] = executor.last_merge_mode
-        decoded = sum(c[0] for c in executor._prune_counts)
-        skipped = sum(c[1] for c in executor._prune_counts)
-        if decoded or skipped:
-            report["chunk_prune"] = (decoded, skipped)
+        _fold_prune(report, executor._prune_counts)
         return payload
+
+    @staticmethod
+    def _rollup_census(table):
+        """Column metadata a rollup's subsumption proofs need: per column
+        its kind ("int" columns are null-free by dtype), its per-chunk zone
+        maps, and whether nulls can occur.  Metadata only: no chunk is
+        decoded."""
+        import numpy as np
+
+        from bqueryd_tpu_torch.storage.ctable import (
+            KIND_DATETIME,
+            KIND_NUMERIC,
+        )
+
+        cols = {}
+        for name in table.names:
+            k = table.kind(name)
+            if k == KIND_NUMERIC:
+                np_kind = np.dtype(table.physical_dtype(name)).kind
+                kind = "int" if np_kind in "iu" else "float"
+            elif k == KIND_DATETIME:
+                kind = "datetime"
+            else:
+                kind = "dict"
+            zones = (table.chunk_zone_maps(name)
+                     if k in (KIND_NUMERIC, KIND_DATETIME) else None)
+            cols[name] = {
+                "kind": kind,
+                "zones": zones,
+                # float and datetime zone maps skip NaN/NaT rows: only an
+                # int column is provably null-free
+                "nulls": kind != "int",
+            }
+        return cols
+
+    def _rollup_build(self, msg):
+        """The ``rollup`` verb: the mergeable partials of one plan over ONE
+        local shard.  A refresh request carries the prior partials and the
+        growth base they were computed against (``rollup_prior``,
+        ``rollup_base``): no new chunks answer ``fresh`` with the prior;
+        an append-only growth aggregates only the appended chunks and
+        merges them into the prior on the host (``delta``); anything else
+        (a rewrite, a bad base, an extended DAG) rebuilds.  The reply
+        carries the partials (``data``), ``rollup_mode``, the phase
+        timings, the table's growth base (``rollup_base``) and its column
+        census (``rollup_zones``)."""
+        from bqueryd_tpu_torch.models.query import GroupByQuery
+        from bqueryd_tpu_torch.ops import workingset
+        from bqueryd_tpu_torch.plan import dag as dagmod
+
+        timer = PhaseTimer()
+        args, _kwargs = msg.get_args_kwargs()
+        filename, groupby_cols, agg_list, where_terms = args[:4]
+        with timer.phase("open"):
+            table = self._open_table(os.path.join(self.data_dir, filename))
+        if msg.get("dag"):
+            dag = dagmod.OperatorDAG.from_wire(msg.get_from_binary("dag"))
+            dag.sole_payload = False  # rollups keep the mergeable form
+        else:
+            dag = dagmod.dag_from_query(GroupByQuery(
+                groupby_cols, agg_list, where_terms or [], aggregate=True
+            ))
+        query = dag.plain_groupby_query()
+
+        mode, data = "rebuild", None
+        prior = msg.get_from_binary("rollup_prior")
+        base = msg.get_from_binary("rollup_base")
+        if prior is not None and base is not None and query is not None:
+            new_ids = workingset.growth_since(base, table)
+            if new_ids is not None and not new_ids:
+                mode, data = "fresh", prior
+            elif new_ids is not None:
+                with timer.phase("execute"):
+                    tail = self.engine.execute_local(
+                        table.chunk_view(new_ids), query
+                    )
+                with timer.phase("hostmerge"):
+                    merged = hostmerge.merge_payloads(
+                        [ResultPayload.from_bytes(prior), tail]
+                    )
+                with timer.phase("serialize"):
+                    data = ResultPayload(merged).to_bytes()
+                mode = "delta"
+        if data is None:
+            with timer.phase("execute"):
+                if query is not None:
+                    payload = self.engine.execute_local(table, query)
+                else:
+                    payload = self._execute_dag([table], dag, timer, {})
+            with timer.phase("serialize"):
+                data = payload.to_bytes()
+        reply = msg.copy()
+        for key in ("params", "dag", "rollup_prior", "rollup_base"):
+            reply.pop(key, None)
+        reply["data"] = data
+        reply["rollup_mode"] = mode
+        reply["phase_timings"] = timer.as_dict()
+        reply.add_as_binary("rollup_base", workingset.table_growth_base(table))
+        reply.add_as_binary("rollup_zones", self._rollup_census(table))
+        return reply
 
     def _query_of(self, msg, args, kwargs):
         """``(query, dag, strategy)`` of a groupby CalcMessage.  Every
@@ -729,6 +866,8 @@ class WorkerNode(WorkerBase):
     def handle_work(self, msg):
         if msg.isa("append"):
             return self._append_rows(msg)
+        if msg.isa("rollup"):
+            return self._rollup_build(msg)
         if not msg.isa("groupby"):
             return super().handle_work(msg)
         from bqueryd_tpu_torch.storage.ctable import table_cache_key

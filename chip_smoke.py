@@ -15,7 +15,8 @@
    distinct_sole: one shard's count_distinct on the device sort; runs:
    sorted_count_distinct; basket: basket expansion; pruned: a time filter
    that chunk pruning serves from 10 of 40 chunks, then pruned_off, the
-   same query with ``BQUERYD_TPU_CHUNK_PRUNE=0``).  Mergeable configs go
+   same query with ``BQUERYD_TPU_CHUNK_PRUNE=0``; zones: 265 pickup
+   locations, the base kernel's "table" branch).  Mergeable configs go
    to ``MeshQueryExecutor`` (one key alignment, one kernel call over every
    shard's rows, the merge on the device), the distinct ones per shard to
    the engine.  Per config: one cold query after the executor's and
@@ -44,17 +45,25 @@
    table joined on PULocationID; dag_topk: fare's top 5 and trip_distance's
    3 smallest; dag_quantile: trip_distance p50 and p99 sketches; dag_window:
    fare per hour of pickup; dag_plain: multikey's shape, which must equal
-   ``RPC.groupby``'s bytes), 1 cold + 3 warm with the result cache off,
-   each checked against NumPy (ints bit-exact, top-k lists equal to a NumPy
-   sort, quantiles within alpha), launching its contractions as expected,
-   then one query served from the result cache ("cached", no launch); the
-   card's sketch keys of every trip_distance value equal the host
-   formula's;
+   ``RPC.groupby``'s bytes), the four extended ones on two legs: the fast
+   path (one message, one contraction over all 10M rows, merged on the
+   device) and, under ``BQUERYD_TPU_DAG_BATCH=0``, one message per shard
+   (a contraction per shard, merged at the client); per leg 1 cold + 3
+   warm with the result cache off, each checked against NumPy (ints
+   bit-exact, top-k lists equal to a NumPy sort, quantiles within alpha),
+   launching its contractions as expected, the two legs equal, then one
+   query served from the result cache ("cached", no launch); the fast
+   path's quantile grids, flattened, equal the host formula's sketches
+   merged over the shards, and the card's sketch keys of every
+   trip_distance value equal the host formula's;
 7. drives the append verb on bench.py's ingest deployment (2,000,000 rows
    in 4 shards of its own, its own cluster): the query ``[g]: v sum, f
    mean, v min``, two cycles of ``RPC.append`` (a 24th of a shard each)
    followed by the query, which must be a delta refresh of the appended
-   chunks alone, a cold recompute equal to it, a ``seq`` filter that chunk
+   chunks alone, with ``rollup`` messages per shard to the worker (a
+   build, a refresh before the append answered "fresh", one after it
+   answered "delta", each checked against NumPy), a cold recompute equal
+   to it, a ``seq`` filter that chunk
    pruning serves and one ``RPC.query`` over the grown shards, all checked
    against NumPy of the concatenated frames;
 8. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
@@ -91,8 +100,11 @@
    of the same bytes;
 12. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-13. prints the sweeps, the ``kernels`` JSON line, then the device JSON
-    line last.
+13. times the fast path's torch bodies at the shapes its programs ran
+    (each top-k emission, checked against the sort route, each sketch
+    grid, the whole program with its fetch);
+14. prints the sweeps, the fast path's program times, the ``kernels``
+    JSON line, then the device JSON line last.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.  Any failed phase fails the run.
@@ -163,6 +175,11 @@ CONFIGS = {
     "pruned_off": (slice(None), ["passenger_count"],
                    [["fare_amount", "sum", "fare_amount"]],
                    [["pickup_ts", ">=", PRUNE_FROM]]),
+    # 265 pickup zones: the base kernel's "table" branch (33 to 8,192
+    # groups) on the executor's contraction
+    "zones": (slice(None), ["PULocationID"],
+              [["fare_amount", "sum", "fare_sum"],
+               ["fare_amount", "count", "n"]], []),
 }
 
 #: the five BASELINE configs, which the per-shard engine path and the
@@ -203,6 +220,7 @@ CONFIG_KERNEL = {
     "basket": ("onehot_rows_dot", "mma"),
     "pruned": ("onehot_rows_dot", "mma"),
     "pruned_off": ("onehot_rows_dot", "mma"),
+    "zones": ("onehot_rows_dot", "table"),
 }
 
 #: the CUDA kernel (csrc/onehot_groupby.cu) behind each (wrapper, branch)
@@ -233,6 +251,7 @@ EXEC_SHAPE = {
     "basket": (3, 9),
     "pruned": (3, 9),
     "pruned_off": (3, 9),
+    "zones": (3, 288),
 }
 
 #: how each config's payloads merge: "device" on the executor, "host"
@@ -305,6 +324,21 @@ DAG_SHAPE = {
     "dag_quantile": (1, 9),
     "dag_window": (9, 26),
 }
+
+#: (R, G) of each extended DAG config's ONE contraction on the fast path
+#: (``MeshQueryExecutor.execute_dag``) over every shard's rows: fare rides
+#: as int16 there (a count row and 2 limbs), as on the executor path
+DAG_FAST_SHAPE = {
+    "dag_join": (3, 5),
+    "dag_topk": (1, 9),
+    "dag_quantile": (1, 9),
+    "dag_window": (3, 26),
+}
+
+#: the DAG leg's two routes of an extended config: the fast path (one
+#: message for the shard group, merged on the device) and, under the kill
+#: switch, one message per shard, each one payload, merged at the client
+DAG_LEGS = {"fast": {}, "per-shard": {"BQUERYD_TPU_DAG_BATCH": "0"}}
 
 #: the append leg: bench.py's ingest deployment, 2,000,000 rows in 4
 #: shards of its own, chunks of a 24th of a shard, two appends of about
@@ -938,11 +972,18 @@ def check_dag(config, order, columns, want):
                 assert int(got) == value, (config, k, out_col, got, value)
 
 
-def dag_expected_launches(config, parts):
-    """{shape key: launches} of one query of a DAG config: one contraction
-    per shard, or the executor's one for dag_plain."""
+def dag_expected_launches(config, parts, leg="fast"):
+    """{shape key: launches} of one query of a DAG config: the fast path's
+    one contraction over every shard's rows, one per shard on the
+    per-shard leg, or the executor's one for dag_plain."""
+    from bqueryd_tpu_torch import ops
+
     if config == "dag_plain":
         return expected_launches("multikey", parts)
+    if leg == "fast":
+        n = ops.program_bucket(_rows_of(parts, slice(None)), fine=True)
+        return {shape_key("onehot_rows_dot", "mma", *DAG_FAST_SHAPE[config],
+                          n): 1}
     out = {}
     for p in parts:
         key = shape_key("onehot_rows_dot", "mma", *DAG_SHAPE[config],
@@ -951,19 +992,86 @@ def dag_expected_launches(config, parts):
     return out
 
 
-def run_dag_path(names, parts, data_dir, store_dir, captured, warm=3):
+@contextlib.contextmanager
+def capturing_dag_program(store, label):
+    """Record under ``label`` the arguments of the fast path's first device
+    program (``executor._dag_partials``) in the block."""
+    from bqueryd_tpu_torch.parallel import executor
+
+    program = executor._dag_partials
+
+    def run(*args):
+        store.setdefault(label, args)
+        return program(*args)
+
+    executor._dag_partials = run
+    try:
+        yield
+    finally:
+        executor._dag_partials = program
+
+
+def _dag_rows(config, order, columns):
+    """{key: tuple of the row's aggregate values} of a DAG result, for the
+    comparison of its two legs (the legs order groups differently)."""
+    key = order[0]
+    out = {}
+    for i, k in enumerate(columns[key]):
+        k = k.item() if isinstance(k, np.generic) else k
+        out[k] = tuple(
+            tuple(np.asarray(columns[c][i]).tolist()) if config == "dag_topk"
+            else columns[c][i].item() for c in order[1:])
+    return out
+
+
+def check_sketch_grid(worker, names, parts, data_dir):
+    """The fast path's dag_quantile grids, flattened, against the host
+    formula's flat sketches of every shard merged by bucket addition:
+    keys, counts and offsets equal."""
+    from bqueryd_tpu_torch.parallel import opexec
+    from bqueryd_tpu_torch.plan import dag as dagmod
+
+    dag = dagmod.compile_query(dict(DAG_SPECS["dag_quantile"],
+                                    table=list(names)))
+    tables = [worker._open_table(os.path.join(data_dir, n)) for n in names]
+    payload = worker.executor.execute_dag(tables, dag)
+    if worker.executor.last_merge_mode != "device":
+        raise AssertionError("the sketch check did not take the fast path")
+    # passenger_count 1..9 is group 0..8 on every shard
+    host = opexec.merge_sketch_parts(
+        [(np.arange(9), *opexec.sketch_flat(
+            p["passenger_count"] - 1, p["trip_distance"], 9,
+            alpha=SKETCH_ALPHA)) for p in parts], 9)
+    for i, agg in enumerate(payload["aggs"]):
+        got = (agg["sketch_keys"], agg["sketch_counts"],
+               agg["sketch_offsets"])
+        for name, a, b in zip(("keys", "counts", "offsets"), got, host):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"dag_quantile agg {i}: sketch {name} "
+                                     "differ from the host's")
+    return int(host[1].sum())
+
+
+def run_dag_path(names, parts, data_dir, store_dir, captured, programs,
+                 warm=3):
     """The operator-DAG verb on the 10 taxi shards: its own controller and
     worker on cuda (threads, file:// store), each DAG config through
-    ``RPC.query``: one cold query after the worker's caches are cleared and
-    ``warm`` warm ones with the result cache off, each checked against
-    NumPy, launching its contractions the expected times at the expected
-    shapes and merging as expected; then, with the result cache on, one
-    query to fill it and one that must be served from it ("cached", no
-    launch).  dag_plain's result must be the very bytes of ``RPC.groupby``
-    of the same shape, on the same route.  Records each config's kernel
-    inputs (its cold query's first launch) into ``captured``, and holds
-    the card's sketch keys of every trip_distance value against the host
-    formula's."""
+    ``RPC.query``.  Each extended config runs on both legs (``DAG_LEGS``):
+    the fast path (one message, one contraction over every shard's rows,
+    merged on the device) and, under ``BQUERYD_TPU_DAG_BATCH=0``, one
+    message per shard (a contraction per shard, merged at the client); per
+    leg one cold query after the worker's caches are cleared and ``warm``
+    warm ones with the result cache off, each checked against NumPy,
+    launching its contractions the expected times at the expected shapes
+    and merging as expected, and the two legs' results equal.  Then, with
+    the result cache on, one query to fill it and one that must be served
+    from it ("cached", no launch).  dag_plain's result must be the very
+    bytes of ``RPC.groupby`` of the same shape, on the same route.  Records
+    each leg's kernel inputs (its cold query's first launch) into
+    ``captured`` and the fast path's device programs into ``programs``;
+    holds the fast path's quantile grids against the host's flat sketches
+    merged over the shards, and the card's sketch keys of every
+    trip_distance value against the host formula's."""
     from bqueryd_tpu_torch.ops import onehot, relops
     from bqueryd_tpu_torch.parallel import opexec
 
@@ -977,34 +1085,62 @@ def run_dag_path(names, parts, data_dir, store_dir, captured, warm=3):
                 plain = config == "dag_plain"
                 want = (reference("multikey", parts) if plain
                         else dag_reference(config, parts))
-                expect = dag_expected_launches(config, parts)
-                modes_want = ["device" if plain else "host"]
-                _set_result_cache(worker, 0)
-                worker.clear_caches()
-                queries, routes = [], None
-                at_start = dict(onehot.LAUNCHES)
-                for rep in range(warm + 1):
-                    before = dict(onehot.LAUNCHES)
-                    block = (capturing(captured, f"dag {config}")
-                             if rep == 0 and not plain
-                             else contextlib.nullcontext())
-                    with block:
-                        (order, columns), wall = _timed(
-                            lambda: rpc.query(query))
-                    if plain:
-                        check_result("multikey", order, columns, want)
+                report[config] = {}
+                results = {}
+                for leg, env in (DAG_LEGS.items() if not plain
+                                 else [("fast", {})]):
+                    expect = dag_expected_launches(config, parts, leg)
+                    if plain or leg == "fast":
+                        modes_want = ["device"]
                     else:
-                        check_dag(config, order, columns, want)
-                    launched = _launch_delta(before)
-                    modes = list(rpc.last_call_merge_modes.values())
-                    routes = list(
-                        rpc.last_call_strategies["effective"].values())
-                    if launched != expect or modes != modes_want:
-                        raise AssertionError(
-                            f"{config} query {rep}: expected {expect} and "
-                            f"merge modes {modes_want}; launched "
-                            f"{launched}, merge modes {modes}")
-                    queries.append(_reply_split(rpc, wall))
+                        modes_want = ["none"] * len(names)
+                    _set_result_cache(worker, 0)
+                    worker.clear_caches()
+                    queries, routes = [], None
+                    at_start = dict(onehot.LAUNCHES)
+                    with _env_set(env):
+                        for rep in range(warm + 1):
+                            before = dict(onehot.LAUNCHES)
+                            blocks = contextlib.ExitStack()
+                            if rep == 0 and not plain:
+                                blocks.enter_context(capturing(
+                                    captured, f"dag {leg} {config}"))
+                            if rep == 0 and leg == "fast" and not plain:
+                                blocks.enter_context(capturing_dag_program(
+                                    programs, config))
+                            with blocks:
+                                (order, columns), wall = _timed(
+                                    lambda: rpc.query(query))
+                            if plain:
+                                check_result("multikey", order, columns,
+                                             want)
+                            else:
+                                check_dag(config, order, columns, want)
+                            launched = _launch_delta(before)
+                            modes = list(rpc.last_call_merge_modes.values())
+                            routes = list(rpc.last_call_strategies[
+                                "effective"].values())
+                            if launched != expect or modes != modes_want:
+                                raise AssertionError(
+                                    f"{config} {leg} query {rep}: expected "
+                                    f"{expect} and merge modes {modes_want}; "
+                                    f"launched {launched}, merge modes "
+                                    f"{modes}")
+                            queries.append(_reply_split(rpc, wall))
+                        results[leg] = _dag_rows(config, order, columns)
+                    report[config][leg] = dict(
+                        _warm_summary(queries),
+                        routes=routes,
+                        merge_modes=modes,
+                        messages=len(modes),
+                        launch_shapes=expect,
+                        launches=_launch_delta(at_start),
+                    )
+                if len(results) == 2 and results["fast"] != results[
+                        "per-shard"]:
+                    raise AssertionError(
+                        f"{config}: the fast path and the per-shard leg "
+                        "differ")
                 if plain:
                     # RPC.groupby of the same shape: the same bytes, the
                     # same route
@@ -1015,6 +1151,8 @@ def run_dag_path(names, parts, data_dir, store_dir, captured, warm=3):
                                    != columns[c].tobytes() for c in order)):
                         raise AssertionError(
                             "dag_plain differs from RPC.groupby of its shape")
+                    report[config]["fast"]["launches"] = _launch_delta(
+                        at_start)
                 _set_result_cache(worker, 256 * 1024**2)
                 rpc.query(query)  # fills the result cache
                 before = dict(onehot.LAUNCHES)
@@ -1029,20 +1167,13 @@ def run_dag_path(names, parts, data_dir, store_dir, captured, warm=3):
                     check_result("multikey", order, columns, want)
                 else:
                     check_dag(config, order, columns, want)
-                report[config] = dict(
-                    _warm_summary(queries),
-                    routes=routes,
-                    merge_modes=modes,
-                    launch_shapes=expect,
-                    # the checked queries, the cache fill and, for
-                    # dag_plain, its RPC.groupby
-                    launches=_launch_delta(at_start),
-                    cached_routes=cached_routes,
-                    groups=len(want),
-                )
+                report[config]["cached_routes"] = cached_routes
+                report[config]["groups"] = len(want)
                 log(f"dag {config}: {json.dumps(report[config])}")
         finally:
             _stop_cluster(rpc, controller, worker, threads)
+    report["sketch_grid_rows_checked"] = check_sketch_grid(
+        worker, names, parts, data_dir)
     # the card's sketch keys of every trip_distance value, against the host
     # formula that defines the bucket layout
     dist = np.concatenate([p["trip_distance"] for p in parts])
@@ -1054,6 +1185,69 @@ def run_dag_path(names, parts, data_dir, store_dir, captured, warm=3):
             f"sketch keys differ on {int((card != host).sum())} values")
     report["sketch_keys_checked"] = int(len(dist))
     return report
+
+
+def time_dag_programs(programs, iters=10):
+    """Device time of the fast path's torch bodies at the shapes its
+    programs ran (``programs``: config -> ``_dag_partials`` arguments):
+    each top-k emission (its route, checked against the sort route) and
+    each sketch grid, then the whole program with its fetch."""
+    import torch
+
+    from bqueryd_tpu_torch.ops import relops
+    from bqueryd_tpu_torch.parallel import executor, opexec
+
+    out = {}
+    for config, args in programs.items():
+        n_groups, codes_d, measures_d, _classic, topk, sketch = args
+        codes = codes_d[0].to(torch.int64)
+        per_slot = [m[0] for m in measures_d]
+        rows = {}
+        for slot, k, largest, drop_nan, sentinel, float_neg in topk:
+            def emit():
+                return relops.topk_dense_emit(
+                    codes, per_slot[slot], None, k, largest, n_groups,
+                    drop_nan, sentinel, float_neg)
+
+            dense, cnt = emit()
+            sd, sc = relops.topk_dense_block(
+                codes, per_slot[slot], None, k, largest, n_groups, drop_nan,
+                sentinel, float_neg)
+            for a, b in zip(
+                    opexec.dense_topk_to_flat(dense.cpu().numpy(),
+                                              cnt.cpu().numpy()),
+                    opexec.dense_topk_to_flat(sd.cpu().numpy(),
+                                              sc.cpu().numpy())):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{config} top-k slot {slot}: the "
+                                         "routes differ")
+            rows[f"topk slot {slot} k={k} largest={largest}"] = {
+                "dtype": str(per_slot[slot].dtype),
+                "device_ms": _device_ms(emit, "", iters),
+                "event_ms": _time_ms(emit, iters),
+                "sort_route_event_ms": _time_ms(
+                    lambda: relops.topk_dense_block(
+                        codes, per_slot[slot], None, k, largest, n_groups,
+                        drop_nan, sentinel, float_neg), iters),
+            }
+        for slot, lg, imin, imax, kmin, width in sketch:
+            def grid():
+                return relops.sketch_grid_block(
+                    codes, per_slot[slot], n_groups, lg, imin, imax, kmin,
+                    width)
+
+            rows[f"sketch slot {slot} width={width}"] = {
+                "dtype": str(per_slot[slot].dtype),
+                "device_ms": _device_ms(grid, "", iters),
+                "event_ms": _time_ms(grid, iters),
+            }
+        rows["program with fetch"] = {
+            "event_ms": _time_ms(lambda: executor._dag_partials(*args),
+                                 iters)}
+        out[config] = {"n": int(codes.shape[0]), "G": int(n_groups),
+                       "ops": rows}
+        log(f"dag program {config}: {json.dumps(out[config])}")
+    return out
 
 
 def _ingest_frame(rng, rows, seq_offset):
@@ -1123,14 +1317,61 @@ def check_ingest(order, columns, want, outs=("vs", "fm", "vmin")):
                 assert int(got) == ref[out], (k, out, got, ref[out])
 
 
+def _rollup_msg(name, prior=None, base=None):
+    """A ``rollup`` CalcMessage of the ingest query over one shard, with
+    the prior partials and growth base of a refresh."""
+    from bqueryd_tpu_torch.messages import CalcMessage
+
+    msg = CalcMessage({"payload": "rollup", "token": os.urandom(8).hex()})
+    msg.set_args_kwargs([name, ["g"], INGEST_AGGS, []], {"aggregate": True})
+    if prior is not None:
+        msg.add_as_binary("rollup_prior", prior)
+        msg.add_as_binary("rollup_base", base)
+    return msg
+
+
+def run_rollups(worker, frames, names, mode, priors=None):
+    """One ``rollup`` message per ingest shard to the (idle) worker's
+    ``handle_work``, each reply in ``mode`` and its finalized partials
+    checked against NumPy of that shard's rows.  Returns ({name: (data,
+    base)}, report)."""
+    from bqueryd_tpu_torch.models.query import ResultPayload
+    from bqueryd_tpu_torch.parallel import hostmerge
+
+    out, walls, phases = {}, [], {}
+    for name in names:
+        prior, base = (priors or {}).get(name, (None, None))
+        reply, wall = _timed(lambda: worker.handle_work(
+            _rollup_msg(name, prior, base)))
+        if reply.get("rollup_mode") != mode:
+            raise AssertionError(f"rollup {name}: mode "
+                                 f"{reply.get('rollup_mode')}, expected {mode}")
+        order, columns = hostmerge.finalize_table(hostmerge.merge_payloads(
+            [ResultPayload.from_bytes(reply["data"])]))
+        check_ingest(order, columns, ingest_reference({name: frames[name]}))
+        zones = reply.get_from_binary("rollup_zones")
+        base = reply.get_from_binary("rollup_base")
+        if zones["g"]["kind"] != "int" or base["rows"] != len(
+                frames[name]["g"]):
+            raise AssertionError(f"rollup {name}: census {zones['g']}, "
+                                 f"base rows {base['rows']}")
+        out[name] = (reply["data"], base)
+        walls.append(wall)
+        for k, v in reply["phase_timings"].items():
+            phases[k] = phases.get(k, 0.0) + v
+    return out, {"mode": mode, "walls_s": walls, "phases_s": phases}
+
+
 def run_append_path(scratch, captured):
     """The append verb on bench.py's ingest deployment: its own dataset
     (2,000,000 rows in 4 shards) and its own controller and worker on cuda,
     so the taxi shards are never mutated.  The query ``[g]: v sum, f mean,
-    v min`` once (the delta base), then two cycles of ``RPC.append`` of a
-    24th of a shard to each shard, each followed by the query, which must
-    be a delta refresh (route "delta", one launch per grown shard at the
-    appended rows); a cold recompute after the worker's caches are
+    v min`` once (the delta base); ``rollup`` messages of the same query
+    to the worker, one per shard: a build ("rebuild"), then a refresh with
+    no growth ("fresh"); then two cycles of ``RPC.append`` of a 24th of a
+    shard to each shard, each followed by the query, which must be a delta
+    refresh (route "delta", one launch per grown shard at the appended
+    rows), the first also by a rollup refresh per shard ("delta"); a cold recompute after the worker's caches are
     cleared, equal to the refreshed result; a ``seq`` filter that chunk
     pruning serves; one ``RPC.query`` over the grown shards.  Every result
     is checked against NumPy of the concatenated frames (ints bit for bit,
@@ -1162,6 +1403,12 @@ def run_append_path(scratch, captured):
                                   launched=_launch_delta(before)))
 
         _, report["base"] = query(label="append executor")
+        # the rollup verb on the idle worker: a build per shard, then a
+        # refresh before any append ("fresh")
+        built, report["rollup_rebuild"] = run_rollups(worker, frames, names,
+                                                      "rebuild")
+        _, report["rollup_fresh"] = run_rollups(worker, frames, names,
+                                                "fresh", built)
         append_rows = per // 24
         seq_base = per
         report["append_walls_s"], report["delta"] = [], []
@@ -1186,6 +1433,11 @@ def run_append_path(scratch, captured):
                     f"delta cycle {cycle}: routes {q['routes']}, launched "
                     f"{q['launched']}")
             report["delta"].append(q)
+            if cycle == 0:
+                # the grown shards' rollups refresh from the appended
+                # chunks alone
+                _, report["rollup_delta"] = run_rollups(
+                    worker, frames, names, "delta", built)
         worker.clear_caches()
         cold_cols, report["cold"] = query()
         if report["cold"]["routes"] in (["delta"], ["cached"]):
@@ -1618,12 +1870,37 @@ def _evt_device_us(evt):
     return us
 
 
-def _device_ms(fn, kernel, iters, flush=None, windows=3):
+#: timings that fell back to CUDA events: (kernel, flushed) of each
+PROFILER_FALLBACKS = []
+
+
+def _event_ms(fn, iters, flush):
+    """Mean ms per call between CUDA events recorded around each call,
+    after its flush: the fallback of :func:`_device_ms`."""
+    import torch
+
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _device_ms(fn, kernel, iters, flush=None, windows=6):
     """Mean device time per call, in ms, of the CUDA kernels whose name
     holds ``kernel`` ("" for every kernel ``fn`` runs), from torch.profiler
     (CUPTI) over ``iters`` calls after a warm-up.  With ``flush``, that
     buffer is overwritten before each call, so the inputs come from device
-    memory and not from L2; the flush itself is not counted."""
+    memory and not from L2; the flush itself is not counted.  Where the
+    profiler holds too few records after ``windows`` windows, the time
+    comes from CUDA events around the calls (host launch cost included)
+    and :data:`PROFILER_FALLBACKS` says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1632,10 +1909,11 @@ def _device_ms(fn, kernel, iters, flush=None, windows=3):
     fn()
     torch.cuda.synchronize()
     # CUPTI drops some records of a window (1 and 11 of 50 launches of one
-    # 10M-row kernel, 8 of 10 flushed launches of another), so each
-    # kernel's time per call is the mean over the records held, times its
-    # launches per call; a window holding fewer than half its calls' records
-    # is pooled with the next, up to ``windows`` windows
+    # 10M-row kernel, 8 of 10 flushed launches of another, once all 30 of
+    # three flushed windows), so each kernel's time per call is the mean
+    # over the records held, times its launches per call; a window holding
+    # fewer than half its calls' records is pooled with the next, up to
+    # ``windows`` windows
     totals = {}  # kernel name -> [device us, records]
     for window in range(1, windows + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as trace:
@@ -1656,6 +1934,13 @@ def _device_ms(fn, kernel, iters, flush=None, windows=3):
     calls = iters * window
     per_call = sum(us / n * max(1, round(n / calls))
                    for us, n in totals.values())
+    if count < iters // 2 and kernel:
+        PROFILER_FALLBACKS.append((kernel, flush is not None))
+        log(f"profiler saw {count} launches of {kernel} over {calls} calls: "
+            "timed with CUDA events")
+        if flush is None:
+            return _time_ms(fn, iters)
+        return _event_ms(fn, iters, flush)
     if count < iters // 2 or (kernel and count > calls) or per_call <= 0:
         raise AssertionError(
             f"profiler saw {count} launches of {kernel or 'any kernel'} "
@@ -1962,13 +2247,13 @@ def _input_label(config):
             else f"executor {config}")
 
 
-def counted_launches(path):
+def counted_launches(path, configs=CONFIGS):
     """The launch counts of the run just driven, per shape key; raises if
-    a kernel of the main path never launched in it."""
+    a kernel branch of the ``configs`` it drove never launched in it."""
     from bqueryd_tpu_torch.ops import onehot
 
     launches = {shape_key(*k): v for k, v in onehot.LAUNCHES.items()}
-    for kernel, branch in set(CONFIG_KERNEL.values()):
+    for kernel, branch in {CONFIG_KERNEL[c] for c in configs}:
         if not any(k.startswith(f"{kernel}/{branch}/") and v
                    for k, v in launches.items()):
             raise AssertionError(
@@ -2053,12 +2338,12 @@ def main():
         cluster_launches = counted_launches("cluster")
         log(f"cluster path: {time.perf_counter() - t0:.1f}s")
         # the operator DAGs and the append verb, each a path of its own
-        captured = {}
+        captured, programs = {}, {}
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
         dag = run_dag_path(names, parts, data_dir,
                            tempfile.mkdtemp(prefix="dag_store_",
-                                            dir=data_dir), captured)
+                                            dir=data_dir), captured, programs)
         dag_launches = path_launches("dag")
         log(f"DAG path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
@@ -2074,7 +2359,7 @@ def main():
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
         engine_configs = run_engine_path(rpc, names, parts)
-        engine_launches = counted_launches("per-shard engine")
+        engine_launches = counted_launches("per-shard engine", BASE_CONFIGS)
         log(f"engine path: {time.perf_counter() - t0:.1f}s")
         print(json.dumps({"configs": configs,
                           "cluster_configs": cluster,
@@ -2115,11 +2400,14 @@ def main():
             }
         # dag_plain runs multikey's shape on the executor
         launches[_input_label("multikey")]["dag"] = sum(
-            dag["dag_plain"]["launches"].values())
+            dag["dag_plain"]["fast"]["launches"].values())
         kernels = check_kernels(inputs, device, launches)
+        print(json.dumps({"dag_programs": time_dag_programs(programs)}),
+              flush=True)
         print(json.dumps(sweeps(parts, device)), flush=True)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+    print(json.dumps({"profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -594,9 +594,9 @@ def test_rpc_query_end_to_end(op_cluster):
         assert list(df["t2"][i]) == exp_k[r]
         e = float(exp_q[r])
         assert abs(float(df["p90"][i]) - e) <= abs(e) * ALPHA + 1e-9
-    # top-k and sketch parts merge by part kind: one message, merged on
-    # the worker's host
-    assert list(rpc.last_call_merge_modes.values()) == ["host"]
+    # top-k and sketch parts merge by part kind: one message for the shard
+    # group, merged on the device by the fast path
+    assert list(rpc.last_call_merge_modes.values()) == ["device"]
 
 
 def test_rpc_query_window_end_to_end(op_cluster):
@@ -726,14 +726,16 @@ def test_reference_client_reads_port_dag_replies(op_cluster):
 
 
 def test_worker_device_error_propagates(op_cluster, monkeypatch):
-    """A device failure inside the DAG pipeline reaches the client as the
-    worker's error; nothing reruns it elsewhere."""
+    """A device failure inside the DAG pipeline (the fast path's dense
+    top-k or the per-shard top-k) reaches the client as the worker's error;
+    nothing reruns it elsewhere."""
     from bqueryd_tpu_torch.rpc import RPCError
 
     def failing(*args, **kwargs):
         raise RuntimeError("CUDA error: an illegal memory access")
 
     monkeypatch.setattr(relops, "topk_partials", failing)
+    monkeypatch.setattr(relops, "topk_dense_emit", failing)
     with pytest.raises(RPCError, match="illegal memory access"):
         op_cluster["rpc"].query({
             "table": op_cluster["shards"], "groupby": ["g"],
@@ -742,14 +744,17 @@ def test_worker_device_error_propagates(op_cluster, monkeypatch):
 
 def test_sole_and_batched_dag_dispatch(op_cluster, monkeypatch):
     """Extended DAGs batch per shard group unless BQUERYD_TPU_DAG_BATCH=0,
-    which sends one message per shard; both answer alike."""
+    which sends one message per shard; both answer alike (group by group:
+    the device merge orders groups by key, the client's merge by first
+    appearance)."""
     spec = {"table": op_cluster["shards"], "groupby": ["g"],
             "aggs": [["v_int", "topk", "t", {"k": 5}]]}
     rpc = op_cluster["rpc"]
-    a = _frame(rpc.query(spec))
+    a = _frame(rpc.query(spec)).sort_values("g").reset_index(drop=True)
     assert len(rpc.last_call_merge_modes) == 1
     monkeypatch.setenv("BQUERYD_TPU_DAG_BATCH", "0")
-    b = _frame(rpc.query(spec))
+    b = _frame(rpc.query(spec)).sort_values("g").reset_index(drop=True)
     assert list(rpc.last_call_merge_modes.values()) == ["none", "none"]
+    assert a["g"].tolist() == b["g"].tolist()
     for x, y in zip(a["t"], b["t"]):
         np.testing.assert_array_equal(x, y)
