@@ -25,10 +25,28 @@ with the reference's wire behaviour:
   (node, data_dir), and is answered when all holders confirmed, or with
   an error naming the failed ones.
 
-The controller imports neither torch nor pandas.  Not ported yet:
-admission and micro-batch windows, shared-scan bundles, plan-time shard
-pruning and calibrated strategy hints, stale-dispatch retries and hedging,
-peer gossip, observability, chaos, downloads and rollups.
+* before any dispatch, a ``groupby`` or ``query`` passes admission
+  (:mod:`plan.admission`: at most ``BQUERYD_TPU_ADMIT_MAX_ACTIVE`` plans
+  run, ``BQUERYD_TPU_ADMIT_QUEUE_DEPTH`` more wait, each client at most
+  ``BQUERYD_TPU_ADMIT_CLIENT_QUOTA``; beyond that the client gets BUSY at
+  once); a REQ identity holds one ticket, a resend of the same query joins
+  its run and a different query retires the abandoned one;
+* shards whose advertised stats (the workers' WRMs, :mod:`plan.stats`)
+  exclude the filter are pruned at plan time: never dispatched, their
+  payload slots pre-filled empty;
+* two concurrent plans that need the identical computation over one shard
+  group share ONE CalcMessage, whose reply goes to every subscriber;
+* with ``BQUERYD_TPU_BATCH_WINDOW_MS`` > 0, admitted plans are staged for
+  that long and compatible ones (same post-prune shards and group keys,
+  any measures and filters) go out as one shared-scan bundle per shard
+  group (:mod:`plan.bundle`), whose reply is demultiplexed per member; at
+  the default 0 nothing is staged.
+
+The controller imports neither torch nor pandas.  Not ported yet: the
+serving layer (subsumption and rollups, whose hook has its place in
+``_admit_plan``), calibrated strategy hints, host routing and device
+health, stale-dispatch retries and hedging, affinity pins, peer gossip,
+observability (spans, flight events, metrics), chaos and downloads.
 
 Framing on the ROUTER socket:
 
@@ -79,6 +97,20 @@ RUNFILE_DIR = os.environ.get("BQUERYD_TPU_RUNFILE_DIR", "/srv")
 CONTROLLER_VERBS = ("ping", "loglevel", "info", "groupby", "query",
                     "append")
 
+#: the controller's counters, in ``get_info()["counters"]`` (the
+#: reference's names and meanings)
+COUNTERS = (
+    "admission_busy",          # plans refused with BUSY
+    "admission_queued",        # plans held in the admission queue
+    "admission_superseded",    # live tickets retired by a new query
+    "deadline_expired",        # plans or units expired before dispatch
+    "plan_pruned_shards",      # shards the advertised stats excluded
+    "plan_shared_dispatches",  # dispatches a plan joined instead of paying
+    "plan_bundles",            # shared-scan bundle CalcMessages
+    "plan_bundled_queries",    # members over all bundles
+    "dispatched_shards",       # groupby CalcMessages sent to workers
+)
+
 
 class ControllerNode:
     def __init__(
@@ -89,7 +121,12 @@ class ControllerNode:
         heartbeat_interval=HEARTBEAT_INTERVAL,
         dead_worker_timeout=None,
         port_range=(14300, 14400),
+        admit_max_active=None,
+        admit_queue_depth=None,
+        admit_client_quota=None,
     ):
+        from bqueryd_tpu_torch.plan import AdmissionController
+
         bqueryd_tpu_torch.configure_logging(loglevel or logging.INFO)
         self.store = coordination_store(
             coordination_url or bqueryd_tpu_torch.DEFAULT_COORDINATION_URL
@@ -132,6 +169,25 @@ class ControllerNode:
         self.pending = []             # CalcMessages waiting for a worker
         self.inflight = {}            # work token -> {worker, sent_at, msg}
         self.rpc_segments = {}        # parent token -> fan-out bookkeeping
+        # admission: the REQ identity is the ticket
+        self.admission = AdmissionController(
+            max_active=admit_max_active,
+            queue_depth=admit_queue_depth,
+            client_quota=admit_client_quota,
+        )
+        self._admitting = False
+        self._ticket_sigs = {}        # live ticket -> (filenames, plan sig)
+        self.shard_stats = {}         # filename -> advertised stats
+        # shared dispatch: every groupby work unit has a subscriber list,
+        # the parents waiting for its payload
+        self._work_subscribers = {}   # work token -> [parent token, ...]
+        self._work_keys = {}          # work token -> shared-dispatch key
+        self._work_index = {}         # shared-dispatch key -> work token
+        # the micro-batch window: admitted plans staged until it closes,
+        # then flushed grouped by compatibility key; empty at window 0
+        self._pending_window = []     # [(msg, plan, kwargs), ...]
+        self._window_opened = 0.0
+        self.counters = dict.fromkeys(COUNTERS, 0)
         self._append_segments = {}    # append fan-out key -> its state
         self._append_waiters = {}     # append dispatch token -> fan-out key
         self.msg_count_in = 0
@@ -180,9 +236,14 @@ class ControllerNode:
                 try:
                     self.heartbeat()
                     self.free_dead_workers()
-                    events = dict(
-                        self.poller.poll(int(POLLING_TIMEOUT * 1000))
-                    )
+                    # a staged window bounds the poll: its flush is due
+                    # when it closes, not a full POLLING_TIMEOUT later
+                    # (closed-loop clients send nothing while staged)
+                    timeout_s = POLLING_TIMEOUT
+                    if self._pending_window:
+                        remaining = self._window_deadline() - time.time()
+                        timeout_s = max(min(timeout_s, remaining), 0.0)
+                    events = dict(self.poller.poll(int(timeout_s * 1000)))
                     if self.socket in events:
                         # drain everything available this tick, then
                         # dispatch in the same tick: a reply's Done frees
@@ -195,6 +256,8 @@ class ControllerNode:
                             except zmq.Again:
                                 break
                             self.handle_in(frames)
+                    self._admit_ready()
+                    self._flush_window()
                     self.dispatch_pending()
                     self._sweep_append_segments()
                 except Exception:
@@ -271,6 +334,7 @@ class ControllerNode:
             self.files_map[filename].discard(worker_id)
             if not self.files_map[filename]:
                 del self.files_map[filename]
+                self.shard_stats.pop(filename, None)
         # an append waiting on this holder fails fast: the fan-out cannot
         # complete any more
         for seg_key, segment in list(self._append_segments.items()):
@@ -297,8 +361,8 @@ class ControllerNode:
             return
         retries = msg.get("_retries", 0)
         if retries >= self.max_dispatch_retries:
-            self.abort_parent(
-                msg.get("parent_token"),
+            self._abort_work(
+                msg,
                 f"shard {msg.get('filename')} failed after {retries} "
                 f"retries ({reason})",
                 error_class="DispatchExhausted",
@@ -335,11 +399,14 @@ class ControllerNode:
                 else:
                     self._send_to_worker(target, msg)
                 continue
-            if msg.get("parent_token") not in self.rpc_segments:
-                continue  # its query was aborted
+            if not any(p in self.rpc_segments
+                       for p in self._work_parents(msg)):
+                self._drop_work(msg.get("token"))
+                continue  # every query waiting for it was aborted
             if msg.deadline_expired():
-                self.abort_parent(msg.get("parent_token"),
-                                  "deadline exceeded before dispatch")
+                # nobody waits any more: expire instead of dispatching
+                self.counters["deadline_expired"] += 1
+                self._abort_work(msg, "deadline exceeded before dispatch")
                 continue
             filename = msg.get("filename")
             worker_id = self.find_free_worker(filename)
@@ -350,15 +417,17 @@ class ControllerNode:
             missing = [f for f in needed if f not in self.files_map]
             if missing:
                 # every holder is gone: no later tick can serve this
-                self.abort_parent(
-                    msg.get("parent_token"),
-                    f"file(s) no longer on any worker: {missing}",
+                self._abort_work(
+                    msg, f"file(s) no longer on any worker: {missing}",
                 )
             elif isinstance(filename, list) and not self._servable_by_one(
                 filename
             ):
-                # placement changed since batching: one message per shard
-                self.pending.extend(self._split_batch(msg))
+                # placement changed since batching: one message per shard,
+                # carrying the batch's subscribers
+                children = self._split_batch(msg)
+                self._transfer_work(msg, children)
+                self.pending.extend(children)
             else:
                 self.pending.append(msg)  # its holders are busy
 
@@ -386,6 +455,50 @@ class ControllerNode:
             children.append(child)
         return children
 
+    # -- shared dispatch ---------------------------------------------------
+    # Two concurrent admitted plans that need the same computation over the
+    # same shard group share ONE dispatch: one read, one upload, one
+    # kernel run, the payload fanned out to every subscriber
+    # (counters["plan_shared_dispatches"]).
+    def _register_work(self, msg, subscribers, work_key=None):
+        token = msg.get("token")
+        if not token:
+            return
+        self._work_subscribers[token] = list(subscribers)
+        if work_key is not None:
+            self._work_keys[token] = work_key
+            self._work_index[work_key] = token
+
+    def _drop_work(self, token):
+        self._work_subscribers.pop(token, None)
+        key = self._work_keys.pop(token, None)
+        if key is not None and self._work_index.get(key) == token:
+            self._work_index.pop(key, None)
+
+    def _work_parents(self, msg):
+        """Every parent waiting for this work unit."""
+        subs = self._work_subscribers.get(msg.get("token"))
+        if subs:
+            return list(subs)
+        parent = msg.get("parent_token")
+        return [parent] if parent else []
+
+    def _transfer_work(self, msg, children):
+        """Move a batch's subscribers onto its re-split children."""
+        subs = self._work_subscribers.get(msg.get("token"))
+        self._drop_work(msg.get("token"))
+        if subs is None:
+            return
+        for child in children:
+            self._register_work(child, subs)
+
+    def _abort_work(self, msg, error_text, error_class=None):
+        """Fail every parent subscribed to one work unit."""
+        parents = self._work_parents(msg)
+        self._drop_work(msg.get("token"))
+        for parent in parents:
+            self.abort_parent(parent, error_text, error_class=error_class)
+
     def _send_to_worker(self, worker_id, msg):
         try:
             self.socket.send_multipart(
@@ -396,6 +509,8 @@ class ControllerNode:
             self.remove_worker(worker_id)
             self._requeue(msg, f"send failed: {exc}")
             return
+        if msg.isa("groupby"):
+            self.counters["dispatched_shards"] += 1
         info = self.worker_map[worker_id]
         info["busy"] = True
         # ROUTER_MANDATORY: the send would have raised on a gone peer
@@ -461,11 +576,14 @@ class ControllerNode:
             known = self.worker_map.get(worker_id)
             if known is not None:
                 known["last_seen"] = now
+                # the worker's stats advertisement rides either socket
+                self._absorb_shard_stats(msg)
             elif self._adoption_blocked.get(worker_id, 0) <= now:
                 info = dict(msg, last_seen=now, busy=True, hb_only=now)
                 self.worker_map[worker_id] = info
                 for filename in info.get("data_files") or []:
                     self.files_map.setdefault(filename, set()).add(worker_id)
+                self._absorb_shard_stats(info)
             return
         prev = self.worker_map.get(worker_id, {})
         self._adoption_blocked.pop(worker_id, None)
@@ -482,6 +600,21 @@ class ControllerNode:
                 self.files_map[filename].discard(worker_id)
                 if not self.files_map[filename]:
                     del self.files_map[filename]
+                    self.shard_stats.pop(filename, None)
+        self._absorb_shard_stats(info)
+
+    def _absorb_shard_stats(self, info):
+        """Keep the freshest advertised stats per shard.  Each entry is
+        shape-checked: a malformed advertisement (a version-skewed or
+        faulty worker) poisons at most its own shard's entry, never a
+        query."""
+        stats = info.get("shard_stats")
+        if not isinstance(stats, dict):
+            return
+        for fname, entry in stats.items():
+            if (isinstance(fname, str) and isinstance(entry, dict)
+                    and isinstance(entry.get("cols", {}), dict)):
+                self.shard_stats[fname] = entry
 
     def _absorb_reply(self, worker_id, msg):
         """A worker's reply to a work unit.  A late reply of an earlier
@@ -507,31 +640,115 @@ class ControllerNode:
             # its fan-out already failed fast or timed out: the client
             # was answered
             return
-        parent = msg.get("parent_token")
-        segment = self.rpc_segments.get(parent)
-        if segment is None:
-            self.logger.debug("orphaned result for parent %s dropped", parent)
-            return
+        subscribers = self._work_subscribers.get(token)
+        self._drop_work(token)
+        parents = (list(subscribers) if subscribers
+                   else [msg.get("parent_token")])
         if msg.isa(ErrorMessage):
-            self.abort_parent(parent, msg.get("payload"))
+            for parent in parents:
+                self.abort_parent(parent, msg.get("payload"))
+            return
+        if msg.get("_bundle_parents"):
+            if msg.get("bundle_members") is not None:
+                # one envelope with a payload per member
+                self._demux_bundle(msg)
+            else:
+                # a worker that does not know bundles ran member 0's
+                # positional params: handing that payload to every member
+                # would be a wrong answer, so every member fails
+                for parent in dict.fromkeys(msg["_bundle_parents"].values()):
+                    self.abort_parent(
+                        parent,
+                        "bundle dispatched to a worker that does not "
+                        "understand shared-scan bundles; keep "
+                        "BQUERYD_TPU_BATCH_WINDOW_MS=0 until every calc "
+                        "worker answers them",
+                    )
             return
         filename = msg.get("filename")
         # a batched group's reply covers all its files with one merged
         # payload: completion counts covered files, not replies
         key = tuple(filename) if isinstance(filename, list) else (filename,)
-        segment["results"][key] = msg.get("data") or b""
-        segment["timings"][key] = msg.get("phase_timings")
+        delivered = False
+        for parent in parents:
+            segment = self.rpc_segments.get(parent)
+            if segment is None:
+                continue  # that subscriber aborted earlier
+            delivered = True
+            self._record_result(segment, key, msg, msg.get("data") or b"",
+                                msg.get("phase_timings"))
+            self._maybe_complete_segment(parent)
+        if not delivered:
+            self.logger.debug("orphaned result for token %s dropped", token)
+
+    @staticmethod
+    def _record_result(segment, key, msg, data, timings):
+        """One shard group's payload, timings, route and merge mode into a
+        segment."""
+        segment["results"][key] = data
+        segment["timings"][key] = timings
         effective = msg.get("effective_strategy")
         if isinstance(effective, str):
             segment["effective"][key] = effective
         merge_mode = msg.get("merge_mode")
         if isinstance(merge_mode, str):
             segment["merge"][key] = merge_mode
-        self._maybe_complete_segment(parent)
+
+    def _demux_bundle(self, msg):
+        """A shared-scan bundle reply, per member: its data frame is one
+        pickled ``{"payloads": {member_id: bytes}, "errors": {member_id:
+        text}}`` envelope.  A member's error aborts that member's query
+        alone; members whose query aborted earlier (supersede, deadline)
+        are skipped; the rest complete.  The shared phase timings are
+        scaled by each member's share (``member_shares``)."""
+        bundle_parents = msg.get("_bundle_parents") or {}
+        data = msg.get("data") or b""
+        try:
+            envelope = pickle.loads(data) if data else {}
+        except Exception:
+            for parent in dict.fromkeys(bundle_parents.values()):
+                self.abort_parent(parent, "undecodable bundle reply")
+            return
+        member_payloads = envelope.get("payloads") or {}
+        member_errors = envelope.get("errors") or {}
+        member_shares = msg.get("member_shares")
+        if not isinstance(member_shares, dict):
+            member_shares = {}
+        filename = msg.get("filename")
+        key = tuple(filename) if isinstance(filename, list) else (filename,)
+        for member_id, parent in bundle_parents.items():
+            segment = self.rpc_segments.get(parent)
+            if segment is None:
+                continue  # that member aborted earlier
+            error = member_errors.get(member_id)
+            if error is not None:
+                self.abort_parent(parent, error)
+                continue
+            buf = member_payloads.get(member_id)
+            if buf is None:
+                self.abort_parent(
+                    parent, "bundle reply missing this member's payload")
+                continue
+            timings = msg.get("phase_timings")
+            share = member_shares.get(member_id)
+            try:
+                share = float(share) if share is not None else None
+            except (TypeError, ValueError):
+                share = None
+            if share is not None and isinstance(timings, dict):
+                timings = {k: round(v * share, 6) for k, v in timings.items()
+                           if isinstance(v, (int, float))}
+                # underscore-named like _total: never a phase name
+                timings["_member_share"] = round(share, 6)
+            self._record_result(segment, key, msg, buf, timings)
+            self._maybe_complete_segment(parent)
 
     def _maybe_complete_segment(self, parent):
-        """Reply to the client once every requested shard is covered."""
-        segment = self.rpc_segments[parent]
+        """Reply to the client once every requested shard is covered (by a
+        worker payload, a batched group payload or a plan-time prune)."""
+        segment = self.rpc_segments.get(parent)
+        if segment is None:
+            return
         # greedy disjoint cover, largest keys first: a re-split batch may
         # leave both a late group payload and its per-shard payloads, and
         # no shard may merge twice
@@ -566,7 +783,19 @@ class ControllerNode:
             },
             protocol=messages.PICKLE_PROTOCOL,
         )
-        self.reply_rpc_raw(segment["client_token"], reply)
+        self._finish_segment(segment, reply)
+
+    def _finish_segment(self, segment, reply_bytes=None):
+        """A query's last act: its reply (none for a retired run, whose
+        client moved on) and the release of its admission ticket, which
+        may launch a queued plan."""
+        if reply_bytes is not None:
+            self.reply_rpc_raw(segment["client_token"], reply_bytes)
+        ticket = segment.get("admission_ticket")
+        if ticket is not None:
+            self.admission.release(ticket)
+            self._ticket_sigs.pop(ticket, None)
+            self._admit_ready()
 
     @staticmethod
     def _compact_timings(timings):
@@ -578,26 +807,36 @@ class ControllerNode:
         }
 
     def abort_parent(self, parent, error_text, reply=True, error_class=None):
-        """Fail a query: drop its queued and in-flight work and, unless
-        ``reply`` is false, send the client the error envelope."""
+        """Fail a query: detach it from its work units (a unit left with
+        no subscriber dies, a shared one keeps computing for the others),
+        drop its queued work, release its ticket and, unless ``reply`` is
+        false, send the client the error envelope."""
         segment = self.rpc_segments.pop(parent, None)
         if segment is None:
             return
+        dead = set()
+        for token, subs in list(self._work_subscribers.items()):
+            if parent in subs:
+                subs[:] = [p for p in subs if p != parent]
+                if not subs:
+                    dead.add(token)
+                    self._drop_work(token)
+        for token in dead:
+            self.inflight.pop(token, None)
         self.pending = [
-            m for m in self.pending if m.get("parent_token") != parent
+            m for m in self.pending
+            if m.get("token") not in dead
+            and not (m.get("parent_token") == parent
+                     and m.get("token") not in self._work_subscribers)
         ]
-        for token, entry in list(self.inflight.items()):
-            if entry["msg"].get("parent_token") == parent:
-                self.inflight.pop(token)
-        if reply:
-            self.reply_rpc_raw(
-                segment["client_token"],
-                pickle.dumps(
-                    {"ok": False, "error": str(error_text),
-                     "error_class": error_class, "attempts": []},
-                    protocol=messages.PICKLE_PROTOCOL,
-                ),
-            )
+        self._finish_segment(
+            segment,
+            pickle.dumps(
+                {"ok": False, "error": str(error_text),
+                 "error_class": error_class, "attempts": []},
+                protocol=messages.PICKLE_PROTOCOL,
+            ) if reply else None,
+        )
 
     def reply_rpc_raw(self, client_token, payload_bytes):
         client = binascii.unhexlify(client_token)
@@ -613,11 +852,6 @@ class ControllerNode:
     # -- RPC dispatch ------------------------------------------------------
     def handle_rpc(self, client, payload):
         token = binascii.hexlify(client).decode()
-        # a REQ client is lockstep: a new request means it gave up on any
-        # earlier one, whose reply would now pair with the wrong request
-        for parent, segment in list(self.rpc_segments.items()):
-            if segment["client_token"] == token:
-                self.abort_parent(parent, "superseded", reply=False)
         try:
             msg = msg_factory(payload)
         except messages.MalformedMessage:
@@ -658,6 +892,9 @@ class ControllerNode:
             "pending": len(self.pending),
             "inflight": len(self.inflight),
             "rpc_segments": len(self.rpc_segments),
+            "counters": dict(self.counters),
+            "admission": self.admission.stats(),
+            "shard_stats_known": len(self.shard_stats),
             "others": {},
         }
 
@@ -721,11 +958,7 @@ class ControllerNode:
             aggregate=kwargs.get("aggregate", True),
             expand_filter_column=kwargs.get("expand_filter_column"),
         )
-        unknown = [f for f in plan.filenames if f not in self.files_map]
-        if unknown:
-            raise ValueError(f"filenames not found on any worker: {unknown}")
-        parent_token = self._open_query_segment(msg, plan)
-        self._dispatch_plan(msg, plan, kwargs, parent_token)
+        self._admit_plan(msg, plan, kwargs)
 
     def rpc_query(self, msg):
         """The operator-DAG verb: compile the ``rpc.query(spec)`` dict into
@@ -753,20 +986,218 @@ class ControllerNode:
                 ),
             )
             return
+        self._admit_plan(msg, plan, dict(kwargs, **dag_kwargs))
+
+    # -- admission, the micro-batch window and launch -----------------------
+    def _admit_plan(self, msg, plan, kwargs):
+        """The admission tail of the groupby-shaped verbs (groupby and
+        query): the unknown-shard check, resend and supersede handling,
+        BUSY backpressure, then staging or launch."""
+        from bqueryd_tpu_torch import plan as planmod
+
         unknown = [f for f in plan.filenames if f not in self.files_map]
         if unknown:
             raise ValueError(f"filenames not found on any worker: {unknown}")
-        kwargs = dict(kwargs, **dag_kwargs)
-        parent_token = self._open_query_segment(msg, plan)
-        self._dispatch_plan(msg, plan, kwargs, parent_token)
+        # the serving layer's answer (a subsumption or rollup hit, with no
+        # admission slot and no dispatch) goes here once it is ported
+        token = msg["token"]
+        # the quota bucket is the client-declared client_id, so that one
+        # application's sockets share one quota; else the REQ identity
+        quota_key = msg.get("client_id") or token
+        # deadline and priority are not part of the resend signature: a
+        # retry restamps a fresh deadline, and reading it as a new query
+        # would restart a long run on every retry.  An identical resend
+        # joins the run in flight, whose deadline governs.
+        req_sig = (tuple(plan.filenames), plan.signature())
 
-    def _open_query_segment(self, msg, plan):
-        """The per-query result segment, under a fresh parent token."""
+        def submit():
+            return self.admission.submit(
+                ticket_id=token, client=quota_key,
+                priority=msg.get("priority", 0),
+                deadline=msg.get("deadline"), payload=(msg, plan, kwargs),
+            )
+
+        decision = submit()
+        if (decision == planmod.DUPLICATE
+                and self._ticket_sigs.get(token) != req_sig):
+            # a DIFFERENT query on a live identity: a REQ socket is
+            # lockstep, so its client abandoned the earlier query, whose
+            # reply would pair with this request.  Retire the abandoned
+            # run silently and admit this one in its place.
+            self.counters["admission_superseded"] += 1
+            self._cancel_ticket(token)
+            decision = submit()
+        if decision == planmod.BUSY:
+            self.counters["admission_busy"] += 1
+            self.reply_rpc_raw(token, pickle.dumps(
+                {"ok": False, "busy": True,
+                 "error": "BUSY: admission queue full or client quota "
+                          "exceeded; retry with backoff"},
+                protocol=messages.PICKLE_PROTOCOL,
+            ))
+            return
+        if decision == planmod.QUEUED:
+            self._ticket_sigs[token] = req_sig
+            self.counters["admission_queued"] += 1
+            return  # launched later by _admit_ready
+        if decision == planmod.DUPLICATE:
+            # a client's resend of the query it already has in flight: that
+            # run answers this identity; a second fan-out would double the
+            # work and queue a stale reply for the client's next call
+            self.logger.info("duplicate %s from client %s ignored (already "
+                             "running)", msg.get("payload"), token[:12])
+            return
+        self._ticket_sigs[token] = req_sig
+        try:
+            self._stage_plan(msg, plan, kwargs)
+        except Exception:
+            self.admission.release(token)
+            self._ticket_sigs.pop(token, None)
+            raise
+
+    def _cancel_ticket(self, ticket):
+        """Silently retire a live ticket whose client moved on: a staged
+        plan is dropped before the flush can launch it, a running one is
+        detached from its work and finished with no reply, a queued one is
+        dropped before it launches."""
+        staged = [e for e in self._pending_window
+                  if e[0].get("token") == ticket]
+        if staged:
+            self._pending_window = [e for e in self._pending_window
+                                    if e[0].get("token") != ticket]
+            if self.admission.release(ticket):
+                self._ticket_sigs.pop(ticket, None)
+            return
+        parent = next((p for p, seg in self.rpc_segments.items()
+                       if seg.get("admission_ticket") == ticket), None)
+        if parent is not None:
+            self.abort_parent(parent, "superseded", reply=False)
+        elif self.admission.release(ticket):
+            self._ticket_sigs.pop(ticket, None)
+
+    def _reply_failed(self, msg, text):
+        """Release a plan's ticket and send its client an error envelope:
+        a plan that failed to launch, or expired while queued."""
+        if self.admission.release(msg["token"]):
+            self._ticket_sigs.pop(msg["token"], None)
+        self.reply_rpc_raw(msg["token"], pickle.dumps(
+            {"ok": False, "error": str(text)},
+            protocol=messages.PICKLE_PROTOCOL,
+        ))
+
+    def _admit_ready(self):
+        """Launch queued plans into freed capacity; expire stale ones."""
+        if self._admitting:
+            return  # re-entered through a completion inside a launch
+        self._admitting = True
+        try:
+            while True:
+                launch, expired = self.admission.pop_ready()
+                if not launch and not expired:
+                    return
+                for msg, _plan, _kwargs in expired:
+                    self.counters["deadline_expired"] += 1
+                    self._reply_failed(
+                        msg, "deadline exceeded while queued for admission")
+                for msg, plan, kwargs in launch:
+                    try:
+                        self._stage_plan(msg, plan, kwargs)
+                    except Exception as exc:
+                        self.logger.exception("queued plan launch failed")
+                        self._reply_failed(msg, exc)
+        finally:
+            self._admitting = False
+
+    def _stage_plan(self, msg, plan, kwargs):
+        """Launch now (window 0: the path without a window) or stage into
+        the micro-batch window, so that concurrent compatible queries can
+        fuse into one shared-scan dispatch."""
+        from bqueryd_tpu_torch.plan import bundle as bundlemod
+
+        if bundlemod.batch_window_ms() <= 0:
+            self._launch_plan(msg, plan, kwargs)
+            return
+        if not self._pending_window:
+            self._window_opened = time.time()
+        self._pending_window.append((msg, plan, kwargs))
+        if len(self._pending_window) >= bundlemod.batch_max():
+            self._flush_window(force=True)
+
+    def _window_deadline(self):
+        """When the open micro-batch window closes."""
+        from bqueryd_tpu_torch.plan import bundle as bundlemod
+
+        return self._window_opened + bundlemod.batch_window_ms() / 1000.0
+
+    def _flush_window(self, force=False):
+        """Close the micro-batch window: group the staged plans by
+        compatibility key, launch each group of several as ONE shared-scan
+        bundle and the rest alone.  A launch failure answers its own
+        members and never poisons the other groups."""
+        if not self._pending_window:
+            return
+        if not force and time.time() < self._window_deadline():
+            return
+        from bqueryd_tpu_torch.plan import bundle as bundlemod
+
+        pending, self._pending_window = self._pending_window, []
+        groups = {}
+        for msg, plan, kwargs in pending:
+            try:
+                keep, pruned = self._prune_shards(plan)
+                key = bundlemod.compat_key(plan, keep, kwargs)
+            except Exception:
+                # one malformed plan must not poison the window: it goes
+                # alone, and its own launch answers the error
+                self.logger.exception("window compatibility probe failed")
+                keep, pruned, key = list(plan.filenames), [], None
+            if key is None:
+                key = ("solo", id(msg))
+            groups.setdefault(key, []).append(
+                (msg, plan, kwargs, keep, pruned))
+        for entries in groups.values():
+            try:
+                if len(entries) == 1:
+                    msg, plan, kwargs, keep, pruned = entries[0]
+                    self._launch_plan(msg, plan, kwargs,
+                                      preplanned=(keep, pruned))
+                else:
+                    self._launch_bundle(entries)
+            except Exception as exc:
+                self.logger.exception("window flush launch failed")
+                for msg, *_rest in entries:
+                    self._reply_failed(msg, exc)
+
+    def _prune_shards(self, plan):
+        """Plan-time shard pruning: ``(keep, pruned)``.  A shard whose
+        advertised min/max stats exclude the pushed-down filter is never
+        dispatched."""
+        from bqueryd_tpu_torch import plan as planmod
+
+        planner_on = planmod.planner_enabled()
+        keep, pruned = [], []
+        for f in plan.filenames:
+            stats = self.shard_stats.get(f)
+            if (planner_on and plan.scan.pushdown and stats is not None
+                    and not planmod.stats_can_match(stats,
+                                                    plan.scan.pushdown)):
+                pruned.append(f)
+            else:
+                keep.append(f)
+        return keep, pruned
+
+    def _open_query_segment(self, msg, plan, pruned):
+        """The per-query result segment, under a fresh parent token; each
+        bundle member has one of its own.  A pruned shard's (provably
+        empty) payload slot is pre-filled, so that the client's merge is
+        unchanged."""
         parent_token = os.urandom(8).hex()
         self.rpc_segments[parent_token] = {
             "client_token": msg["token"],
+            "admission_ticket": msg["token"],
             "filenames": list(plan.filenames),
-            "results": {},            # shard-group key -> payload bytes
+            "pruned": list(pruned),
+            "results": {(f,): b"" for f in pruned},  # group key -> payload
             "timings": {},            # shard-group key -> phase_timings
             "strategies": {},         # hint -> dispatched shards
             "effective": {},          # shard-group key -> executed route
@@ -774,10 +1205,100 @@ class ControllerNode:
         }
         return parent_token
 
-    def _dispatch_plan(self, msg, plan, kwargs, parent_token):
-        """Queue one CalcMessage per shard group, each with its plan
-        fragment and, for the ``query`` verb, the wire DAG.  No strategy
-        hint is issued: the worker routes."""
+    def _launch_plan(self, msg, plan, kwargs, preplanned=None):
+        """Prune, open the segment and queue the plan's dispatch; with
+        every shard pruned, answer at once.  ``preplanned`` is the (keep,
+        pruned) a window flush already computed."""
+        keep, pruned = (preplanned if preplanned is not None
+                        else self._prune_shards(plan))
+        self.counters["plan_pruned_shards"] += len(pruned)
+        parent_token = self._open_query_segment(msg, plan, pruned)
+        if not keep:
+            self._maybe_complete_segment(parent_token)
+            return
+        try:
+            self._dispatch_plan(msg, plan, kwargs, parent_token, keep)
+        except Exception:
+            # a half-launched parent can never complete: retire it with
+            # the work it did queue; the caller answers the error
+            self.abort_parent(parent_token, "launch failed", reply=False)
+            raise
+
+    def _launch_bundle(self, entries):
+        """Launch a compatible micro-batch as shared-scan bundles: one
+        CalcMessage per shard group carrying every member's fragment.  The
+        worker runs one decode, alignment and upload pass and one device
+        program, and the reply is demultiplexed per member
+        (:meth:`_demux_bundle`)."""
+        from bqueryd_tpu_torch.plan import bundle as bundlemod
+
+        _msg0, plan0, kwargs0, keep, _pruned0 = entries[0]
+        member_parents = {}   # member_id -> parent token
+        members = []          # (member_id, plan, deadline)
+        opened = []
+        try:
+            for msg, plan, _kwargs, _keep, pruned in entries:
+                self.counters["plan_pruned_shards"] += len(pruned)
+                parent_token = self._open_query_segment(msg, plan, pruned)
+                opened.append(parent_token)
+                member_id = os.urandom(6).hex()
+                member_parents[member_id] = parent_token
+                members.append((member_id, plan, msg.get("deadline")))
+            groupby_cols = list(plan0.groupby.keys)
+            agg_list0 = plan0.physical_agg_list()
+            parents = [member_parents[m[0]] for m in members]
+            # the envelope's deadline is the LAST member's (its expiry
+            # implies every member's); each member's own deadline rides
+            # its fragment record and is enforced by the worker
+            deadlines = [m[2] for m in members]
+            bundle_deadline = (max(deadlines)
+                               if all(d is not None for d in deadlines)
+                               else None)
+            sole = len(keep) == 1
+            for group in self._shard_groups(keep, groupby_cols, agg_list0,
+                                            kwargs0):
+                target = group if len(group) > 1 else group[0]
+                for parent in parents:
+                    strategies = self.rpc_segments[parent]["strategies"]
+                    strategies["auto"] = (strategies.get("auto", 0)
+                                          + len(group))
+                shard = CalcMessage({"payload": "groupby"})
+                if sole:
+                    shard["sole_shard"] = True
+                # the positional params carry the FIRST member's query, so
+                # that _split_batch keeps working; the bundle fragment is
+                # what a worker that knows bundles runs
+                shard.set_args_kwargs(
+                    [target, groupby_cols, agg_list0,
+                     [list(t) for t in plan0.where_terms]],
+                    {},
+                )
+                shard["token"] = os.urandom(8).hex()
+                shard["parent_token"] = parents[0]
+                shard["filename"] = target
+                if bundle_deadline is not None:
+                    shard["deadline"] = bundle_deadline
+                shard.add_as_binary("bundle", bundlemod.bundle_fragment(
+                    plan0, group, members, sole=sole))
+                shard["_bundle_parents"] = dict(member_parents)
+                self._register_work(shard, parents)
+                self.counters["plan_bundles"] += 1
+                self.counters["plan_bundled_queries"] += len(members)
+                # each member beyond the first shares a dispatch it would
+                # have paid for itself
+                self.counters["plan_shared_dispatches"] += len(members) - 1
+                self.pending.append(shard)
+        except Exception:
+            for parent in opened:
+                self.abort_parent(parent, "bundle launch failed",
+                                  reply=False)
+            raise
+
+    def _dispatch_plan(self, msg, plan, kwargs, parent_token, keep):
+        """Queue one CalcMessage per group of the kept shards, each with
+        its plan fragment and, for the ``query`` verb, the wire DAG; or
+        join a queued or running identical unit.  No strategy hint is
+        issued: the worker routes."""
         from bqueryd_tpu_torch.plan import fragment_for
 
         dag_blob = None
@@ -791,15 +1312,24 @@ class ControllerNode:
         where_terms = plan.where_terms
         # one payload with no merge downstream (the reference's
         # count_distinct then ships final counts)
-        sole = len(plan.filenames) == 1 and plan.aggregate_rows
+        sole = len(keep) == 1 and plan.aggregate_rows
+        plan_sig = plan.signature()
         segment = self.rpc_segments[parent_token]
-        for group in self._shard_groups(
-            plan.filenames, groupby_cols, agg_list, kwargs
-        ):
+        for group in self._shard_groups(keep, groupby_cols, agg_list,
+                                        kwargs):
             target = group if len(group) > 1 else group[0]
             segment["strategies"]["auto"] = (
                 segment["strategies"].get("auto", 0) + len(group)
             )
+            # identical pending work is joined, not dispatched again.  The
+            # deadline is part of the identity: fusing across deadlines
+            # would expire one client's work on another's budget
+            work_key = (tuple(group), plan_sig, sole, msg.get("deadline"))
+            existing = self._work_index.get(work_key)
+            if existing is not None and existing in self._work_subscribers:
+                self._work_subscribers[existing].append(parent_token)
+                self.counters["plan_shared_dispatches"] += 1
+                continue
             shard = CalcMessage({"payload": "groupby"})
             if sole:
                 shard["sole_shard"] = True
@@ -816,6 +1346,7 @@ class ControllerNode:
             shard.add_as_binary("plan", fragment_for(plan, group, sole=sole))
             if dag_blob is not None:
                 shard["dag"] = dag_blob
+            self._register_work(shard, [parent_token], work_key=work_key)
             self.pending.append(shard)
 
     def _shard_groups(self, filenames, groupby_cols, agg_list, kwargs):

@@ -14,6 +14,7 @@ from bqueryd_tpu_torch.ops.factorize import (
 from bqueryd_tpu_torch.ops.groupby import (
     AGG_OPS,
     MERGEABLE_OPS,
+    bundle_partial_tables,
     combine_partials,
     expand_mask_by_group,
     finalize,
@@ -44,6 +45,7 @@ __all__ = [
     "total_cardinality",
     "AGG_OPS",
     "MERGEABLE_OPS",
+    "bundle_partial_tables",
     "combine_partials",
     "expand_mask_by_group",
     "finalize",

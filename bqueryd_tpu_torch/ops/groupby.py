@@ -317,6 +317,60 @@ def partial_tables(codes, measures, ops, n_groups, mask=None,
     )
 
 
+def bundle_partial_tables(codes, masks, measures, member_specs, n_groups,
+                          null_sentinels=None, strategy=None, device=None):
+    """Per-member partial tables of a shared-scan bundle over ONE codes
+    array and ONE set of de-duplicated measure columns.
+
+    codes:        int[n] group codes shared by every member (uploaded once,
+                  unmasked: each member's filter applies per member)
+    masks:        bool[n_masks, n] stacked row filters, one row per member
+                  that filters (a member without one indexes None)
+    measures:     tuple of value arrays [n], one per DISTINCT measure
+                  column of the whole bundle (the union upload)
+    member_specs: one entry per member, ``(mask_idx_or_None, ((measure_slot,
+                  op), ...))``: its stacked mask row and the (measure, op)
+                  pairs it aggregates
+    null_sentinels: optional tuple aligned with ``measures``, as
+                  :func:`partial_tables` takes it per measure
+
+    Returns a tuple with, per member, exactly what :func:`partial_tables`
+    returns for that member alone: each member is one ``partial_tables``
+    call with its mask on ``mask=`` (one one-hot launch per member on the
+    card), which zeroes the contributions that folding the mask into the
+    codes would drop, so that integer partials are bit-identical to the
+    member's solo run over the same rows.  The reference's CPU backend
+    batches the members into one segment sum instead; on the CPU the port
+    runs the same member loop over the plain versions, with equal
+    results."""
+    measures = tuple(measures)
+    sentinels = _normalize_sentinels(null_sentinels, len(measures))
+    for _mask_idx, aggs in member_specs:
+        for slot, op in aggs:
+            if op not in MERGEABLE_OPS and op != "count_na":
+                raise ValueError(
+                    f"op {op!r} has no mergeable partial; bundles carry "
+                    "mergeable aggregations only"
+                )
+            if sentinels[slot] is not None and op in ("sum", "mean"):
+                raise ValueError(
+                    f"op {op!r} cannot aggregate a sentinel-null measure"
+                )
+    return tuple(
+        partial_tables(
+            codes,
+            tuple(measures[slot] for slot, _op in aggs),
+            tuple(op for _slot, op in aggs),
+            n_groups,
+            mask=None if mask_idx is None else masks[mask_idx],
+            null_sentinels=tuple(sentinels[slot] for slot, _op in aggs),
+            strategy=strategy,
+            device=device,
+        )
+        for mask_idx, aggs in member_specs
+    )
+
+
 def _segment_sum(values, safe, n_groups):
     out = torch.zeros(n_groups, dtype=values.dtype, device=values.device)
     return out.index_add_(0, safe, values)

@@ -44,9 +44,14 @@ per top-k agg and a dense bucket grid per quantile agg, fetched with one
 D2H copy.  Shapes it cannot serve raise :class:`DagFastPathUnsupported`,
 and the worker runs those per shard.
 
-Waiting for later slices: several devices (the ``torch.distributed``
-merge, its host-merge kill switch and the ``psum`` mode) and shared-scan
-bundles.
+A compatible bundle of queries (the same shards and group keys, any
+measures and filters) takes :meth:`MeshQueryExecutor.execute_bundle`:
+one alignment, one unmasked codes upload, one upload per distinct measure,
+the members' masks stacked on the device, one member-per-launch
+``bundle_partial_tables`` call and one fetch for every member.
+
+Waiting for a later slice: several devices (the ``torch.distributed``
+merge, its host-merge kill switch and the ``psum`` mode).
 """
 
 import contextlib
@@ -681,6 +686,202 @@ class MeshQueryExecutor:
             value_kinds=list(measure_kinds),
         )
 
+
+    # -- shared-scan bundles -------------------------------------------------
+    def execute_bundle(self, tables, queries, strategy=None):
+        """Shared-scan execution of a compatible bundle: every query scans
+        the same ``tables`` with the same group-key columns, while measures
+        and filters differ per member.  One key alignment (the solo
+        query's ``align`` entry), one UNMASKED codes upload (the entry of
+        the unfiltered solo query, which it shares and warms), one upload
+        per distinct measure column of the whole bundle, each filtered
+        member's mask built on the device and stacked into one ``[n_masks,
+        width]`` tensor, ONE :func:`ops.bundle_partial_tables` call and ONE
+        packed fetch of every member's leaves.  Returns one
+        :class:`ResultPayload` per query, in input order.
+
+        Whole shards are scanned and each member's filter applies by mask
+        (the solo path also prunes shards and chunks): integer partials
+        equal the member's solo answer bit for bit, floats differ by
+        summation order.  Members with different group keys, a member that
+        is not mergeable, a column a shard lacks, or a datetime ``sum`` or
+        ``mean`` raise ``ValueError`` before any device work."""
+        import torch
+
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.models.query import freeze_value
+        from bqueryd_tpu_torch.ops import groupby as gb
+        from bqueryd_tpu_torch.parallel import pipeline
+
+        if not queries:
+            return []
+        self.last_effective_strategy = None
+        self.last_merge_mode = None
+        if strategy in (None, "auto", "host"):
+            strategy = None
+        gcols = tuple(queries[0].groupby_cols)
+        for query in queries:
+            if tuple(query.groupby_cols) != gcols:
+                raise ValueError(
+                    "bundle members must share group-key columns")
+            if not self.supports(query):
+                raise ValueError(
+                    "bundle members must be mergeable aggregations")
+            for col in dict.fromkeys(
+                    list(query.in_cols) + list(gcols)
+                    + [t[0] for t in query.where_terms or []]):
+                if any(col not in t for t in tables):
+                    # a member-shape error: the worker runs the members
+                    # one by one, where this one fails alone
+                    raise ValueError(f"column {col!r} is not in every shard")
+        # the union upload: every DISTINCT measure column of the bundle,
+        # first seen first; each member's aggs map onto its slots
+        union_cols = list(dict.fromkeys(c for q in queries for c in q.in_cols))
+        union_kinds = tuple(_measure_kind(tables, c) for c in union_cols)
+        kind_of = dict(zip(union_cols, union_kinds))
+        for query in queries:
+            for col, op in zip(query.in_cols, query.ops):
+                if kind_of[col] == "datetime" and op in ("sum", "mean"):
+                    raise ValueError(
+                        f"{op!r} is not defined for datetime column {col!r}"
+                    )
+        engine = self._engine()
+        tables_key = tuple(_table_key(t) for t in tables)
+        cols_key = tuple(gcols)
+        n_dev = self.n_devices
+        dev_key = str(self.device)
+        # the unfiltered solo query's codes entry
+        codes_key = (tables_key, "codes", cols_key, (freeze_value([]), None),
+                     n_dev, dev_key)
+
+        def block_key(col):
+            return (tables_key, "col", col, n_dev, dev_key)
+
+        missing_cols = [c for c in union_cols
+                        if block_key(c) not in self._hbm_cache]
+        align_warm = (tables_key, cols_key) in self._align_cache
+        if missing_cols or codes_key not in self._codes_cache:
+            self.workingset.evict_under_pressure()
+        # every member's missing measure column decodes on the pool up
+        # front, so that the shared pass never waits on a member's decode
+        prefetch = {}
+
+        def prefetch_missing():
+            if pipeline.pipeline_threads() <= 1:
+                return
+            for col in missing_cols:
+                prefetch[col] = [f for t in tables for f in t.prefetch([col])]
+
+        if align_warm:
+            prefetch_missing()
+        with self._phase("align"), pipeline.stage("align"):
+            cached = self._align_cache.get((tables_key, cols_key))
+            if cached is None:
+                dense, combos, cards, key_values = self._global_key_space(
+                    tables, queries[0], engine
+                )
+                self._align_cache.put(
+                    (tables_key, cols_key),
+                    (dense, combos, cards, key_values),
+                    nbytes=sum(d.nbytes for d in dense)
+                    + combos.nbytes
+                    + sum(v.nbytes for v in key_values.values()),
+                )
+            else:
+                dense, combos, cards, key_values = cached
+            n_groups = max(len(combos), 1)
+            if not len(combos):
+                # no shard holds a row: one padded group, which no row
+                # reaches and collect drops
+                combos = np.zeros(1, dtype=np.int64)
+        if not align_warm:
+            prefetch_missing()
+
+        codes_d = self._codes_cache.get(codes_key)
+        if codes_d is None:
+            with self._phase("layout"):
+                with pipeline.stage("align"):
+                    cdt = _codes_dtype(n_groups)
+                    packed = self._pack(
+                        [d.astype(cdt) for d in dense], n_dev,
+                        cdt.type(-1), dtype=cdt,
+                    )
+                with pipeline.stage("h2d"):
+                    codes_d = _upload(packed, self.device)
+                self._codes_cache.put(codes_key, codes_d)
+        width = int(codes_d.shape[1])
+
+        # one stacked mask row per member that filters, built on the
+        # device; a member without a filter indexes None and runs with
+        # mask=None, its solo form
+        mask_rows, mask_idx_of = [], {}
+        with self._phase("mask"), pipeline.stage("mask"):
+            for qi, query in enumerate(queries):
+                if not query.where_terms:
+                    continue
+                row = torch.zeros(width, dtype=torch.bool,
+                                  device=self.device)
+                off = 0
+                for t, d in zip(tables, dense):
+                    m = ops.build_mask(t, query.where_terms, self.device)
+                    row[off:off + len(d)] = True if m is None else m
+                    off += len(d)
+                mask_idx_of[qi] = len(mask_rows)
+                mask_rows.append(row)
+            masks_d = torch.stack(mask_rows) if mask_rows else None
+
+        with self._phase("layout"):
+            measures_d = self._measure_blocks(tables, union_cols, block_key,
+                                              prefetch)
+        slot_of = {col: i for i, col in enumerate(union_cols)}
+        sentinels = tuple(np.iinfo(np.int64).min if k == "datetime" else None
+                          for k in union_kinds)
+        member_specs = tuple(
+            (mask_idx_of.get(qi),
+             tuple((slot_of[c], op) for c, op in zip(q.in_cols, q.ops)))
+            for qi, q in enumerate(queries)
+        )
+
+        n_prog = ops.program_bucket(n_groups)
+        with self._phase("aggregate"), pipeline.stage("kernel"):
+            # the members share one shape: the first one's route speaks
+            # for the bundle
+            first = queries[0]
+            self.last_effective_strategy = ops.kernel_route(
+                strategy, tuple(measures_d[slot_of[c]] for c in first.in_cols),
+                tuple(first.ops), width, n_prog,
+            )
+            members = ops.bundle_partial_tables(
+                codes_d[0],
+                None if masks_d is None else masks_d,
+                tuple(m[0] for m in measures_d),
+                member_specs, n_prog,
+                null_sentinels=sentinels, strategy=strategy,
+            )
+            # every member's leaves in ONE packed fetch
+            leaves = [leaf for partials in members
+                      for leaf in _tree_leaves(partials)]
+            spec = [(gb.np_dtype(leaf.dtype), tuple(leaf.shape))
+                    for leaf in leaves]
+            flat = _fetch(torch.cat([_pack_leaf(leaf) for leaf in leaves]))
+            host = iter(_unpack_host(flat, spec))
+            merged_members = [
+                _tree_unflatten(partials, [next(host) for _ in
+                                           _tree_leaves(partials)])
+                for partials in members
+            ]
+        if n_prog != n_groups:
+            merged_members = [_tree_map(lambda a: a[:n_groups], m)
+                              for m in merged_members]
+        self.last_merge_mode = "device"
+        with self._phase("collect"), pipeline.stage("merge"):
+            return [
+                self._collect_payload(
+                    merged, query, tables, combos, cards, key_values,
+                    tuple(kind_of[c] for c in query.in_cols),
+                )
+                for query, merged in zip(queries, merged_members)
+            ]
 
     # -- operator-DAG fast path ----------------------------------------------
     def execute_dag(self, tables, dag):

@@ -12,7 +12,11 @@ np.ndarray})`` from ``hostmerge.finalize_table``, not a DataFrame, so no
 pandas is needed.  ``RPC.query(spec)`` (the operator DAG: joins, top-k,
 quantiles, window rollups) returns the same form, and ``RPC.append(
 filename, data)`` adds rows to a served shard.  One instance is
-single-thread lockstep: concurrent callers each hold their own.
+single-thread lockstep: concurrent callers each hold their own.  Sockets
+built with one ``client_id`` share that client's admission quota at the
+controller; ``priority=`` orders a query in the admission queue; a BUSY
+answer (admission backpressure) is retried with backoff and, on the last
+attempt, raises :class:`RPCBusyError`.
 
 :class:`LocalRPC` takes the same ``groupby`` arguments and runs the query
 in-process through :func:`bqueryd_tpu_torch.worker.execute` with the
@@ -109,11 +113,16 @@ class RPC:
         coordination_url=None,
         loglevel=logging.INFO,
         retries=3,
+        client_id=None,
     ):
         bqueryd_tpu_torch.configure_logging(loglevel)
         self.logger = bqueryd_tpu_torch.logger.getChild("rpc")
         self.timeout = timeout
         self.retries = retries
+        #: the admission quota bucket: sockets sharing a client_id share
+        #: the controller's per-client quota; unset, each socket identity
+        #: is its own bucket
+        self.client_id = client_id
         self.last_call_duration = None
         #: attempts the most recent call consumed (1 = first try answered)
         self.last_call_attempts = None
@@ -189,11 +198,17 @@ class RPC:
 
     def _rpc(self, name, args, kwargs):
         started = time.perf_counter()
-        # the deadline rides the envelope, not the call params
+        # deadline, priority and client_id ride the envelope, not the
+        # call params: the worker must never see them as query arguments
         deadline = kwargs.pop("deadline", None)
+        priority = kwargs.pop("priority", None)
         msg = RPCMessage({"payload": name})
         if deadline is not None:
             msg.set_deadline(seconds=float(deadline))
+        if priority is not None:
+            msg["priority"] = priority
+        if self.client_id is not None:
+            msg["client_id"] = self.client_id
         msg.set_args_kwargs(list(args), kwargs)
         wire = msg.to_json().encode()
         last_error = None
@@ -240,7 +255,7 @@ class RPC:
             f"{last_error}"
         )
 
-    def query(self, spec, deadline=None):
+    def query(self, spec, deadline=None, priority=None):
         """The operator-DAG verb: ``spec`` as
         :func:`bqueryd_tpu_torch.plan.dag.compile_query` takes it (broadcast
         hash joins of small dimension tables, per-group top-k, quantile
@@ -253,7 +268,11 @@ class RPC:
         from bqueryd_tpu_torch.plan import dag as dagmod
 
         dagmod.compile_query(spec)
-        kwargs = {} if deadline is None else {"deadline": deadline}
+        kwargs = {}
+        if deadline is not None:
+            kwargs["deadline"] = deadline
+        if priority is not None:
+            kwargs["priority"] = priority
         return self._rpc("query", (spec,), kwargs)
 
     def append(self, filename, data, deadline=None):

@@ -23,15 +23,17 @@
 :class:`WorkerNode` answers ``groupby`` messages (and the operator DAGs of
 the ``query`` verb, which ride them) through the DAG layer, its result
 cache, its delta cache and then :func:`execute`, the executor's DAG fast
-path or the per-shard ``DagExecutor``; ``append`` messages by writing the
-rows; and ``rollup`` messages by building (or refreshing from appended
-chunks) one shard's mergeable partials, behind the reference's control
-plane: one ROUTER socket with a random hex identity connected out to every
-controller in the coordination store, a WorkerRegisterMessage (WRM) with
-the served ``*.bcolz``/``*.bcolzs`` files every heartbeat, liveness WRMs
-from a second thread on sockets of its own, Busy/Done around each work
-item, and the reply envelope of the reference worker.  All device work
-runs on the node's loop thread.
+path or the per-shard ``DagExecutor``; a ``groupby`` carrying a shared-scan
+``bundle`` through :meth:`MeshQueryExecutor.execute_bundle`, with a
+payload per member; ``append`` messages by writing the rows; and
+``rollup`` messages by building (or refreshing from appended chunks) one
+shard's mergeable partials, behind the reference's control plane: one
+ROUTER socket with a random hex identity connected out to every controller
+in the coordination store, a WorkerRegisterMessage (WRM) with the served
+``*.bcolz``/``*.bcolzs`` files and their metadata-only stats every
+heartbeat, liveness WRMs from a second thread on sockets of its own,
+Busy/Done around each work item, and the reply envelope of the reference
+worker.  All device work runs on the node's loop thread.
 
 A device error is never caught on the query path: inside a node it
 becomes an ``ErrorMessage`` for the controller, never a retry on the host
@@ -349,6 +351,36 @@ class WorkerBase:
         self.data_files = found
         return found
 
+    def shard_stats(self):
+        """Per-shard planning stats advertised in the WRM, or None for a
+        role without tables; the calc worker overrides it."""
+        return None
+
+    #: re-advertise unchanged shard stats at most this often: WRMs go out
+    #: every heartbeat on two threads, and stats of every shard and column
+    #: in each would make liveness cost grow with the data; the periodic
+    #: re-send covers a controller restart, which loses absorbed stats
+    STATS_READVERTISE_S = 60.0
+
+    def _stats_to_advertise(self):
+        """The shard stats for this WRM, or None when the receiver already
+        has them (the same snapshot object, sent within the window).  In
+        the first 10 s of the loop every WRM carries them: a WRM sent
+        before the sockets connect is lost, and with it an advertisement
+        that would otherwise wait a whole window."""
+        stats = self.shard_stats()
+        if stats is None:
+            return None
+        now = time.time()
+        if (now - self._loop_started >= 10.0
+                and stats is getattr(self, "_stats_sent_obj", None)
+                and now - getattr(self, "_stats_sent_ts", 0.0)
+                < self.STATS_READVERTISE_S):
+            return None
+        self._stats_sent_obj = stats
+        self._stats_sent_ts = now
+        return stats
+
     def prepare_wrm(self):
         return WorkerRegisterMessage(
             {
@@ -361,6 +393,10 @@ class WorkerBase:
                 "pid": os.getpid(),
                 "uptime": time.time() - self.start_time,
                 "msg_count": self.msg_count,
+                # metadata-only per-shard stats (rows, min/max,
+                # cardinality) for the controller's plan-time pruning;
+                # None when unchanged stats went out recently
+                "shard_stats": self._stats_to_advertise(),
             }
         )
 
@@ -481,6 +517,7 @@ class WorkerNode(WorkerBase):
         self._realpaths = {}     # rootdir as named -> its realpath
         self._result_cache = None
         self._delta_cache = None
+        self._stats_collector = None
         #: delta refreshes served, and appends applied with their rows
         self.delta_refreshes = 0
         self.appends = 0
@@ -533,6 +570,26 @@ class WorkerNode(WorkerBase):
             self._table_cache.clear()
         self._table_cache[identity] = table
         return table
+
+    def shard_stats(self):
+        """Metadata-only stats of every advertised shard (memoized, see
+        :class:`~bqueryd_tpu_torch.plan.stats.StatsCollector`).
+        ``BQUERYD_TPU_SHARD_STATS=0`` turns them off: the controller then
+        prunes none of this worker's shards.  A failure to gather never
+        breaks the heartbeat: it advertises no stats."""
+        if os.environ.get("BQUERYD_TPU_SHARD_STATS", "1") == "0":
+            return None
+        try:
+            if self._stats_collector is None:
+                from bqueryd_tpu_torch.plan.stats import StatsCollector
+
+                self._stats_collector = StatsCollector(
+                    table_opener=self._open_table)
+            return self._stats_collector.collect(self.data_dir,
+                                                 list(self.data_files))
+        except Exception:
+            self.logger.debug("shard stats gathering failed", exc_info=True)
+            return None
 
     # -- caches ------------------------------------------------------------
     @property
@@ -667,6 +724,10 @@ class WorkerNode(WorkerBase):
         appended = table.append(frame)
         self.appends += 1
         self.append_rows += int(appended)
+        if self._stats_collector is not None:
+            # the grown shard's bounds go out on the next heartbeat: stale
+            # ones would let the controller prune its appended rows
+            self._stats_collector.invalidate()
         reply = msg.copy()
         # the request's params carry the whole batch: echoing them back
         # per holder would double the wire cost
@@ -870,6 +931,8 @@ class WorkerNode(WorkerBase):
             return self._rollup_build(msg)
         if not msg.isa("groupby"):
             return super().handle_work(msg)
+        if msg.get("bundle"):
+            return self._handle_bundle(msg)
         from bqueryd_tpu_torch.storage.ctable import table_cache_key
 
         timer = PhaseTimer()
@@ -945,3 +1008,141 @@ class WorkerNode(WorkerBase):
         if report["merge_mode"] is not None:
             reply["merge_mode"] = report["merge_mode"]
         return reply
+
+    def _handle_bundle(self, msg):
+        """A shared-scan bundle: one CalcMessage carrying several
+        compatible member queries (:mod:`plan.bundle`).  The open, decode,
+        alignment and uploads happen once; each member keeps its own
+        identity: its result-cache key (the key of its solo run), its
+        deadline (a member past it is dropped from the stack, not the
+        bundle) and its errors.  Every mergeable bundle goes to
+        :meth:`MeshQueryExecutor.execute_bundle`; a key space past int64
+        (``ops.CompositeOverflow``) or a member-shape rejection
+        (``ValueError``) runs the members one by one through
+        :func:`execute`, where a failing member fails alone.  Any other
+        error, a device error included, propagates.  The reply's data
+        frame is one pickled ``{"v": 1, "payloads": {member_id: bytes},
+        "errors": {member_id: text}}`` envelope, beside
+        ``bundle_members``, ``member_shares``, ``phase_timings``,
+        ``effective_strategy`` and ``merge_mode``."""
+        import pickle
+
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.plan import bundle as bundlemod
+        from bqueryd_tpu_torch.plan import dag as dagmod
+        from bqueryd_tpu_torch.storage.ctable import table_cache_key
+
+        timer = PhaseTimer()
+        fragment = msg.get_from_binary("bundle")
+        # each member through the DAG layer, as a solo groupby compiles:
+        # the same query, the same result-cache key
+        members = [
+            (member_id, deadline,
+             dagmod.dag_from_query(query).plain_groupby_query())
+            for member_id, deadline, query
+            in bundlemod.bundle_to_queries(fragment)
+        ]
+        strategy = bundlemod.fragment_strategy(fragment)
+        filename = msg.get("filename") or fragment.get("filenames")
+        filenames = filename if isinstance(filename, list) else [filename]
+        with timer.phase("open"):
+            tables = [self._open_table(os.path.join(self.data_dir, name))
+                      for name in filenames]
+        cache = self.result_cache
+        tables_sig = tuple(table_cache_key(t) for t in tables)
+        payloads = {}   # member_id -> serialized ResultPayload
+        errors = {}     # member_id -> failure text
+        active = {}     # member_id -> query still to execute
+        now = time.time()
+        for member_id, deadline, query in members:
+            if deadline is not None and float(deadline) <= now:
+                errors[member_id] = (
+                    f"deadline exceeded {now - float(deadline):.3f}s "
+                    "before execution")
+                continue
+            if cache is not None:
+                hit = cache.get((tables_sig, query.signature()))
+                if hit is not None:
+                    payloads[member_id] = hit
+                    continue
+            active[member_id] = query
+        cached_ids = list(payloads)
+        report = {"effective_strategy": None, "merge_mode": None}
+        results, walls = {}, {}
+        if active:
+            bundled = None
+            if self._bundle_mesh_eligible(list(active.values())):
+                try:
+                    bundled = self.mesh_executor_for_bundle(
+                        tables, list(active.values()), timer, strategy)
+                except ops.CompositeOverflow:
+                    self.logger.info("composite key space exceeds int64; "
+                                     "running the bundle's members one by "
+                                     "one")
+                except ValueError as exc:
+                    self.logger.info("bundle rejected (%s); running its "
+                                     "members one by one", exc)
+            if bundled is not None:
+                results = dict(zip(active, bundled))
+                report["effective_strategy"] = (
+                    self.executor.last_effective_strategy)
+                report["merge_mode"] = self.executor.last_merge_mode
+            else:
+                for member_id, query in active.items():
+                    t0 = time.perf_counter()
+                    try:
+                        with timer.phase("execute"):
+                            results[member_id] = execute(
+                                tables, query, self.engine,
+                                executor=self.executor, strategy=strategy,
+                                report=report, timer=timer)
+                    except Exception as exc:
+                        self.logger.exception("bundle member %s failed",
+                                              member_id)
+                        errors[member_id] = f"{type(exc).__name__}: {exc}"
+                    else:
+                        walls[member_id] = time.perf_counter() - t0
+        with timer.phase("serialize"):
+            for member_id, payload in results.items():
+                data = payload.to_bytes()
+                payloads[member_id] = data
+                if cache is not None and len(data) <= cache.max_bytes // 8:
+                    cache.put((tables_sig, active[member_id].signature()),
+                              data, nbytes=len(data))
+            data = pickle.dumps(
+                {"v": 1, "payloads": payloads, "errors": errors},
+                protocol=messages.PICKLE_PROTOCOL,
+            )
+        reply = msg.copy()
+        reply["data"] = data
+        reply["bundle_members"] = [m[0] for m in members]
+        # a cache hit consumed no scan: its share is 0
+        reply["member_shares"] = {
+            **{m: 0.0 for m in cached_ids},
+            **bundlemod.member_shares(list(results), walls=walls),
+        }
+        reply["phase_timings"] = timer.as_dict()
+        effective = (report["effective_strategy"] if active
+                     else ("cached" if payloads else None))
+        if effective is not None:
+            reply["effective_strategy"] = effective
+        if report["merge_mode"] is not None:
+            reply["merge_mode"] = report["merge_mode"]
+        return reply
+
+    def _bundle_mesh_eligible(self, queries):
+        """Whether a bundle runs as one shared scan on the executor: every
+        member mergeable, as the solo path routes.  The reference also
+        keeps a wedged device's and a small shard group's bundles on the
+        host; the port does not route around the device yet."""
+        return all(self.executor.supports(q) for q in queries)
+
+    def mesh_executor_for_bundle(self, tables, queries, timer, strategy):
+        """The shared scan of a bundle: one :class:`ResultPayload` per
+        member, the executor's phases timed into ``timer``."""
+        self.executor.timer = timer
+        try:
+            return self.executor.execute_bundle(tables, queries,
+                                                strategy=strategy)
+        finally:
+            self.executor.timer = None

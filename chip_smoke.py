@@ -66,44 +66,60 @@
    to it, a ``seq`` filter that chunk
    pruning serves and one ``RPC.query`` over the grown shards, all checked
    against NumPy of the concatenated frames;
-8. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
+8. drives admission, plan-time pruning and shared-scan bundles on the
+   groupby cluster (``run_concurrency_path``, its own controller and worker,
+   the result cache off): bench.py's swarm of 8 clients (each its own RPC
+   and client_id) x 4 rounds of ``passenger_count`` -> fare sum, each
+   query with its own ``trip_distance`` threshold, first at window 0 (one
+   dispatch per query), then at a 40 ms window (one bundle per round), with
+   QPS, median and p90 walls and the worker's phases of each bundle; one
+   window of 4 ``zones`` and one of 4 ``highcard`` queries (the "table"
+   and hicard "cluster" branches under a bundle); bench.py's
+   identical-query probe (two identical queries, one CalcMessage); a query
+   the advertised shard stats exclude on every shard (no dispatch).  Every
+   answer equals NumPy's, ints bit for bit; each bundle member launches
+   one contraction and the fused windows form bundles;
+9. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
    ``... worker --device=cuda`` as processes, one checked query per config
    (but the unpruned leg, whose environment the worker process does not
    have), dag_join through ``RPC.query`` and an append to a small shard
    of its own (the repeat query a delta refresh), both stopped by SIGTERM
    and exiting 0;
-9. drives the per-shard engine path (``QueryEngine.execute_local`` per
+10. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
-   (executor, cluster, DAG, append, engine) and read just after, and every
+   (executor, cluster, DAG, append, concurrency, engine) and read just
+   after, and every
    kernel of each path must have launched there;
-10. breaks queries down into host phases and pipeline stage busy time
+11. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-11. holds every branch of each kernel against its plain PyTorch version at
+12. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
    the engine path's per-shard shapes, the DAG configs' per-shard shapes
-   and the append leg's (the executor's and a delta refresh's tail view),
-   captured from their own runs, plus one shape per other branch
-   (base "table" at G = 8192, hicard "global" past the cluster table),
+   and the append leg's (the executor's and a delta refresh's tail view)
+   and the first member of a swarm, zones and highcard bundle (its mask
+   folded into its codes), captured from their own runs, plus one shape
+   per other branch (base "table" at G = 8192, hicard "global" past the
+   cluster table),
    with ints bit-exact, float rows within rtol=2e-5, atol=1e-6*max, and
    the base kernel's output bit-identical across two launches; times each
    kernel warm and with L2 flushed (device time per launch, from
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-12. sweeps the base kernel's two branches over G (the crossover behind
+13. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-13. times the fast path's torch bodies at the shapes its programs ran
+14. times the fast path's torch bodies at the shapes its programs ran
     (each top-k emission, checked against the sort route, each sketch
     grid, the whole program with its fetch);
-14. prints the sweeps, the fast path's program times, the ``kernels``
+15. prints the sweeps, the fast path's program times, the ``kernels``
     JSON line, then the device JSON line last.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -1480,6 +1496,342 @@ def run_append_path(scratch, captured):
     return report
 
 
+#: the concurrency leg: bench.py's swarm (8 clients, each with its own
+#: RPC and client_id, 4 rounds behind a barrier), every query
+#: ``passenger_count`` -> fare sum with its own ``trip_distance``
+#: threshold, run at window 0 and at bench.py's 40 ms window
+CONC_CLIENTS = 8
+CONC_ROUNDS = 4
+CONC_WINDOW_MS = 40
+CONC_BASE, CONC_STEP = 0.5, 0.013
+#: the other windows of the leg: 4 compatible queries each, on the base
+#: kernel's "table" branch (zones) and the hicard "cluster" branch
+CONC_WINDOWS = {
+    "zones": (["PULocationID"], [["fare_amount", "sum", "fare_sum"],
+                                 ["fare_amount", "count", "n"]],
+              (2.0, 7.5, 15.0, 22.5)),
+    "highcard": (["PULocationID", "DOLocationID"],
+                 [["fare_amount", "sum", "fare_amount"]],
+                 (1.0, 5.0, 10.0, 20.0)),
+}
+#: the (kernel, branch) each window's members launch, one per member
+CONC_KERNEL = {"swarm": ("onehot_rows_dot", "mma"),
+               "zones": ("onehot_rows_dot", "table"),
+               "highcard": ("onehot_rows_dot_hicard", "cluster")}
+
+
+def conc_reference(cols, gcols, aggs, threshold):
+    """NumPy of one filtered query over the concatenated shards:
+    {key tuple: {out col: value}}, sums exact in int64."""
+    keep = cols["trip_distance"] > np.float32(threshold)
+    keys = [cols[c][keep] for c in gcols]
+    packed = keys[0] if len(keys) == 1 else keys[0] * 266 + keys[1]
+    fare = cols["fare_amount"][keep]
+    count = np.bincount(packed)
+    sums = np.bincount(packed, weights=fare).astype(np.int64)
+    out = {}
+    for slot in np.flatnonzero(count):
+        key = ((int(slot),) if len(keys) == 1
+               else (int(slot) // 266, int(slot) % 266))
+        out[key] = {a[2]: int(sums[slot] if a[1] == "sum" else count[slot])
+                    for a in aggs}
+    return out
+
+
+def check_conc(label, gcols, aggs, order, columns, want):
+    """Every group and value equal to NumPy's, ints bit for bit.  A query
+    whose every shard was pruned at plan time answers with no columns at
+    all, the reference's empty answer."""
+    if not want and order == [] and columns == {}:
+        return
+    if order != gcols + [a[2] for a in aggs]:
+        raise AssertionError(f"{label}: columns {order}")
+    n = len(columns[gcols[0]])
+    if n != len(want):
+        raise AssertionError(f"{label}: {n} groups, NumPy {len(want)}")
+    for i in range(n):
+        key = tuple(int(columns[c][i]) for c in gcols)
+        for a in aggs:
+            if (columns[a[2]].dtype != np.int64
+                    or int(columns[a[2]][i]) != want[key][a[2]]):
+                raise AssertionError(f"{label} {key} {a[2]}: "
+                                     f"{columns[a[2]][i]} != "
+                                     f"{want[key][a[2]]}")
+
+
+def _swarm(url, queries_by_client, window_ms):
+    """bench.py's closed-loop swarm against a live controller: one thread
+    and one RPC (with its own client_id) per client, a barrier per round so
+    that each round's queries land together, ``window_ms`` set for the leg.
+    Returns ``(results[(client, round)], walls, elapsed_s, timings)``:
+    ``timings[(client, round)]`` is the reply's phase timings of its one
+    shard group (a bundle member's scaled by its share)."""
+    import logging
+
+    from bqueryd_tpu_torch.rpc import RPC
+
+    n_clients = len(queries_by_client)
+    barrier = threading.Barrier(n_clients)
+    results, walls, errors, timings = {}, [], [], {}
+    lock = threading.Lock()
+
+    def client(ci):
+        rpc = None
+        try:
+            rpc = RPC(coordination_url=url, timeout=300, retries=1,
+                      loglevel=logging.WARNING, client_id=f"client-{ci}")
+            for k, query in enumerate(queries_by_client[ci]):
+                barrier.wait(timeout=300)
+                t0 = time.perf_counter()
+                out = rpc.groupby(*query)
+                wall = time.perf_counter() - t0
+                with lock:
+                    walls.append(wall)
+                    results[(ci, k)] = out
+                    (timings[(ci, k)],) = rpc.last_call_timings.values()
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+            barrier.abort()
+        finally:
+            if rpc is not None:
+                rpc._close_socket()
+
+    with _env_set({"BQUERYD_TPU_BATCH_WINDOW_MS": str(window_ms)}):
+        threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+                   for ci in range(n_clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        elapsed = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"swarm failed: {errors!r}")
+    return results, walls, elapsed, timings
+
+
+def _counter_delta(controller, before):
+    return {k: controller.counters[k] - before[k]
+            for k in ("plan_bundles", "plan_bundled_queries",
+                      "plan_shared_dispatches", "dispatched_shards",
+                      "plan_pruned_shards")}
+
+
+def run_concurrency_path(names, parts, data_dir, store_dir, captured):
+    """Admission, plan-time pruning, shared dispatch and the micro-batch
+    window on the groupby cluster (its own controller and worker on cuda,
+    the 10 taxi shards, the result cache off).
+
+    1. bench.py's swarm (``CONC_CLIENTS`` clients x ``CONC_ROUNDS`` rounds
+       of distinct-but-compatible queries), first at window 0 (unfused:
+       every query its own dispatch and fold), then at ``CONC_WINDOW_MS``
+       (fused): QPS, median and p90 walls, the controller's bundle counters
+       and the worker's phases of one bundle reply.  Every answer equals
+       NumPy's; the fused leg must form bundles (bundled queries > bundles
+       > 0) and launch one contraction per executed member.
+    2. One window of 4 compatible ``zones`` queries (the base kernel's
+       "table" branch) and one of 4 ``highcard`` ones (hicard "cluster"):
+       one bundle each, one launch per member.  The first bundle of each
+       kind records its kernel inputs into ``captured``.
+    3. bench.py's identical-query probe: two concurrent identical queries
+       at window 0 share one CalcMessage.
+    4. A query whose filter the advertised shard stats exclude on every
+       shard: answered with no dispatch and no launch, NumPy's empty
+       answer."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    cols = {c: np.concatenate([p[c] for p in parts])
+            for c in ("passenger_count", "fare_amount", "PULocationID",
+                      "DOLocationID", "trip_distance")}
+    report = {"clients": CONC_CLIENTS, "rounds": CONC_ROUNDS,
+              "window_ms": CONC_WINDOW_MS}
+    n_queries = CONC_CLIENTS * CONC_ROUNDS
+    gcols, aggs = ["passenger_count"], [["fare_amount", "sum", "fare_sum"]]
+
+    def swarm_queries(base):
+        return [[(names, gcols, aggs,
+                  [["trip_distance", ">",
+                    round(base + CONC_STEP * (ci * CONC_ROUNDS + k), 4)]])
+                 for k in range(CONC_ROUNDS)]
+                for ci in range(CONC_CLIENTS)]
+
+    queries = swarm_queries(CONC_BASE)
+    want = {q[3][0][2]: conc_reference(cols, gcols, aggs, q[3][0][2])
+            for qs in queries for q in qs}
+    bundle_phases = []
+    bundle_launches = {}
+
+    with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}):
+        rpc, controller, worker, threads = _start_cluster(data_dir,
+                                                          store_dir)
+        real_bundle = worker._handle_bundle
+
+        def spied_bundle(msg):
+            # the unscaled phases of each bundle reply the worker sends,
+            # and its launches: one contraction per executed member
+            before = dict(onehot.LAUNCHES)
+            reply = real_bundle(msg)
+            launched = _launch_delta(before)
+            executed = sum(1 for v in reply["member_shares"].values() if v)
+            if sum(launched.values()) != executed:
+                raise AssertionError(f"a bundle of {executed} executed "
+                                     f"members launched {launched}")
+            for key, n in launched.items():
+                bundle_launches[key] = bundle_launches.get(key, 0) + n
+            bundle_phases.append({
+                "members": len(reply["bundle_members"]),
+                "phases_s": dict(reply["phase_timings"]),
+                "launched": launched,
+            })
+            return reply
+
+        worker._handle_bundle = spied_bundle
+        try:
+            _wait(lambda: all(n in controller.shard_stats for n in names),
+                  60, "every shard's advertised stats")
+            # warm-up: each shape's alignment, measure blocks and unmasked
+            # codes, and one fused round at disjoint thresholds
+            for gc, ag in [(gcols, aggs)] + [w[:2] for w in
+                                              CONC_WINDOWS.values()]:
+                rpc.groupby(names, gc, ag, [])
+            _swarm(controller_url(store_dir),
+                   [[q[0]] for q in swarm_queries(20.0)], CONC_WINDOW_MS)
+
+            for leg, window in (("unfused", 0), ("fused", CONC_WINDOW_MS)):
+                before = dict(controller.counters)
+                launches_before = dict(onehot.LAUNCHES)
+                n_phases = len(bundle_phases)
+                # the fused leg's first launch is its first bundle's first
+                # member: its inputs go to the kernel rows
+                with (capturing(captured, "bundle swarm") if window
+                      else contextlib.nullcontext()):
+                    results, walls, elapsed, timings = _swarm(
+                        controller_url(store_dir), queries, window)
+                for (ci, k), (order, columns) in results.items():
+                    q = queries[ci][k]
+                    check_conc(f"{leg} {ci}/{k}", gcols, aggs, order,
+                               columns, want[q[3][0][2]])
+                counters = _counter_delta(controller, before)
+                launched = _launch_delta(launches_before)
+                kernel, branch = CONC_KERNEL["swarm"]
+                if (sum(launched.values()) != n_queries
+                        or any(not k.startswith(f"{kernel}/{branch}/")
+                               for k in launched)):
+                    raise AssertionError(
+                        f"{leg}: launched {launched} for {n_queries} "
+                        "queries (one contraction per query or member)")
+                if leg == "fused" and not (
+                        counters["plan_bundled_queries"]
+                        > counters["plan_bundles"] > 0):
+                    raise AssertionError(f"fused leg formed no bundles: "
+                                         f"{counters}")
+                if leg == "unfused" and (counters["plan_bundles"]
+                                         or len(bundle_phases) != n_phases):
+                    raise AssertionError(f"window 0 bundled: {counters}")
+                report[leg] = {
+                    "qps": n_queries / elapsed,
+                    "elapsed_s": elapsed,
+                    "wall_s_median": float(np.median(walls)),
+                    "wall_s_p90": float(np.percentile(walls, 90)),
+                    "walls_s": sorted(walls),
+                    "counters": counters,
+                    "launched": launched,
+                    "bundles": bundle_phases[n_phases:],
+                }
+                if leg == "unfused":
+                    # the worker's phases of a solo reply, median per phase
+                    report[leg]["reply_phases_s_median"] = {
+                        k: float(np.median([t.get(k, 0.0)
+                                            for t in timings.values()]))
+                        for k in next(iter(timings.values()))}
+                log(f"concurrency {leg}: qps {report[leg]['qps']:.1f}, "
+                    f"median {report[leg]['wall_s_median'] * 1e3:.2f} ms, "
+                    f"counters {counters}")
+            report["fused_over_unfused_qps"] = (report["fused"]["qps"]
+                                                / report["unfused"]["qps"])
+
+            # two windows of 4 compatible queries per other contraction
+            # (the second at thresholds shifted by 0.5)
+            for name, (gc, ag, base_thresholds) in CONC_WINDOWS.items():
+                report[name] = []
+                for shift in (0.0, 0.5):
+                    thresholds = [t + shift for t in base_thresholds]
+                    wants = [conc_reference(cols, gc, ag, t)
+                             for t in thresholds]
+                    before = dict(controller.counters)
+                    launches_before = dict(onehot.LAUNCHES)
+                    with (capturing(captured, f"bundle {name}") if not shift
+                          else contextlib.nullcontext()):
+                        results, walls, _elapsed, _t = _swarm(
+                            controller_url(store_dir),
+                            [[(names, gc, ag, [["trip_distance", ">", t]])]
+                             for t in thresholds], CONC_WINDOW_MS)
+                    for ci, t in enumerate(thresholds):
+                        check_conc(f"{name} > {t}", gc, ag,
+                                   *results[(ci, 0)], wants[ci])
+                    counters = _counter_delta(controller, before)
+                    launched = _launch_delta(launches_before)
+                    kernel, branch = CONC_KERNEL[name]
+                    if (counters["plan_bundles"] != 1
+                            or counters["plan_bundled_queries"] != 4
+                            or sum(launched.values()) != 4
+                            or any(not k.startswith(f"{kernel}/{branch}/")
+                                   for k in launched)):
+                        raise AssertionError(
+                            f"{name} window: counters {counters}, "
+                            f"launched {launched}")
+                    report[name].append({
+                        "counters": counters, "launched": launched,
+                        "wall_s_median": float(np.median(walls)),
+                        "bundle": bundle_phases[-1]})
+                    log(f"concurrency {name}: {json.dumps(report[name][-1])}")
+            # bench.py's identical-query probe at window 0: a fresh filter,
+            # so the shared unit is still running when the second arrives
+            before = dict(controller.counters)
+            probe = (names, gcols, aggs, [["trip_distance", ">", 9.37]])
+            results, _walls, _elapsed, _t = _swarm(controller_url(store_dir),
+                                               [[probe], [probe]], 0)
+            probe_want = conc_reference(cols, gcols, aggs, 9.37)
+            for (ci, _k), out in results.items():
+                check_conc(f"probe {ci}", gcols, aggs, *out, probe_want)
+            report["identical_probe"] = _counter_delta(controller, before)
+            if (report["identical_probe"]["plan_shared_dispatches"] < 1
+                    or report["identical_probe"]["dispatched_shards"] != 1):
+                raise AssertionError(f"identical probe: "
+                                     f"{report['identical_probe']}")
+
+            # a filter the advertised stats exclude on every shard
+            before = dict(controller.counters)
+            launches_before = dict(onehot.LAUNCHES)
+            (order, columns), wall = _timed(lambda: rpc.groupby(
+                names, gcols, aggs, [["trip_distance", ">", 31.0]]))
+            check_conc("stats-pruned", gcols, aggs, order, columns,
+                       conc_reference(cols, gcols, aggs, 31.0))
+            pruned = _counter_delta(controller, before)
+            if (pruned["plan_pruned_shards"] != len(names)
+                    or pruned["dispatched_shards"]
+                    or _launch_delta(launches_before)):
+                raise AssertionError(f"stats-pruned query: {pruned}")
+            report["stats_pruned"] = dict(pruned, wall_s=wall,
+                                          groups=len(columns.get(gcols[0], ())))
+            report["counters"] = dict(controller.counters)
+            report["bundle_launches"] = bundle_launches
+            report["admission"] = controller.admission.stats()
+            if report["admission"]["active"]:
+                raise AssertionError(f"tickets left: {report['admission']}")
+        finally:
+            worker._handle_bundle = real_bundle
+            _stop_cluster(rpc, controller, worker, threads)
+    log(f"concurrency: fused/unfused QPS "
+        f"{report['fused_over_unfused_qps']:.3f}")
+    return report
+
+
+def controller_url(store_dir):
+    """The coordination URL of a cluster started on ``store_dir``."""
+    return f"file://{store_dir}"
+
+
 def run_cli_check(names, parts, data_dir, store_dir):
     """The CLI on the card: ``python -m bqueryd_tpu_torch.node controller``
     and ``... worker --device=cuda`` as processes of their own, found
@@ -2352,6 +2704,14 @@ def main():
         append_launches = path_launches("append")
         log(f"append path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        concurrency = run_concurrency_path(
+            names, parts, data_dir,
+            tempfile.mkdtemp(prefix="conc_store_", dir=data_dir), captured)
+        conc_launches = path_launches("concurrency",
+                                      tuple(CONC_KERNEL.values()))
+        log(f"concurrency path: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
             tempfile.mkdtemp(prefix="cli_store_", dir=data_dir))
@@ -2365,12 +2725,14 @@ def main():
                           "cluster_configs": cluster,
                           "dag_configs": dag,
                           "append": append,
+                          "concurrency": concurrency,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
                                        "cluster": cluster_launches,
                                        "dag": dag_launches,
                                        "append": append_launches,
+                                       "concurrency": conc_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -2388,6 +2750,7 @@ def main():
                               ("cluster", cluster_launches),
                               ("dag", dag_launches),
                               ("append", append_launches),
+                              ("concurrency", conc_launches),
                               ("engine", engine_launches)):
             for label, e in inputs.items():
                 key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
@@ -2398,6 +2761,14 @@ def main():
                 "executor": configs[config]["launches"],
                 "cluster": cluster[config]["launches"],
             }
+        # a bundle row counts the launches made inside the worker's
+        # bundles at its shape (solo queries of that shape ran too)
+        for label, e in inputs.items():
+            if label.startswith("bundle "):
+                key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
+                launches[label] = {
+                    "concurrency bundles":
+                        concurrency["bundle_launches"].get(key, 0)}
         # dag_plain runs multikey's shape on the executor
         launches[_input_label("multikey")]["dag"] = sum(
             dag["dag_plain"]["fast"]["launches"].values())
