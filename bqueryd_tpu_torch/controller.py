@@ -42,11 +42,18 @@ with the reference's wire behaviour:
   group (:mod:`plan.bundle`), whose reply is demultiplexed per member; at
   the default 0 nothing is staged.
 
+* each plain groupby dispatch carries a kernel-strategy hint
+  (``plan.strategy.select_calibrated``): the heuristic from the advertised
+  stats, refined by the kernel walls workers gossip in their WRMs
+  (``self.calibration``, :mod:`plan.calibrate`); bundles and DAG
+  dispatches carry none.  Each worker's device-health latch
+  (``backend_wedged``) is kept in its ``worker_map`` entry.
+
 The controller imports neither torch nor pandas.  Not ported yet: the
 serving layer (subsumption and rollups, whose hook has its place in
-``_admit_plan``), calibrated strategy hints, host routing and device
-health, stale-dispatch retries and hedging, affinity pins, peer gossip,
-observability (spans, flight events, metrics), chaos and downloads.
+``_admit_plan``), capacity and health scoring of workers, stale-dispatch
+retries and hedging, affinity pins, peer gossip, observability (spans,
+flight events, metrics), chaos and downloads.
 
 Framing on the ROUTER socket:
 
@@ -108,6 +115,10 @@ COUNTERS = (
     "plan_shared_dispatches",  # dispatches a plan joined instead of paying
     "plan_bundles",            # shared-scan bundle CalcMessages
     "plan_bundled_queries",    # members over all bundles
+    "plan_strategy_hints",     # non-auto kernel-strategy hints issued
+    "plan_calibrated_overrides",  # measured walls overrode the heuristic
+    "plan_explore_hints",      # exploration hints sampling an unmeasured route
+    "plan_matmul_promotions",  # calibration-backed binding matmul hints
     "dispatched_shards",       # groupby CalcMessages sent to workers
 )
 
@@ -125,7 +136,7 @@ class ControllerNode:
         admit_queue_depth=None,
         admit_client_quota=None,
     ):
-        from bqueryd_tpu_torch.plan import AdmissionController
+        from bqueryd_tpu_torch.plan import AdmissionController, calibrate
 
         bqueryd_tpu_torch.configure_logging(loglevel or logging.INFO)
         self.store = coordination_store(
@@ -178,6 +189,11 @@ class ControllerNode:
         self._admitting = False
         self._ticket_sigs = {}        # live ticket -> (filenames, plan sig)
         self.shard_stats = {}         # filename -> advertised stats
+        # measured-cost calibration: the workers' WRM summaries, one
+        # source per worker, consulted by select_calibrated at dispatch;
+        # in memory only (the workers own persistence)
+        self.calibration = calibrate.CalibrationStore()
+        self._worker_wedged = {}      # worker_id -> last advertised latch
         # shared dispatch: every groupby work unit has a subscriber list,
         # the parents waiting for its payload
         self._work_subscribers = {}   # work token -> [parent token, ...]
@@ -576,6 +592,8 @@ class ControllerNode:
             known = self.worker_map.get(worker_id)
             if known is not None:
                 known["last_seen"] = now
+                known["backend_wedged"] = bool(msg.get("backend_wedged"))
+                self._absorb_wedged(worker_id, msg)
                 # the worker's stats advertisement rides either socket
                 self._absorb_shard_stats(msg)
             elif self._adoption_blocked.get(worker_id, 0) <= now:
@@ -583,6 +601,7 @@ class ControllerNode:
                 self.worker_map[worker_id] = info
                 for filename in info.get("data_files") or []:
                     self.files_map.setdefault(filename, set()).add(worker_id)
+                self._absorb_wedged(worker_id, info)
                 self._absorb_shard_stats(info)
             return
         prev = self.worker_map.get(worker_id, {})
@@ -601,20 +620,43 @@ class ControllerNode:
                 if not self.files_map[filename]:
                     del self.files_map[filename]
                     self.shard_stats.pop(filename, None)
+        self._absorb_wedged(worker_id, info)
         self._absorb_shard_stats(info)
 
+    def _absorb_wedged(self, worker_id, info):
+        """Track each worker's advertised device-health latch and log its
+        flips."""
+        wedged = bool(info.get("backend_wedged"))
+        prev = self._worker_wedged.get(worker_id)
+        self._worker_wedged[worker_id] = wedged
+        if wedged and not prev:
+            self.logger.warning(
+                "worker %s advertises a wedged device", worker_id)
+        elif prev and not wedged:
+            self.logger.info("worker %s device recovered", worker_id)
+
     def _absorb_shard_stats(self, info):
-        """Keep the freshest advertised stats per shard.  Each entry is
-        shape-checked: a malformed advertisement (a version-skewed or
-        faulty worker) poisons at most its own shard's entry, never a
-        query."""
+        """Keep the freshest advertised stats per shard, and the worker's
+        calibration summary.  Each entry is shape-checked: a malformed
+        advertisement (a version-skewed or faulty worker) poisons at most
+        its own shard's entry, never a query; a worker's summary replaces
+        its previous one (``CalibrationStore.absorb(source=)``), so that a
+        cumulative summary is never counted twice."""
         stats = info.get("shard_stats")
-        if not isinstance(stats, dict):
-            return
-        for fname, entry in stats.items():
-            if (isinstance(fname, str) and isinstance(entry, dict)
-                    and isinstance(entry.get("cols", {}), dict)):
-                self.shard_stats[fname] = entry
+        if isinstance(stats, dict):
+            for fname, entry in stats.items():
+                if (isinstance(fname, str) and isinstance(entry, dict)
+                        and isinstance(entry.get("cols", {}), dict)):
+                    self.shard_stats[fname] = entry
+        calibration = info.get("calibration")
+        if isinstance(calibration, dict):
+            try:
+                self.calibration.absorb(
+                    calibration,
+                    source=info.get("worker_id") or "unidentified-worker",
+                )
+            except Exception:
+                self.logger.debug("calibration absorb failed", exc_info=True)
 
     def _absorb_reply(self, worker_id, msg):
         """A worker's reply to a work unit.  A late reply of an earlier
@@ -895,6 +937,13 @@ class ControllerNode:
             "counters": dict(self.counters),
             "admission": self.admission.stats(),
             "shard_stats_known": len(self.shard_stats),
+            # the measured-cost model: counts, the controller's own cells
+            # (the reference's keys) and each worker's gossiped ones
+            "calibration": {
+                **self.calibration.stats(),
+                "sample_cells": self.calibration.summary(max_cells=16),
+                "source_cells": self.calibration.source_cells(max_cells=16),
+            },
             "others": {},
         }
 
@@ -1229,7 +1278,9 @@ class ControllerNode:
         CalcMessage per shard group carrying every member's fragment.  The
         worker runs one decode, alignment and upload pass and one device
         program, and the reply is demultiplexed per member
-        (:meth:`_demux_bundle`)."""
+        (:meth:`_demux_bundle`).  A bundle carries no strategy hint: the
+        shared scan runs its own route, so a hint could only reach the
+        worker's rare member-by-member path."""
         from bqueryd_tpu_torch.plan import bundle as bundlemod
 
         _msg0, plan0, kwargs0, keep, _pruned0 = entries[0]
@@ -1297,12 +1348,19 @@ class ControllerNode:
     def _dispatch_plan(self, msg, plan, kwargs, parent_token, keep):
         """Queue one CalcMessage per group of the kept shards, each with
         its plan fragment and, for the ``query`` verb, the wire DAG; or
-        join a queued or running identical unit.  No strategy hint is
-        issued: the worker routes."""
+        join a queued or running identical unit.  A plain dispatch's
+        fragment carries the kernel-strategy hint
+        (``plan.select_calibrated``, counted in ``plan_strategy_hints``,
+        ``plan_calibrated_overrides``, ``plan_explore_hints`` and
+        ``plan_matmul_promotions``); a DAG dispatch carries none, as the
+        DAG executor routes its own kernels."""
+        from bqueryd_tpu_torch import plan as planmod
         from bqueryd_tpu_torch.plan import fragment_for
 
+        planner_on = planmod.planner_enabled()
         dag_blob = None
         if kwargs.get("dag") is not None:
+            planner_on = False
             # encoded once: the wire DAG carries the whole join table
             dag_blob = base64.b64encode(
                 pickle.dumps(kwargs["dag"], protocol=messages.PICKLE_PROTOCOL)
@@ -1318,8 +1376,25 @@ class ControllerNode:
         for group in self._shard_groups(keep, groupby_cols, agg_list,
                                         kwargs):
             target = group if len(group) > 1 else group[0]
-            segment["strategies"]["auto"] = (
-                segment["strategies"].get("auto", 0) + len(group)
+            strategy = None
+            if planner_on:
+                strategy, _est, _rows, reason = planmod.select_calibrated(
+                    self.shard_stats, group, groupby_cols,
+                    calibration=self.calibration,
+                )
+                if strategy == planmod.STRATEGY_AUTO:
+                    strategy = None
+                else:
+                    self.counters["plan_strategy_hints"] += 1
+                if reason == "measured":
+                    self.counters["plan_calibrated_overrides"] += 1
+                elif reason == "explore":
+                    self.counters["plan_explore_hints"] += 1
+                if strategy == planmod.STRATEGY_MATMUL_BINDING:
+                    self.counters["plan_matmul_promotions"] += 1
+            hint = strategy or "auto"
+            segment["strategies"][hint] = (
+                segment["strategies"].get(hint, 0) + len(group)
             )
             # identical pending work is joined, not dispatched again.  The
             # deadline is part of the identity: fusing across deadlines
@@ -1343,7 +1418,8 @@ class ControllerNode:
             shard["filename"] = target
             if msg.get("deadline") is not None:
                 shard["deadline"] = msg["deadline"]
-            shard.add_as_binary("plan", fragment_for(plan, group, sole=sole))
+            shard.add_as_binary("plan", fragment_for(
+                plan, group, strategy=strategy, sole=sole))
             if dag_blob is not None:
                 shard["dag"] = dag_blob
             self._register_work(shard, [parent_token], work_key=work_key)

@@ -21,8 +21,12 @@ Envelope keys the port's nodes read and write:
   ``effective_strategy``, ``merge_mode``, ``strategy``,
   ``deadline_remaining``; ``WorkerRegisterMessage`` carries
   ``worker_id``, ``node``, ``ip``, ``data_dir``, ``data_files``,
-  ``workertype``, ``pid``, ``uptime``, ``msg_count`` and, from the
-  liveness thread, ``liveness_only``.
+  ``workertype``, ``pid``, ``uptime``, ``msg_count``, ``shard_stats``
+  (per-shard planning stats), ``backend_wedged`` (bool, the device-health
+  latch of ``utils.devicehealth``), ``calibration`` (the worker's
+  measured-cost strategy cells, ``plan.calibrate.summary_for_wire``,
+  absorbed controller-side per worker; None while calibration is off or
+  nothing is measured) and, from the liveness thread, ``liveness_only``.
 
 Pickled payloads assume a trusted network, as the reference does;
 :meth:`Message.get_from_binary` is the one place that unpickles.

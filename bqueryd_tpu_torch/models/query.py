@@ -18,15 +18,25 @@ with the other's host merge:
 * ``kind="empty"``: shard pruned by ``shard_can_match``.
 
 The engine serves every op of :data:`AGG_OPS` and basket expansion
-(``expand_filter_column``).  Latency-aware host routing is not ported: the
-engine never routes a query around the device.
+(``expand_filter_column``).  Latency-aware routing decides per shard,
+before any device call: a shard at or under :func:`host_kernel_rows` (the
+row count whose host cost matches the device's measured
+dispatch-and-fetch floor, :func:`device_dispatch_floor`), a ``"host"``
+hint, or a wedged device (:mod:`bqueryd_tpu_torch.utils.devicehealth`)
+runs the mergeable partials on the host (``ops.host_partial_tables``:
+NumPy and the native striped kernels), with its mask, basket expansion
+and distinct counts on the host too.  Routing is not a fallback: a query
+that fails on the device fails, with no retry on the host.
 """
 
 import os
 import pickle
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from bqueryd_tpu_torch.utils import devicehealth
 
 PAYLOAD_FORMAT = "bqueryd-tpu-result-1"
 
@@ -228,6 +238,161 @@ class ResultPayload(dict):
         return cls(obj)
 
 
+_measured_floor = None
+
+
+def device_dispatch_floor(remeasure=False, device=None):
+    """Measured wall of one tiny op plus a synchronising fetch on
+    ``device`` (default: the device :func:`devicehealth.watch` registered,
+    else the CPU): the minimum of 3 after one warm call, cached per
+    process.  The fetch is included because the device query path ends in
+    one; this is the cost host routing competes against.
+
+    A sample taken while another thread holds the device (a kernel build,
+    the CUDA context's creation) is inflated: the worker calls
+    ``remeasure=True`` once its kernels are loaded and its context made.
+    The measurement runs under :func:`devicehealth.run_with_deadline`: a
+    deadline miss latches the device as wedged instead of hanging the
+    caller, and the garbage floor is not cached."""
+    global _measured_floor
+    if devicehealth.backend_wedged():
+        # not cached: a recovered device must remeasure a real floor
+        return devicehealth.probe_timeout_s()
+    if _measured_floor is None or remeasure:
+        dev = device if device is not None else devicehealth.watched_device()
+
+        def _measure():
+            import torch
+
+            x = torch.zeros((), device=dev if dev is not None else "cpu")
+            (x + 1).item()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                (x + 1).item()
+                walls.append(time.perf_counter() - t0)
+            return min(walls)
+
+        timeout = devicehealth.probe_timeout_s()
+        if timeout <= 0:  # detection disabled: measure directly
+            _measured_floor = _measure()
+            return _measured_floor
+        done, floor = devicehealth.run_with_deadline(_measure, timeout)
+        if not done or floor is None:
+            devicehealth.latch_wedged()
+            return devicehealth.probe_timeout_s()
+        _measured_floor = floor
+    return _measured_floor
+
+
+#: assumed host aggregation cost per row on the fast paths (cached codes,
+#: one bincount or one native pass), used only to turn the measured
+#: dispatch floor into a row threshold
+_HOST_NS_PER_ROW = 8e-9
+
+#: the cost when a measure misses the fast paths: the 16-bit-limb exact int
+#: sum (4 weighted bincounts) or np.minimum/maximum.at extrema run about 4x
+#: the fast rate, so near-threshold queries are not host-routed on the
+#: optimistic estimate
+_HOST_NS_PER_ROW_SLOW = 32e-9
+
+
+def _host_ns_estimate(table, agg_list, n_rows):
+    """Per-row host cost of ``agg_list`` for routing, from column metadata
+    only (physical dtype and min/max stats, no decode): integer sums whose
+    ``n x max|value|`` bound stays under 2^53, or that the native kernels
+    take, run at the fast rate; larger-magnitude (or stats-less) int sums
+    and min/max outside the native kernels at the slow rate."""
+    from bqueryd_tpu_torch.ops.groupby import (
+        _NATIVE_GROUPBY_MIN_ROWS,
+        HOST_EXACT_SUM_BOUND,
+    )
+
+    native_ok = None  # computed lazily: import + symbol probe
+
+    def native_takes_it():
+        # the C++ kernels sum in uint64 (exact at any magnitude) and do
+        # min/max in one pass: a query they take has no slow fallback
+        nonlocal native_ok
+        if native_ok is None:
+            from bqueryd_tpu_torch.storage import native
+
+            native_ok = (
+                n_rows >= _NATIVE_GROUPBY_MIN_ROWS
+                and native.groupby_available()
+            )
+        return native_ok
+
+    minmax_ok = None
+
+    def native_minmax_ok():
+        nonlocal minmax_ok
+        if minmax_ok is None:
+            from bqueryd_tpu_torch.storage import native
+
+            minmax_ok = native.groupby_minmax_available()
+        return minmax_ok
+
+    for in_col, op, _out in agg_list:
+        if op in ("min", "max"):
+            # the min/max kernel declines unsigned dtypes (uint64 would
+            # wrap its signed accumulator): those run ufunc.at
+            if (
+                table.kind(in_col) == "datetime"
+                or not native_takes_it()
+                or not native_minmax_ok()
+                or np.issubdtype(
+                    table.physical_dtype(in_col), np.unsignedinteger
+                )
+            ):
+                return _HOST_NS_PER_ROW_SLOW
+            continue
+        if op in ("sum", "mean") and np.issubdtype(
+            table.physical_dtype(in_col), np.integer
+        ):
+            if native_takes_it():
+                continue
+            stats = table.col_stats(in_col)
+            if stats is None:
+                return _HOST_NS_PER_ROW_SLOW
+            bound = max(abs(int(stats[0])), abs(int(stats[1])))
+            if bound * max(int(n_rows), 1) >= HOST_EXACT_SUM_BOUND:
+                return _HOST_NS_PER_ROW_SLOW
+    return _HOST_NS_PER_ROW
+
+
+#: never host-route a query above this many rows, however slow the device
+#: link: large queries belong on the device
+_HOST_ROUTE_CAP = 4_000_000
+
+
+def host_kernel_rows(ns_per_row=None):
+    """Row threshold at or below which mergeable aggregations run on the
+    host (:func:`ops.host_partial_tables`) instead of paying the device's
+    dispatch-and-fetch floor: ``floor / ns_per_row``, capped at
+    :data:`_HOST_ROUTE_CAP`.  ``ns_per_row`` is a per-query estimate
+    (:func:`_host_ns_estimate`), the fast rate by default.
+    ``BQUERYD_TPU_HOST_KERNEL_ROWS`` overrides it (0: never host-route).
+    A wedged device returns 2^62 whatever the override: every query the
+    host can serve goes there."""
+    if devicehealth.backend_wedged(launch=False):
+        return 1 << 62
+    env = os.environ.get("BQUERYD_TPU_HOST_KERNEL_ROWS")
+    if env is not None:
+        try:
+            return max(int(env), 0)
+        except ValueError:
+            import logging
+
+            logging.getLogger("bqueryd_tpu_torch").warning(
+                "unparseable BQUERYD_TPU_HOST_KERNEL_ROWS=%r, "
+                "host routing disabled", env,
+            )
+            return 0
+    ns = _HOST_NS_PER_ROW if ns_per_row is None else ns_per_row
+    return min(int(device_dispatch_floor() / ns), _HOST_ROUTE_CAP)
+
+
 def _value_kind_for(table, col):
     """Storage-kind tag carried per agg in the payload: 'datetime' restores
     datetime64 at finalize; 'uint64' re-views mod-2^64 sums as unsigned;
@@ -251,8 +416,10 @@ class QueryEngine:
         from bqueryd_tpu_torch.utils.cache import BytesCappedCache
 
         self.device = resolve_device(device)
-        #: the kernel route of the last execute_local ("matmul", "scatter"
-        #: or "sort")
+        # the device-health probes run on this engine's device
+        devicehealth.watch(self.device)
+        #: the kernel route of the last execute_local ("matmul", "scatter",
+        #: "sort", or "host" for the host route)
         self.last_effective_strategy = None
         # per-(table, column) factorization cache, keyed on the shard's
         # meta identity so activation invalidates naturally
@@ -395,20 +562,35 @@ class QueryEngine:
         return dense, combos, n_groups, cards, key_values, combo_cols
 
     # -- execution ---------------------------------------------------------
+    def _host_routed(self, table, query, strategy):
+        """Whether this shard's mergeable partials run on the host: the
+        ``"host"`` hint, or a row count at or under the threshold for the
+        query's own host cost (a wedged device raises it to 2^62)."""
+        if strategy == "host":
+            return True
+        mergeable = [a for a in query.agg_list if a[1] in MERGEABLE_OPS]
+        if not query.aggregate or not mergeable:
+            return False
+        n = int(table.nrows)
+        return n <= host_kernel_rows(_host_ns_estimate(table, mergeable, n))
+
     def execute_local(self, table, query: GroupByQuery,
                       strategy=None) -> ResultPayload:
-        """Run one query on one shard.  ``strategy`` is the kernel-route
-        hint of :func:`ops.partial_tables` ("matmul", "scatter", "sort",
-        "matmul!" or None)."""
+        """Run one query on one shard.  ``strategy`` is the planner's
+        kernel-route hint: ``"host"`` forces the host kernels, "matmul",
+        "scatter", "sort" and "matmul!" flow into :func:`ops.partial_tables`
+        (see ``ops.KERNEL_STRATEGIES``), None or "auto" keeps the adaptive
+        default.  The route is decided before any device call: on the host
+        route (the hint, a shard under :func:`host_kernel_rows`) or with the
+        device wedged, the mask, basket expansion, partials and distinct
+        counts all run in NumPy and nothing touches the device."""
         from bqueryd_tpu_torch import ops
         from bqueryd_tpu_torch.ops.groupby import as_tensor
 
         self.last_effective_strategy = None
-        if strategy not in (None, "auto", "matmul", "scatter", "sort",
-                            "matmul!"):
-            raise NotImplementedError(
-                f"kernel strategy {strategy!r} is not ported yet"
-            )
+        if strategy not in (None, "auto", "host", "matmul", "scatter",
+                            "sort", "matmul!"):
+            raise ValueError(f"unknown kernel strategy {strategy!r}")
         if query.aggregate:
             for in_col, op in zip(query.in_cols, query.ops):
                 if op in ("sum", "mean") and table.kind(in_col) == "datetime":
@@ -421,15 +603,23 @@ class QueryEngine:
             table, query.where_terms
         ):
             return ResultPayload.empty()
-        mask = ops.build_mask(table, query.where_terms, self.device)
+        wedged = devicehealth.backend_wedged()
+        host_route = self._host_routed(table, query, strategy)
+        on_host = host_route or wedged
+        device = None if on_host else self.device
+        mask = ops.build_mask(table, query.where_terms, device)
         if query.expand_filter_column:
             basket_codes, basket_uniques = self._basket_codes(
                 table, query.expand_filter_column
             )
-            mask = ops.expand_mask_by_group(
-                basket_codes, mask, n_groups=len(basket_uniques),
-                device=self.device,
-            )
+            if on_host:
+                mask = ops.host_expand_mask_by_group(
+                    basket_codes, mask, n_groups=len(basket_uniques))
+            else:
+                mask = ops.expand_mask_by_group(
+                    basket_codes, mask, n_groups=len(basket_uniques),
+                    device=self.device,
+                )
         if not query.aggregate:
             return self._raw_rows(table, query, mask)
 
@@ -443,13 +633,16 @@ class QueryEngine:
         # the bucketed group count keeps padded groups zero-row; they are
         # sliced off after the fetch
         n_prog = ops.program_bucket(n_groups)
-        codes = as_tensor(dense.astype(np.int32), self.device)
+        dense32 = dense.astype(np.int32)
+        codes = None if on_host else as_tensor(dense32, self.device)
         mergeable = [
             (i, a) for i, a in enumerate(query.agg_list)
             if a[1] in ops.MERGEABLE_OPS
         ]
         agg_parts = [None] * len(query.agg_list)
         if mergeable:
+            from bqueryd_tpu_torch.plan import calibrate
+
             measures = tuple(table.column_raw(a[0]) for _, a in mergeable)
             mops = tuple(a[1] for _, a in mergeable)
             sentinels = tuple(
@@ -457,19 +650,54 @@ class QueryEngine:
                 if table.kind(a[0]) == "datetime" else None
                 for _, a in mergeable
             )
-            kernel_strategy = None if strategy == "auto" else strategy
-            self.last_effective_strategy = ops.kernel_route(
-                kernel_strategy, measures, mops, len(dense), n_prog
-            )
-            partials = ops.tree_to_numpy(ops.partial_tables(
-                codes, measures, mops, n_prog, mask, null_sentinels=sentinels,
-                strategy=kernel_strategy,
-            ))
-            rows = partials["rows"][:n_groups]
-            for (i, _a), part in zip(mergeable, partials["aggs"]):
-                agg_parts[i] = {k: v[:n_groups] for k, v in part.items()}
-        else:
+            dtypes = [np.asarray(m).dtype for m in measures]
+            if on_host:
+                self.last_effective_strategy = "host"
+                clock = time.perf_counter()
+                partials = ops.host_partial_tables(
+                    dense32, measures, mops, n_groups, mask,
+                    null_sentinels=sentinels,
+                )
+                # host walls are calibration samples too (nothing to build)
+                calibrate.record_sample(
+                    rows=len(dense), groups=n_groups, dtypes=dtypes,
+                    backend="host", strategy="host",
+                    wall_s=time.perf_counter() - clock,
+                )
+                rows = partials["rows"]
+                for (i, _a), part in zip(mergeable, partials["aggs"]):
+                    agg_parts[i] = dict(part)
+            else:
+                from bqueryd_tpu_torch.ops import onehot
+
+                kernel_strategy = None if strategy == "auto" else strategy
+                route = ops.kernel_route(
+                    kernel_strategy, measures, mops, len(dense), n_prog
+                )
+                self.last_effective_strategy = route
+                marker = onehot.build_marker()
+                clock = time.perf_counter()
+                partials = ops.tree_to_numpy(ops.partial_tables(
+                    codes, measures, mops, n_prog, mask,
+                    null_sentinels=sentinels, strategy=kernel_strategy,
+                ))
+                wall = time.perf_counter() - clock
+                # a wall that built the kernel library or launched a shape
+                # for the first time is not a sample of the route
+                if onehot.build_marker() == marker:
+                    calibrate.record_sample(
+                        rows=len(dense), groups=n_groups, dtypes=dtypes,
+                        backend=self.device.type, strategy=route,
+                        wall_s=wall,
+                    )
+                rows = partials["rows"][:n_groups]
+                for (i, _a), part in zip(mergeable, partials["aggs"]):
+                    agg_parts[i] = {k: v[:n_groups] for k, v in part.items()}
+        elif on_host:
             # rows still needed to drop empty groups
+            rows = ops.host_partial_tables(
+                dense32, (), (), n_groups, mask)["rows"]
+        else:
             rows = ops.partial_tables(
                 codes, (), (), n_prog, mask
             )["rows"].cpu().numpy()[:n_groups]
@@ -514,19 +742,29 @@ class QueryEngine:
     def _distinct_part(self, table, query, in_col, op, codes, dense,
                        n_groups, mask):
         """One distinct op's partial over the shard's group codes
-        (``codes`` on the device, ``dense`` on the host):
+        (``codes`` on the device, or None on the host route; ``dense`` on
+        the host; ``mask`` a tensor, a NumPy array or None):
 
         * ``count_distinct`` of a sole payload: final counts from the
           device sort (:func:`ops.groupby_count_distinct`), or the value
-          sets when the (group, value) space overflows int64;
+          sets when the (group, value) space overflows int64 or the query
+          runs on the host;
         * ``count_distinct`` otherwise: the per-group distinct value sets,
           which union exactly across shards and workers, capped at
           ``BQUERYD_TPU_DISTINCT_VALUES_LIMIT`` (group, value) pairs;
-        * ``sorted_count_distinct``: run counts on the device, additive
+        * ``sorted_count_distinct``: run counts (the device twin, or
+          :func:`ops.host_sorted_count_distinct` on the host), additive
           across shards (a run is local to its shard's order)."""
         from bqueryd_tpu_torch import ops
 
+        on_host = codes is None
         if op == "sorted_count_distinct":
+            if on_host:
+                counts = ops.host_sorted_count_distinct(
+                    dense.astype(np.int32), table.column_raw(in_col),
+                    n_groups, mask,
+                )
+                return {"distinct": counts[:n_groups]}
             counts = ops.groupby_sorted_count_distinct(
                 codes, table.column_raw(in_col),
                 ops.program_bucket(n_groups), mask,
@@ -537,7 +775,7 @@ class QueryEngine:
         # dict and datetime values resolve to their actual values: shard
         # dictionary codes live in incompatible code spaces
         vcodes, vuniques = self._key_codes(table, in_col)
-        if query.sole_payload:
+        if query.sole_payload and not on_host:
             try:
                 counts = ops.groupby_count_distinct(
                     codes, vcodes, ops.program_bucket(n_groups),
@@ -549,9 +787,11 @@ class QueryEngine:
                 pass  # the value sets below answer exactly without packing
             else:
                 return {"distinct": counts.cpu().numpy()[:n_groups]}
+        if mask is not None and not on_host:
+            mask = mask.cpu().numpy()
         values, offsets = _group_distinct_flat(
             np.asarray(dense), np.asarray(vcodes), np.asarray(vuniques),
-            n_groups, None if mask is None else mask.cpu().numpy(),
+            n_groups, mask,
         )
         # the sets grow with the distinct values (up to the whole column):
         # a cap keeps one query from exhausting worker or client memory
@@ -571,7 +811,9 @@ class QueryEngine:
         seen = set()
         column_list = [c for c in column_list
                        if not (c in seen or seen.add(c))]
-        idx = None if mask is None else np.flatnonzero(mask.cpu().numpy())
+        if mask is not None and not isinstance(mask, np.ndarray):
+            mask = mask.cpu().numpy()
+        idx = None if mask is None else np.flatnonzero(mask)
         columns = {}
         for col in column_list:
             values = table.column(col)

@@ -1,7 +1,7 @@
 """The port's columnar kernels: host factorize, device filter masks and
 chunk pruning, the groupby partial tables whose contraction runs on the
 CUDA kernels of :mod:`bqueryd_tpu_torch.ops.onehot`, the distinct counts
-and basket expansion."""
+and basket expansion, and the NumPy twins of the host route."""
 
 from bqueryd_tpu_torch.ops.factorize import (
     MAX_COMPOSITE,
@@ -20,6 +20,8 @@ from bqueryd_tpu_torch.ops.groupby import (
     finalize,
     groupby_count_distinct,
     groupby_sorted_count_distinct,
+    host_expand_mask_by_group,
+    host_partial_tables,
     host_sorted_count_distinct,
     kernel_route,
     partial_tables,
@@ -51,6 +53,8 @@ __all__ = [
     "finalize",
     "groupby_count_distinct",
     "groupby_sorted_count_distinct",
+    "host_expand_mask_by_group",
+    "host_partial_tables",
     "host_sorted_count_distinct",
     "kernel_route",
     "partial_tables",

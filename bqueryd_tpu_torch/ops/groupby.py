@@ -57,6 +57,17 @@ _MATMUL_CELLS_LIMIT = 1 << 36
 #: group ceiling of the hicard contraction route
 HICARD_GROUPS_LIMIT = 1 << 18
 
+#: native host-groupby routing: below the row floor thread spawn overhead
+#: beats the striping win; above the group ceiling the per-thread [G]
+#: accumulators stop being cache friendly
+_NATIVE_GROUPBY_MIN_ROWS = 200_000
+_NATIVE_GROUPBY_MAX_GROUPS = 1 << 18
+
+#: float64 mantissa bound: a weighted bincount over int64 values is exact
+#: iff every partial sum stays below it (|partial| <= n rows x max|v|).
+#: Shared with the host-routing cost estimate (``models.query``)
+HOST_EXACT_SUM_BOUND = 2**53
+
 #: rows per block of the JAX package's blocked int scatter; with
 #: _MAX_BLOCK_SEGMENTS it decides when an int sum takes the sort route
 _SUM_BLOCK = 65536
@@ -835,8 +846,9 @@ def groupby_sorted_count_distinct(codes, values, n_groups, mask=None,
 
 def host_sorted_count_distinct(codes, values, n_groups, mask=None):
     """NumPy version of :func:`groupby_sorted_count_distinct` with the same
-    run-boundary semantics (masked-row bridging, ``NaN != NaN``), kept as
-    the tests' plain reference."""
+    run-boundary semantics (masked-row bridging, ``NaN != NaN``): the op's
+    host route (a host-routed or wedged query) and the tests' plain
+    reference."""
     codes = np.asarray(codes)
     values = np.asarray(values)
     if codes.shape[0] == 0:
@@ -862,6 +874,223 @@ def host_sorted_count_distinct(codes, values, n_groups, mask=None):
     return out[: int(n_groups)]
 
 
+def host_partial_tables(codes, measures, ops, n_groups, mask=None,
+                        null_sentinels=None):
+    """NumPy :func:`partial_tables`: the same tables, on the host.
+
+    The host route of latency-aware routing: below a row threshold
+    (``models.query.host_kernel_rows``) a query's partials cost less on
+    the host than the device's dispatch-and-fetch floor, and while the
+    device is wedged every query the host can serve runs here.  No torch
+    is involved.  Int sums are exact mod 2^64: one float64-weighted
+    bincount while every partial stays below 2^53, else four 16-bit limbs,
+    or the native striped kernels (``storage.native``), which sum in
+    uint64.  Returns ``{"rows": int64[n_groups], "aggs": tuple of partial
+    dicts}`` of NumPy arrays."""
+    import numpy as np
+
+    codes = np.asarray(codes)
+    valid = codes >= 0
+    if mask is not None:
+        valid = valid & np.asarray(mask, dtype=bool)
+    # no null keys and no filter: every np.where masking pass is skipped
+    # and the bincounts stay unweighted
+    all_valid = bool(valid.all())
+    safe = (
+        codes.astype(np.int64)
+        if all_valid
+        else np.where(valid, codes, 0).astype(np.int64)
+    )
+    minlength = max(int(n_groups), 1)
+
+    # the striped C++ kernels, bounded by a row floor (thread spawn
+    # overhead) and a group ceiling (per-thread accumulator memory)
+    native_mod = None
+    if (
+        len(codes) >= _NATIVE_GROUPBY_MIN_ROWS
+        and minlength <= _NATIVE_GROUPBY_MAX_GROUPS
+    ):
+        from bqueryd_tpu_torch.storage import native as _native
+
+        if _native.groupby_available():
+            native_mod = _native
+    codes32 = base_mask = None
+    if native_mod is not None:
+        codes32 = np.ascontiguousarray(codes, dtype=np.int32)
+        if not all_valid:
+            # a bool array's uint8 view keeps the native calls zero-copy
+            base_mask = valid.view(np.uint8)
+
+    def count_where(flags):
+        if native_mod is not None:
+            m = base_mask if flags is None else (
+                flags.view(np.uint8) if flags.dtype == np.bool_ else flags
+            )
+            return native_mod.groupby_i64(codes32, None, m, minlength)[1]
+        if flags is None:  # all rows count
+            return np.bincount(safe, minlength=minlength).astype(np.int64)
+        return np.bincount(
+            safe, weights=flags.astype(np.float64), minlength=minlength
+        ).astype(np.int64)
+
+    def exact_int_sum(values, present):
+        v = values.astype(np.int64, copy=False)
+        if present is not None:
+            v = np.where(present, v, 0)
+        if len(v):
+            bound = max(abs(int(v.min())), abs(int(v.max())))
+            if bound * len(v) < HOST_EXACT_SUM_BOUND:
+                return np.bincount(
+                    safe, weights=v.astype(np.float64), minlength=minlength
+                ).astype(np.int64)
+        # full range: 16-bit limbs keep each weighted bincount exact
+        # (< 2^16 x 2^37 rows < 2^53), recombined mod 2^64
+        total = np.zeros(minlength, dtype=np.uint64)
+        for i in range(4):
+            if i < 3:  # unsigned 16-bit slices of the two's complement
+                limb = (v >> np.int64(16 * i)) & np.int64(0xFFFF)
+            else:      # the top limb keeps the sign (arithmetic shift)
+                limb = v >> np.int64(48)
+            limb_sum = np.bincount(
+                safe, weights=limb.astype(np.float64), minlength=minlength
+            )
+            total = total + (
+                limb_sum.astype(np.int64).astype(np.uint64)
+                << np.uint64(16 * i)
+            )
+        return total.astype(np.int64)
+
+    def null_mask(values, sentinel):
+        if sentinel is not None:
+            return values == np.asarray(sentinel, dtype=values.dtype)
+        if np.issubdtype(values.dtype, np.floating):
+            return np.isnan(values)
+        return np.zeros(values.shape, dtype=bool)
+
+    rows = count_where(None if all_valid else valid)
+    sentinels = _normalize_sentinels(null_sentinels, len(measures))
+    # (values id, dtype) -> (values, (mins, maxs, counts)): min and max of
+    # one measure share one native pass; the array pins its id()
+    minmax_cache = {}
+    aggs = []
+    for values, op, sentinel in zip(measures, ops, sentinels):
+        if op not in MERGEABLE_OPS:
+            raise ValueError(
+                f"op {op!r} has no mergeable partial; use the dedicated kernel"
+            )
+        if sentinel is not None and op in ("sum", "mean"):
+            raise ValueError(
+                f"op {op!r} cannot aggregate a sentinel-null measure"
+            )
+        values = np.asarray(values)
+        if (
+            native_mod is not None
+            and sentinel is None
+            and op in ("min", "max")
+            and native_mod.groupby_minmax_available()
+            # uint values >= 2^63 would wrap in the signed i64 kernel
+            and not np.issubdtype(values.dtype, np.unsignedinteger)
+        ):
+            cache_key = (id(values), values.dtype.str)
+            entry = minmax_cache.get(cache_key)
+            if entry is None:
+                hit = native_mod.groupby_minmax(
+                    codes32, values, base_mask, minlength
+                )
+                minmax_cache[cache_key] = entry = (values, hit)
+            mns, mxs, cnts = entry[1]
+            ext64 = mns if op == "min" else mxs
+            target = values.dtype
+            # empty groups re-filled with the measure dtype's identity
+            ext = np.where(
+                cnts == 0, extremum_fill(target, op), ext64
+            ).astype(target)
+            aggs.append({op: ext, "count": cnts})
+            continue
+        if native_mod is not None and op in ("sum", "mean"):
+            # one striped call: the sum and the present count (the mean's
+            # denominator); integer MEANS go through the f64 kernel
+            if np.issubdtype(values.dtype, np.floating) or op == "mean":
+                fsums, fcounts = native_mod.groupby_f64(
+                    codes32, np.asarray(values, dtype=np.float64),
+                    base_mask, minlength, want_counts=(op == "mean"),
+                )
+                partial = {"sum": fsums}
+                if op == "mean":
+                    partial["count"] = fcounts
+            else:
+                isums, _ = native_mod.groupby_i64(
+                    codes32, values.astype(np.int64, copy=False),
+                    base_mask, minlength,
+                )
+                partial = {"sum": isums}
+            aggs.append(partial)
+            continue
+        null = null_mask(values, sentinel)
+        has_null = null.any() if (
+            sentinel is not None
+            or np.issubdtype(values.dtype, np.floating)
+        ) else False
+        # present=None: every row contributes
+        present = None if (all_valid and not has_null) else (valid & ~null)
+        if op in ("sum", "mean"):
+            if np.issubdtype(values.dtype, np.floating) or op == "mean":
+                # integer means accumulate in f64, as pandas does
+                contrib = (
+                    values if present is None else np.where(present, values, 0)
+                ).astype(np.float64)
+                partial = {
+                    "sum": np.bincount(
+                        safe, weights=contrib, minlength=minlength
+                    )
+                }
+            else:
+                partial = {"sum": exact_int_sum(values, present)}
+            if op == "mean":
+                partial["count"] = count_where(present)
+            aggs.append(partial)
+        elif op == "count":
+            aggs.append({"count": count_where(present)})
+        elif op == "count_na":
+            na = (
+                np.zeros(minlength, dtype=np.int64)
+                if not has_null
+                else count_where(valid & null)
+            )
+            aggs.append({"count": na})
+        elif op in ("min", "max"):
+            sel = slice(None) if present is None else present
+            ext = np.full(
+                minlength, extremum_fill(values.dtype, op),
+                dtype=values.dtype,
+            )
+            if op == "min":
+                np.minimum.at(ext, safe[sel], values[sel])
+            else:
+                np.maximum.at(ext, safe[sel], values[sel])
+            aggs.append({op: ext, "count": count_where(present)})
+    return {"rows": rows, "aggs": tuple(aggs)}
+
+
+def host_expand_mask_by_group(group_codes, mask, n_groups=None):
+    """NumPy :func:`expand_mask_by_group` with the same edge semantics: a
+    code past the segment table is dropped from the hit table and clamped
+    in the gather.  Serves the host route and a wedged device."""
+    if mask is None:
+        return None
+    codes = np.asarray(group_codes)
+    mask = np.asarray(mask, dtype=bool)
+    if n_groups is None:
+        n_groups = codes.shape[0]
+    n_seg = max(int(n_groups), 1)
+    valid = codes >= 0
+    hit = np.zeros(n_seg, dtype=bool)
+    sel = valid & mask & (codes < n_seg)
+    hit[codes[sel]] = True
+    gather = np.minimum(np.where(valid, codes, 0), n_seg - 1)
+    return valid & hit[gather]
+
+
 def expand_mask_by_group(group_codes, mask, n_groups=None, device=None):
     """Expand a row mask to whole groups (basket expansion, the reference
     bqueryd's ``is_in_ordered_subgroups`` without requiring sorted input):
@@ -872,9 +1101,16 @@ def expand_mask_by_group(group_codes, mask, n_groups=None, device=None):
     never selected; a code past the segment table is dropped from the
     scatter and clamped in the gather, as the JAX package's segment max
     and gather do.  ``n_groups`` defaults to the row count.  Returns a bool
-    tensor, or None when ``mask`` is None (no filter to expand)."""
+    tensor, or None when ``mask`` is None (no filter to expand).  A NumPy
+    mask while the device is wedged takes :func:`host_expand_mask_by_group`
+    and returns a NumPy array."""
     if mask is None:
         return None
+    if not torch.is_tensor(mask):
+        from bqueryd_tpu_torch.utils import devicehealth
+
+        if devicehealth.backend_wedged():
+            return host_expand_mask_by_group(group_codes, mask, n_groups)
     dev = mask.device if torch.is_tensor(mask) else _placed(group_codes,
                                                             device)
     codes = as_tensor(group_codes, dev).to(torch.int64)

@@ -105,6 +105,11 @@ _HICARD_MAX_BLOCKS = _SMS * 16
 #: launches per (kernel, branch, n_rows, n_groups, n)
 LAUNCHES = collections.Counter()
 
+#: every (kernel, branch, n_rows, n_groups) launched in this process, and
+#: the library loads: never reset (see :func:`build_marker`)
+_SHAPES_SEEN = set()
+_LOADS = [0]
+
 BasePlan = collections.namedtuple(
     "BasePlan",
     "branch grid cluster smem ntiles g_tile copies ld",
@@ -187,7 +192,16 @@ def _library():
                 fn.restype = i32
                 fn.argtypes = argtypes
             _lib = lib
+            _LOADS[0] += 1
         return _lib
+
+
+def build_marker():
+    """``(library loads, shapes launched)``: a timing window whose marker
+    changed built or loaded the kernels, or launched a (kernel, branch, R,
+    G) shape for the first time, so its wall is not a sample of the route
+    (the counterpart of a JAX compile in the reference's calibration)."""
+    return (_LOADS[0], len(_SHAPES_SEEN))
 
 
 def padded_width(n):
@@ -238,6 +252,7 @@ def _launch_error(name, rc):
 
 def _count(wrapper, branch, n_rows, n_groups, n):
     wrapper.launches += 1
+    _SHAPES_SEEN.add((wrapper.__name__, branch, int(n_rows), int(n_groups)))
     LAUNCHES[(wrapper.__name__, branch, int(n_rows), int(n_groups),
               int(n))] += 1
 

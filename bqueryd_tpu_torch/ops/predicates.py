@@ -4,7 +4,10 @@ pruning.
 The port of ``bqueryd_tpu/ops/predicates.py``: a filter is a list of
 ``(column, op, value)`` terms AND-ed together.  Ops: ==, !=, <, <=, >, >=,
 in, not in.  Masks are torch bool tensors on the engine's device and stay
-there: the groupby kernels consume them without a host round-trip.
+there: the groupby kernels consume them without a host round-trip.  A
+query the router sends to the host (a small shard, a wedged device) builds
+its mask as a NumPy array instead (``build_mask(..., device=None)``), with
+the same elementwise semantics and no device call.
 
 Value translation happens on the host against the table's dictionaries:
 
@@ -106,15 +109,18 @@ def term_mask(values, op, value):
 
 
 def build_mask(table, where_terms_list, device):
-    """AND together all terms into one bool tensor on ``device``, or return
-    None for an empty term list (no filtering)."""
+    """AND together all terms into one bool tensor on ``device``, or into
+    one NumPy bool array when ``device`` is None (the host route); None for
+    an empty term list (no filtering)."""
     if not where_terms_list:
         return None
     mask = None
     for column, op, value in where_terms_list:
         phys = translate_value(table, column, value, op)
         raw = np.ascontiguousarray(table.column_raw(column))
-        if raw.dtype.kind == "u" and raw.dtype.itemsize > 1:
+        if device is None:
+            m = np.asarray(term_mask(raw, op, phys), dtype=bool)
+        elif raw.dtype.kind == "u" and raw.dtype.itemsize > 1:
             # torch has no comparisons for uint16/32/64: compare on the host
             m = torch.from_numpy(term_mask(raw, op, phys)).to(device)
         else:

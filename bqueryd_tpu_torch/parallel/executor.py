@@ -56,6 +56,7 @@ merge, its host-merge kill switch and the ``psum`` mode).
 
 import contextlib
 import os
+import time
 
 import numpy as np
 
@@ -398,7 +399,10 @@ class MeshQueryExecutor:
         kernel-route hint of ``partial_tables`` (None/"auto" keeps the
         dispatcher's own choice)."""
         from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.ops import onehot
+        from bqueryd_tpu_torch.ops.groupby import np_dtype
         from bqueryd_tpu_torch.parallel import pipeline
+        from bqueryd_tpu_torch.plan import calibrate
 
         self.last_effective_strategy = None
         self.last_merge_mode = None
@@ -512,13 +516,27 @@ class MeshQueryExecutor:
         n_prog = ops.program_bucket(n_groups)
         width = int(codes_d.shape[1])
         per_agg = tuple(measures_d[i] for i in measure_index)
-        self.last_effective_strategy = ops.kernel_route(
+        route = ops.kernel_route(
             strategy, per_agg, tuple(query.ops), width, n_prog
         )
+        self.last_effective_strategy = route
+        marker = onehot.build_marker()
+        kernel_clock = time.perf_counter()
         with pipeline.stage("kernel"):
             merged = self._device_partials(
                 tuple(query.ops), n_prog, codes_d, per_agg, sentinels,
                 strategy,
+            )
+        # the measured-cost calibration sample: the wall through the
+        # synchronising fetch, keyed on the group's rows as the controller
+        # estimated them from stats; a window that built the kernels or
+        # launched a shape for the first time is skipped
+        if onehot.build_marker() == marker:
+            calibrate.record_sample(
+                rows=sum(int(t.nrows) for t in tables), groups=n_groups,
+                dtypes=[np_dtype(m.dtype) for m in per_agg],
+                backend=self.device.type, strategy=route,
+                wall_s=time.perf_counter() - kernel_clock,
             )
         if n_prog != n_groups:
             merged = _tree_map(lambda a: a[:n_groups], merged)
@@ -1022,7 +1040,7 @@ class MeshQueryExecutor:
             hit = self._align_cache.get(dkey)
             if hit is not None:
                 return hit
-            state = opexec._ShardState(table, dag)
+            state = opexec._ShardState(table, dag, self.device)
             mask = ops.build_mask(table, dag.scan.pushdown, self.device)
             mask = None if mask is None else mask.cpu().numpy()
             if dag.join is not None:

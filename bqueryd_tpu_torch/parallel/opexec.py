@@ -43,8 +43,11 @@ The merge and finalize helpers are NumPy, and the module imports no torch
 at module scope: the client merges with them.  The device twins live in
 :mod:`bqueryd_tpu_torch.ops.relops`, imported by the executor.  Every
 device call runs on the engine's device (``cuda`` unless the engine was
-built with ``device="cpu"``); the reference's latency-aware host routing
-of small shards is not ported.
+built with ``device="cpu"``).  A shard at or under
+``models.query.host_kernel_rows()``, or any shard while the device is
+wedged, runs on the host instead (:meth:`DagExecutor._device_eligible`):
+its mask, join probe, partials, top-k and sketch keys are the NumPy twins,
+bit-identical to the device route.
 """
 
 import contextlib
@@ -393,11 +396,13 @@ class _ShardState:
     """Resolved derivations of one shard: the join gather positions and
     the window bucket ints, plus memoized value/code views per column."""
 
-    __slots__ = ("table", "dag", "row_pos", "window_ints", "_values", "_codes")
+    __slots__ = ("table", "dag", "device", "row_pos", "window_ints",
+                 "_values", "_codes")
 
-    def __init__(self, table, dag):
+    def __init__(self, table, dag, device):
         self.table = table
         self.dag = dag
+        self.device = device      # the engine's device, or None: the host
         self.row_pos = None       # int64[n] dim-row per fact row, -1 = miss
         self.window_ints = None   # int64[n] bucket ns, NAT_SENTINEL = null
         self._values = {}
@@ -454,9 +459,20 @@ class DagExecutor:
         return ResultPayload(merged)
 
     # -- derivations --------------------------------------------------------
+    @staticmethod
+    def _device_eligible(n_rows):
+        """Whether a shard of ``n_rows`` runs on the device: the device is
+        not wedged and the rows clear the host-routing threshold."""
+        from bqueryd_tpu_torch.models.query import host_kernel_rows
+        from bqueryd_tpu_torch.utils import devicehealth
+
+        return (not devicehealth.backend_wedged()
+                and n_rows > host_kernel_rows())
+
     def _probe_join(self, state, mask):
         """Factorize the fact join key, hash the (small) dimension key
-        once, and probe per row as a gather on the device."""
+        once, and probe per row as a gather, on the device behind the same
+        routing as every kernel."""
         from bqueryd_tpu_torch.ops import relops
 
         join = state.dag.join
@@ -484,9 +500,15 @@ class DagExecutor:
             pos_of_unique = np.where(hit, order[at], np.int64(-1))
         if len(pos_of_unique) == 0:
             pos_of_unique = np.zeros(1, dtype=np.int64) - 1
-        state.row_pos = relops.gather_positions(
-            pos_of_unique, codes, self.device
-        )
+        if state.device is not None:
+            state.row_pos = relops.gather_positions(
+                pos_of_unique, codes, state.device
+            )
+        else:
+            state.row_pos = np.where(
+                codes >= 0, pos_of_unique[np.maximum(codes, 0)],
+                np.int64(-1),
+            )
         matched = state.row_pos >= 0
         return matched if mask is None else (mask & matched)
 
@@ -623,10 +645,15 @@ class DagExecutor:
                 )
                 if decoded or skipped:
                     self._prune_counts.append((decoded, skipped))
-        state = _ShardState(table, dag)
+        # one route per shard, decided before any device call: the mask,
+        # the join probe and the aggregate all take it
+        state = _ShardState(
+            table, dag,
+            self.device if self._device_eligible(int(table.nrows)) else None)
         with self._phase("mask"):
-            mask = ops.build_mask(table, dag.scan.pushdown, self.device)
-            mask = None if mask is None else mask.cpu().numpy()
+            mask = ops.build_mask(table, dag.scan.pushdown, state.device)
+            if mask is not None and state.device is not None:
+                mask = mask.cpu().numpy()
         if dag.join is not None:
             with self._phase("join"):
                 mask = self._probe_join(state, mask)
@@ -708,18 +735,20 @@ class DagExecutor:
         return kinds
 
     def _aggregate(self, state, dense, n_groups, mask):
-        """Per-node partial states on the device: the classic GroupAgg
-        through ``ops.partial_tables`` (the one-hot contraction kernels,
-        routed as for a groupby); with no mergeable agg, the per-group row
-        count alone through the same call; TopK and QuantileSketch through
-        their twins in :mod:`bqueryd_tpu_torch.ops.relops`."""
+        """Per-node partial states: the classic GroupAgg through
+        ``ops.partial_tables`` (the one-hot contraction kernels, routed as
+        for a groupby); with no mergeable agg, the per-group row count
+        alone through the same call; TopK and QuantileSketch through their
+        twins in :mod:`bqueryd_tpu_torch.ops.relops`.  A shard that is not
+        device-eligible takes the NumPy twins (``ops.host_partial_tables``,
+        :func:`topk_flat`, the host sketch keys) and reports "host"."""
         from bqueryd_tpu_torch import ops
         from bqueryd_tpu_torch.ops import relops
         from bqueryd_tpu_torch.ops.groupby import as_tensor
 
         dag = state.dag
         agg_parts = [None] * len(dag.aggs)
-        device = self.device
+        device = state.device
 
         mergeable, resolved = [], {}
         for i, (in_col, op, _out) in enumerate(dag.aggs):
@@ -729,19 +758,27 @@ class DagExecutor:
             if parsed[0] in MERGEABLE_OPS:
                 mergeable.append((i, parsed[0]))
 
-        # the bucketed group count keeps padded groups zero-row; they are
-        # sliced off after the fetch
-        n_prog = ops.program_bucket(n_groups)
-        codes = as_tensor(dense.astype(np.int32), device)
         measures = tuple(np.asarray(resolved[i][0]) for i, _ in mergeable)
         mops = tuple(op for _, op in mergeable)
         sentinels = tuple(resolved[i][1] for i, _ in mergeable)
-        self.last_effective_strategy = ops.kernel_route(
-            None, measures, mops, len(dense), n_prog
-        )
-        partials = ops.tree_to_numpy(ops.partial_tables(
-            codes, measures, mops, n_prog, mask, null_sentinels=sentinels,
-        ))
+        if device is None:
+            self.last_effective_strategy = "host"
+            partials = ops.host_partial_tables(
+                dense.astype(np.int32), measures, mops, n_groups, mask,
+                null_sentinels=sentinels,
+            )
+        else:
+            # the bucketed group count keeps padded groups zero-row; they
+            # are sliced off after the fetch
+            n_prog = ops.program_bucket(n_groups)
+            codes = as_tensor(dense.astype(np.int32), device)
+            self.last_effective_strategy = ops.kernel_route(
+                None, measures, mops, len(dense), n_prog
+            )
+            partials = ops.tree_to_numpy(ops.partial_tables(
+                codes, measures, mops, n_prog, mask,
+                null_sentinels=sentinels,
+            ))
         rows = partials["rows"][:n_groups]
         for (i, _op), part in zip(mergeable, partials["aggs"]):
             agg_parts[i] = {k: v[:n_groups] for k, v in part.items()}
@@ -762,10 +799,16 @@ class DagExecutor:
                         f"topk measure {in_col!r} must be numeric or "
                         f"datetime, not strings"
                     )
-                tvals, toffs = relops.topk_partials(
-                    dense, v, parsed[1], largest, n_groups,
-                    mask=mask, sentinel=sentinel, device=device,
-                )
+                if device is None:
+                    tvals, toffs = topk_flat(
+                        dense, v, parsed[1], largest, n_groups,
+                        mask=mask, sentinel=sentinel,
+                    )
+                else:
+                    tvals, toffs = relops.topk_partials(
+                        dense, v, parsed[1], largest, n_groups,
+                        mask=mask, sentinel=sentinel, device=device,
+                    )
                 agg_parts[i] = {
                     "topk_values": tvals, "topk_offsets": toffs
                 }
@@ -784,7 +827,8 @@ class DagExecutor:
                         f"quantile measure {in_col!r} must be numeric "
                         f"(strings/datetimes have no sketch ordering)"
                     )
-                keys = relops.sketch_bin(v, alpha, device)
+                keys = (None if device is None
+                        else relops.sketch_bin(v, alpha, device))
                 skeys, scounts, soffs = sketch_flat(
                     dense, v, n_groups, mask=mask, alpha=alpha, keys=keys
                 )

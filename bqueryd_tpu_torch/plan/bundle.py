@@ -149,11 +149,16 @@ def member_shares(executed_ids, walls=None):
 
 
 def fragment_strategy(fragment):
-    """The kernel-strategy hint a bundle fragment carries, or None.  The
-    port has no calibration yet, so a binding hint that a reference
-    controller sent ("matmul" with ``strategy_binding``) stays the advisory
-    "matmul"."""
+    """The kernel-strategy hint a bundle fragment carries, or None, with
+    the binding promotion ("matmul" plus ``strategy_binding``) rebuilt as
+    "matmul!" unless ``BQUERYD_TPU_CALIB=0``, as for a single query's plan
+    fragment."""
     strategy = fragment.get("strategy")
     if strategy in (None, "auto"):
         return None
+    if strategy == "matmul" and fragment.get("strategy_binding"):
+        from bqueryd_tpu_torch.plan import calibrate
+
+        if calibrate.enabled():
+            return "matmul!"
     return strategy

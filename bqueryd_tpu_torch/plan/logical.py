@@ -215,11 +215,16 @@ def plan_groupby(filenames, groupby_cols, agg_list, where_terms=None,
     )
 
 
-def fragment_for(plan, filenames, sole=False):
+def fragment_for(plan, filenames, strategy=None, sole=False):
     """The per-dispatch slice of a plan: what ONE CalcMessage executes.
     Its keys are the reference's, so either package's worker reads it.
-    The port's controller issues no kernel-strategy hint: the worker
-    routes."""
+
+    ``strategy`` is the controller's kernel-route hint (``plan.strategy``).
+    The calibration-backed binding promotion ("matmul!") never rides the
+    wire as a strategy value: it ships as the advisory "matmul" plus the
+    ``strategy_binding`` flag, which a worker that does not know it
+    ignores, degrading to the advisory hint."""
+    binding = strategy == "matmul!"
     return {
         "v": PLAN_VERSION,
         "filenames": list(filenames),
@@ -229,8 +234,8 @@ def fragment_for(plan, filenames, sole=False):
         "aggregate": bool(plan.aggregate_rows),
         "expand_filter_column": plan.expand_filter_column,
         "sole": bool(sole),
-        "strategy": None,
-        "strategy_binding": False,
+        "strategy": "matmul" if binding else strategy,
+        "strategy_binding": binding,
     }
 
 

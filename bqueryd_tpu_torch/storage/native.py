@@ -1,8 +1,9 @@
 """ctypes bindings for libtpucolz (native codec + column decoder).
 
-A copy of ``bqueryd_tpu/storage/native.py`` reduced to what the port's
-storage layer calls: chunk encode/decode and the int64 factorizer.  The
-library is built from the repository's ``native/`` sources into
+A copy of ``bqueryd_tpu/storage/native.py`` reduced to what the port
+calls: chunk encode/decode, the int64 factorizer and the striped host
+groupby kernels of the host route (:func:`groupby_i64`,
+:func:`groupby_f64`, :func:`groupby_minmax`).  The library is built from the repository's ``native/`` sources into
 ``native/build/libtpucolz.so`` on first use and stays optional: every entry
 point has a pure NumPy/zlib fallback in :mod:`bqueryd_tpu_torch.storage.codec`.
 """
@@ -18,6 +19,8 @@ TPC_ZLIB = 2
 
 _lib = None
 _searched = False
+_has_groupby = False
+_has_groupby_minmax = False
 
 
 def _candidate_paths():
@@ -98,9 +101,51 @@ def get_lib():
             ctypes.c_void_p,
             ctypes.c_size_t,
         ]
+        _bind_groupby(lib)
         _lib = lib
         break
     return _lib
+
+
+def _bind_groupby(lib):
+    """Declare the host groupby kernels, each family probed on its own: a
+    stale prebuilt library may carry the sum kernels but not min/max."""
+    global _has_groupby, _has_groupby_minmax
+    try:
+        for name in ("tpc_groupby_minmax_i64", "tpc_groupby_minmax_f64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [
+                ctypes.c_void_p,  # codes int32*
+                ctypes.c_void_p,  # values
+                ctypes.c_void_p,  # mask uint8* (nullable)
+                ctypes.c_size_t,  # n
+                ctypes.c_int64,   # n_groups
+                ctypes.c_void_p,  # mins
+                ctypes.c_void_p,  # maxs
+                ctypes.c_void_p,  # counts
+                ctypes.c_int32,   # nthreads
+            ]
+        _has_groupby_minmax = True
+    except AttributeError:
+        _has_groupby_minmax = False
+    try:
+        for name in ("tpc_groupby_i64", "tpc_groupby_f64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [
+                ctypes.c_void_p,  # codes int32*
+                ctypes.c_void_p,  # values (nullable)
+                ctypes.c_void_p,  # mask uint8* (nullable)
+                ctypes.c_size_t,  # n
+                ctypes.c_int64,   # n_groups
+                ctypes.c_void_p,  # sums (nullable for i64)
+                ctypes.c_void_p,  # counts
+                ctypes.c_int32,   # nthreads
+            ]
+        _has_groupby = True
+    except AttributeError:
+        _has_groupby = False
 
 
 def available():
@@ -161,3 +206,102 @@ def factorize_i64(values: np.ndarray):
     if nuniq < 0:
         raise RuntimeError("tpc_factorize_i64 capacity exceeded")
     return codes, uniques[:nuniq].copy()
+
+
+def groupby_available():
+    """True when the loaded library carries the host groupby sum/count
+    kernels (callers fall back to the NumPy paths otherwise)."""
+    return get_lib() is not None and _has_groupby
+
+
+def groupby_minmax_available():
+    """True when the loaded library also carries the min/max kernels."""
+    return get_lib() is not None and _has_groupby_minmax
+
+
+def groupby_i64(codes, values, mask, n_groups, nthreads=0):
+    """Per-group exact int64 sums (mod 2^64, any value magnitude) and
+    counts.
+
+    codes: int32[n] (negative = excluded); values: int64[n] or None (counts
+    only); mask: bool[n] or None.  Returns (sums int64[n_groups] | None,
+    counts int64[n_groups])."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    n = len(codes)
+    counts = np.empty(n_groups, dtype=np.int64)
+    sums = None
+    vptr = sptr = mptr = None
+    if values is not None:
+        values = np.ascontiguousarray(values, dtype=np.int64)
+        sums = np.empty(n_groups, dtype=np.uint64)
+        vptr, sptr = values.ctypes.data, sums.ctypes.data
+    if mask is not None:
+        mask = np.ascontiguousarray(mask, dtype=np.uint8)
+        mptr = mask.ctypes.data
+    rc = lib.tpc_groupby_i64(
+        codes.ctypes.data, vptr, mptr, n, n_groups, sptr,
+        counts.ctypes.data, nthreads,
+    )
+    if rc != 0:
+        raise RuntimeError("tpc_groupby_i64 failed")
+    return (None if sums is None else sums.view(np.int64)), counts
+
+
+def groupby_f64(codes, values, mask, n_groups, nthreads=0, want_counts=True):
+    """Per-group float64 sums with NaN skip; counts = present (non-NaN)
+    rows.  The thread merge order is fixed, so results are deterministic
+    for a given thread count but not bit-identical to NumPy's bincount."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    values = np.ascontiguousarray(values, dtype=np.float64)
+    n = len(codes)
+    sums = np.empty(n_groups, dtype=np.float64)
+    counts = np.empty(n_groups, dtype=np.int64) if want_counts else None
+    mptr = None
+    if mask is not None:
+        mask = np.ascontiguousarray(mask, dtype=np.uint8)
+        mptr = mask.ctypes.data
+    rc = lib.tpc_groupby_f64(
+        codes.ctypes.data, values.ctypes.data, mptr, n, n_groups,
+        sums.ctypes.data,
+        None if counts is None else counts.ctypes.data, nthreads,
+    )
+    if rc != 0:
+        raise RuntimeError("tpc_groupby_f64 failed")
+    return sums, counts
+
+
+def groupby_minmax(codes, values, mask, n_groups, nthreads=0):
+    """Per-group (min, max, present_count) in one striped pass.
+
+    int64 values take the i64 kernel; floats the f64 kernel (NaN rows
+    skipped).  Empty groups report the identity fills (int64 max/min or
+    +/-inf) with count 0."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    n = len(codes)
+    counts = np.empty(n_groups, dtype=np.int64)
+    mptr = None
+    if mask is not None:
+        mask = np.ascontiguousarray(mask, dtype=np.uint8)
+        mptr = mask.ctypes.data
+    if np.issubdtype(np.asarray(values).dtype, np.floating):
+        values = np.ascontiguousarray(values, dtype=np.float64)
+        mins = np.empty(n_groups, dtype=np.float64)
+        maxs = np.empty(n_groups, dtype=np.float64)
+        rc = lib.tpc_groupby_minmax_f64(
+            codes.ctypes.data, values.ctypes.data, mptr, n, n_groups,
+            mins.ctypes.data, maxs.ctypes.data, counts.ctypes.data, nthreads,
+        )
+    else:
+        values = np.ascontiguousarray(values, dtype=np.int64)
+        mins = np.empty(n_groups, dtype=np.int64)
+        maxs = np.empty(n_groups, dtype=np.int64)
+        rc = lib.tpc_groupby_minmax_i64(
+            codes.ctypes.data, values.ctypes.data, mptr, n, n_groups,
+            mins.ctypes.data, maxs.ctypes.data, counts.ctypes.data, nthreads,
+        )
+    if rc != 0:
+        raise RuntimeError("tpc_groupby_minmax failed")
+    return mins, maxs, counts

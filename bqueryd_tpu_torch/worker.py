@@ -7,10 +7,14 @@
   over views of the surviving chunks (``ops.chunk_pruned_table``), on
   every route below; basket expansion skips this, as it re-selects rows of
   a basket that live in pruned chunks;
-* mergeable aggregate queries go to the executor
+* mergeable aggregate queries over more rows than the host-routing
+  threshold (``models.query.host_kernel_rows`` at the query's worst host
+  cost) go to the executor
   (:class:`~bqueryd_tpu_torch.parallel.executor.MeshQueryExecutor`): one
   key alignment, one kernel call over every shard's rows, the merge on the
-  device;
+  device; a ``"host"`` hint, a smaller group or a wedged device
+  (:mod:`bqueryd_tpu_torch.utils.devicehealth`) skip it for the per-shard
+  engine, which then runs each shard on the host;
 * a composite key space past int64 (``ops.CompositeOverflow``) is served
   by the per-shard engine, which factorizes key tuples instead;
 * a single shard that the executor does not take (raw rows, the distinct
@@ -35,10 +39,12 @@ heartbeat, liveness WRMs from a second thread on sockets of its own,
 Busy/Done around each work item, and the reply envelope of the reference
 worker.  All device work runs on the node's loop thread.
 
-A device error is never caught on the query path: inside a node it
-becomes an ``ErrorMessage`` for the controller, never a retry on the host
-or on a plain version.  Latency-aware host routing waits for a later slice,
-so the port never routes a query around the device.
+Routing is decided before any device call and is never a fallback: a
+device error is not caught on the query path; inside a node it becomes an
+``ErrorMessage`` for the controller, never a retry on the host or on a
+plain version.  A calc worker advertises its device-health latch
+(``backend_wedged``) and its calibration cells (``calibration``,
+:mod:`bqueryd_tpu_torch.plan.calibrate`) in every WRM.
 """
 
 import contextlib
@@ -65,6 +71,7 @@ from bqueryd_tpu_torch.messages import (
 )
 from bqueryd_tpu_torch.models.query import ResultPayload
 from bqueryd_tpu_torch.parallel import hostmerge, pipeline
+from bqueryd_tpu_torch.utils import devicehealth
 from bqueryd_tpu_torch.utils.net import get_my_ip
 from bqueryd_tpu_torch.utils.tracing import PhaseTimer
 
@@ -80,12 +87,22 @@ def execute(tables, query, engine, executor=None, strategy=None,
     ``executor`` serves the mergeable aggregations when given; ``engine``
     the rest.  ``report``, a dict when given, receives the reply envelope
     keys of the reference worker: ``effective_strategy`` (the kernel
-    route) and ``merge_mode`` ("device" for the executor, "host" for the
-    per-shard host merge, "none" for one shard's payload), and, only when
-    the filter ran through chunk pruning, ``chunk_prune``:
-    ``(chunks_decoded, chunks_skipped)`` over all shards.  ``timer``, a
-    :class:`PhaseTimer` when given, times the ``prune`` phase."""
+    route, "host" for the host route) and ``merge_mode`` ("device" for the
+    executor, "host" for the per-shard host merge, "none" for one shard's
+    payload), and, only when the filter ran through chunk pruning,
+    ``chunk_prune``: ``(chunks_decoded, chunks_skipped)`` over all shards.
+    ``timer``, a :class:`PhaseTimer` when given, times the ``prune``
+    phase.
+
+    The executor runs only when the group's rows exceed
+    ``host_kernel_rows`` at the worst shard's host cost
+    (``_host_ns_estimate``), the hint is not ``"host"`` and the device is
+    not wedged; otherwise the engine routes each shard itself."""
     from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.models.query import (
+        _host_ns_estimate,
+        host_kernel_rows,
+    )
     from bqueryd_tpu_torch.ops import predicates
 
     if report is None:
@@ -102,7 +119,13 @@ def execute(tables, query, engine, executor=None, strategy=None,
         if decoded or skipped:
             tables = [p[0] for p in pruned]
             report["chunk_prune"] = (decoded, skipped)
-    if executor is not None and executor.supports(query):
+    total_rows = sum(int(t.nrows) for t in tables)
+    if (executor is not None and strategy != "host"
+            and executor.supports(query)
+            and not devicehealth.backend_wedged()
+            and total_rows > host_kernel_rows(max(
+                (_host_ns_estimate(t, query.agg_list, total_rows)
+                 for t in tables), default=None))):
         try:
             result = executor.execute(tables, query, strategy=strategy)
         except ops.CompositeOverflow:
@@ -381,6 +404,25 @@ class WorkerBase:
         self._stats_sent_ts = now
         return stats
 
+    def _backend_wedged(self):
+        """The device-health latch this node advertises.  A calc worker
+        owns the device, so its heartbeat ticks the probe clock too: an
+        idle wedged worker recovers without waiting for a query.  Other
+        roles only read the latch."""
+        return devicehealth.backend_wedged(launch=self.workertype == "calc")
+
+    def _calibration_to_advertise(self):
+        """The WRM calibration summary, or None (another role, calibration
+        off, or nothing measured yet); a failure never breaks liveness."""
+        if self.workertype != "calc":
+            return None
+        try:
+            from bqueryd_tpu_torch.plan import calibrate
+
+            return calibrate.summary_for_wire()
+        except Exception:
+            return None
+
     def prepare_wrm(self):
         return WorkerRegisterMessage(
             {
@@ -393,10 +435,16 @@ class WorkerBase:
                 "pid": os.getpid(),
                 "uptime": time.time() - self.start_time,
                 "msg_count": self.msg_count,
+                # the device-health latch, for rpc.info()
+                "backend_wedged": self._backend_wedged(),
                 # metadata-only per-shard stats (rows, min/max,
-                # cardinality) for the controller's plan-time pruning;
-                # None when unchanged stats went out recently
+                # cardinality) for the controller's plan-time pruning and
+                # strategy hints; None when unchanged stats went out
+                # recently
                 "shard_stats": self._stats_to_advertise(),
+                # the measured kernel-wall cells (plan.calibrate) the
+                # controller's select_calibrated consults
+                "calibration": self._calibration_to_advertise(),
             }
         )
 
@@ -538,6 +586,12 @@ class WorkerNode(WorkerBase):
 
             onehot._library()
             torch.empty(0, device=self.device)
+            # the dispatch floor behind host routing, measured now that
+            # the kernels are loaded and the context exists: a sample
+            # taken during either would push the threshold to its cap
+            from bqueryd_tpu_torch.models.query import device_dispatch_floor
+
+            device_dispatch_floor(remeasure=True, device=self.device)
         super().go()
 
     def _open_table(self, rootdir):
@@ -751,15 +805,21 @@ class WorkerNode(WorkerBase):
         key space past int64 (``ops.CompositeOverflow``) run through the
         per-shard :class:`DagExecutor` and the host merge, ``merge_mode``
         "host" or "none"; any other error, a device error included,
-        propagates.  ``report`` as :func:`execute` fills it."""
+        propagates.  A wedged device or a group at or under
+        ``host_kernel_rows()`` skips the fast path: ``DagExecutor`` routes
+        each shard.  ``report`` as :func:`execute` fills it."""
         from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.models.query import host_kernel_rows
         from bqueryd_tpu_torch.parallel.executor import (
             DagFastPathUnsupported,
         )
         from bqueryd_tpu_torch.parallel.opexec import DagExecutor
         from bqueryd_tpu_torch.plan import dag as dagmod
 
-        if dagmod.dag_batchable(dag):
+        total_rows = sum(int(t.nrows) for t in tables)
+        if (dagmod.dag_batchable(dag)
+                and not devicehealth.backend_wedged()
+                and total_rows > host_kernel_rows()):
             self.executor.timer = timer
             try:
                 payload = self.executor.execute_dag(tables, dag)
@@ -906,11 +966,16 @@ class WorkerNode(WorkerBase):
         fragment = msg.get_from_binary("plan") if msg.get("plan") else None
         strategy = None
         if fragment:
+            from bqueryd_tpu_torch.plan import calibrate
+
             query = fragment_to_query(fragment)
             strategy = fragment.get("strategy")
             if strategy == "auto":
                 strategy = None
-            elif strategy == "matmul" and fragment.get("strategy_binding"):
+            elif (strategy == "matmul" and fragment.get("strategy_binding")
+                  and calibrate.enabled()):
+                # the calibration-backed promotion, unless this worker runs
+                # under the BQUERYD_TPU_CALIB=0 kill switch
                 strategy = "matmul!"
         else:
             query = GroupByQuery(
@@ -1015,8 +1080,9 @@ class WorkerNode(WorkerBase):
         alignment and uploads happen once; each member keeps its own
         identity: its result-cache key (the key of its solo run), its
         deadline (a member past it is dropped from the stack, not the
-        bundle) and its errors.  Every mergeable bundle goes to
-        :meth:`MeshQueryExecutor.execute_bundle`; a key space past int64
+        bundle) and its errors.  A bundle :meth:`_bundle_mesh_eligible`
+        admits goes to :meth:`MeshQueryExecutor.execute_bundle` (others run
+        member by member); a key space past int64
         (``ops.CompositeOverflow``) or a member-shape rejection
         (``ValueError``) runs the members one by one through
         :func:`execute`, where a failing member fails alone.  Any other
@@ -1071,7 +1137,7 @@ class WorkerNode(WorkerBase):
         results, walls = {}, {}
         if active:
             bundled = None
-            if self._bundle_mesh_eligible(list(active.values())):
+            if self._bundle_mesh_eligible(tables, list(active.values())):
                 try:
                     bundled = self.mesh_executor_for_bundle(
                         tables, list(active.values()), timer, strategy)
@@ -1130,12 +1196,32 @@ class WorkerNode(WorkerBase):
             reply["merge_mode"] = report["merge_mode"]
         return reply
 
-    def _bundle_mesh_eligible(self, queries):
-        """Whether a bundle runs as one shared scan on the executor: every
-        member mergeable, as the solo path routes.  The reference also
-        keeps a wedged device's and a small shard group's bundles on the
-        host; the port does not route around the device yet."""
-        return all(self.executor.supports(q) for q in queries)
+    def _bundle_mesh_eligible(self, tables, queries):
+        """Whether a bundle runs as one shared scan on the executor, as the
+        solo path routes: every member mergeable, the device not wedged,
+        and the group's rows above ``host_kernel_rows`` at the worst
+        member's host cost.  A member the estimate cannot price (a column
+        a shard lacks) sends the bundle member by member, where it fails
+        alone."""
+        from bqueryd_tpu_torch.models.query import (
+            _host_ns_estimate,
+            host_kernel_rows,
+        )
+
+        if devicehealth.backend_wedged():
+            return False
+        if not all(self.executor.supports(q) for q in queries):
+            return False
+        total_rows = sum(int(t.nrows) for t in tables)
+        try:
+            worst = max(
+                (_host_ns_estimate(t, q.agg_list, total_rows)
+                 for t in tables for q in queries),
+                default=None,
+            )
+        except Exception:
+            return False
+        return total_rows > host_kernel_rows(worst)
 
     def mesh_executor_for_bundle(self, tables, queries, timer, strategy):
         """The shared scan of a bundle: one :class:`ResultPayload` per

@@ -39,7 +39,11 @@
    phases (prune included), the client's merge and the rest, beside
    ``LocalRPC``'s; the worker's result cache is off, so that every warm
    query runs its kernels, and its delta cache on (its bookkeeping is the
-   ``delta`` phase);
+   ``delta`` phase); under the heuristic strategy hints alone
+   (``BQUERYD_TPU_CALIB=0``): each query's hints must be
+   ``plan.strategy.select_for_group``'s and its routes and launches the
+   ones they imply (highcard's binding "scatter" launches no contraction
+   here, every other config its kernel);
 6. drives the operator-DAG verb on a cluster of its own over the same
    shards: five configs through ``RPC.query`` (dag_join: a 265-row zone
    table joined on PULocationID; dag_topk: fare's top 5 and trip_distance's
@@ -78,27 +82,51 @@
    identical-query probe (two identical queries, one CalcMessage); a query
    the advertised shard stats exclude on every shard (no dispatch).  Every
    answer equals NumPy's, ints bit for bit; each bundle member launches
-   one contraction and the fused windows form bundles;
-9. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
+   one contraction and the fused windows form bundles; under the
+   heuristic hints alone every solo query and member runs the
+   contraction; the per-query routing work this slice added (the worker's
+   gate and the controller's hint) is timed outside the loop;
+9. drives latency-aware host routing and the device-health latch on a
+   cluster of its own (``run_routing_path``): the dispatch floor the
+   worker measured after its warmup and the host-routing threshold at 8
+   and 32 ns a row (below the append leg's 20,833-row tail views); a shard
+   group of half the threshold through the cluster at the default (route
+   "host", no launch) and under ``BQUERYD_TPU_HOST_KERNEL_ROWS=0`` (on the
+   card, one launch), 5 + 5 walls; then ``devicehealth.force_state(True)``:
+   the five BASELINE configs, dag_join and a 40 ms window of 4 zones
+   queries, exact, every route "host", no launch and no CUDA allocation,
+   the worker map showing ``backend_wedged``; then ``force_state(False)``
+   and the BASELINE configs take their heuristic routes and launch their
+   kernels again;
+10. drives measured-cost calibration on a cluster of its own
+   (``run_calibration_path``): the worker's store emptied, 1 cold + 20
+   warm rounds of single, zones and highcard at the default settings,
+   each exact and its launches held to the route its reply names, every
+   change of route logged; each round's hint and route, the walls per
+   route, the controller's ``get_info()["calibration"]`` (cells tagged
+   "cuda") and the four hint counters; one round under
+   ``BQUERYD_TPU_CALIB=0`` must carry the heuristic hints alone and take
+   their routes (single and zones launch their kernels);
+11. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
    ``... worker --device=cuda`` as processes, one checked query per config
    (but the unpruned leg, whose environment the worker process does not
    have), dag_join through ``RPC.query`` and an append to a small shard
    of its own (the repeat query a delta refresh), both stopped by SIGTERM
    and exiting 0;
-10. drives the per-shard engine path (``QueryEngine.execute_local`` per
+12. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
    (executor, cluster, DAG, append, concurrency, engine) and read just
    after, and every
    kernel of each path must have launched there;
-11. breaks queries down into host phases and pipeline stage busy time
+13. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-12. holds every branch of each kernel against its plain PyTorch version at
+14. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
@@ -114,16 +142,22 @@
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-13. sweeps the base kernel's two branches over G (the crossover behind
+15. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-14. times the fast path's torch bodies at the shapes its programs ran
+16. times the fast path's torch bodies at the shapes its programs ran
     (each top-k emission, checked against the sort route, each sketch
     grid, the whole program with its fetch);
-15. prints the sweeps, the fast path's program times, the ``kernels``
-    JSON line, then the device JSON line last.
+17. prints the sweeps, the fast path's program times, the device-health
+    snapshot (the latch must have flipped only where the wedge leg forced
+    it, no probe written off), the ``kernels`` JSON line, then the device
+    JSON line last.
 
-Exits non-zero, printing no result, without a CUDA card or outside a
-checkout of the repository.  Any failed phase fails the run.
+Every leg that runs a controller, but the calibration leg and the
+routing leg's host-routed queries, runs under the heuristic strategy
+hints alone (``BQUERYD_TPU_CALIB=0``), so that no route depends on walls
+an earlier leg recorded; calibration's route changes are the calibration
+leg's.  Exits non-zero, printing no result, without a CUDA card or
+outside a checkout of the repository.  Any failed phase fails the run.
 """
 
 import contextlib
@@ -544,6 +578,47 @@ def expected_launches(config, parts):
     return {shape_key(kernel, branch, *EXEC_SHAPE[config], n): 1}
 
 
+#: the route a config's cluster queries take under the heuristic hints
+#: alone (``BQUERYD_TPU_CALIB=0``): highcard's estimate, 265 x 265 = 70,225
+#: groups above the 8,192-group contraction limit, draws a binding
+#: "scatter"; every other config stays on the contraction
+HEURISTIC_ROUTE = {"highcard": "scatter"}
+
+
+def heuristic_route(config):
+    return HEURISTIC_ROUTE.get(config, "matmul")
+
+
+def heuristic_hints(controller, config, names):
+    """{hint: shards} the controller stamps on one query of ``config``
+    under the heuristic hints: ``plan.strategy.select_for_group`` per
+    dispatch group (each shard alone for the per-shard configs) over the
+    shards its advertised stats do not prune."""
+    from bqueryd_tpu_torch import plan as planmod
+    from bqueryd_tpu_torch.plan import strategy as strategymod
+
+    sl, gcols, _aggs, where = CONFIGS[config]
+    shards = [n for n in names[sl] if not where
+              or planmod.stats_can_match(controller.shard_stats[n], where)]
+    groups = ([[n] for n in shards] if config in PER_SHARD_SHAPE
+              else [shards])
+    hints = {}
+    for group in groups:
+        hint = strategymod.select_for_group(controller.shard_stats, group,
+                                            gcols)[0]
+        hints[hint] = hints.get(hint, 0) + len(group)
+    return hints
+
+
+def route_launches(config, parts, routes):
+    """{shape key: launches} of one cluster query of ``config`` whose
+    replies name ``routes`` (``effective_strategy`` per shard group): the
+    calibrated hints (an exploration, a measured override or the analytic
+    prior) may take the query off the contraction, so only the "matmul"
+    route launches."""
+    return expected_launches(config, parts) if routes == ["matmul"] else {}
+
+
 def _env(config):
     """The environment ``config`` runs under (``ENV``), restored after."""
     return _env_set(ENV.get(config, {}))
@@ -691,7 +766,15 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
     query's shard messages, which the worker serves one after another),
     the client's merge and the rest (controller, ZMQ hops, pickling),
     beside the median of 20 pings (client to controller and back) and the
-    worker's table opens timed outside its loop."""
+    worker's table opens timed outside its loop.
+
+    The controller stamps each dispatch with a strategy hint; the leg runs
+    under the heuristic hints alone (``BQUERYD_TPU_CALIB=0``, set by the
+    caller), so that no route depends on walls an earlier leg recorded:
+    each query's hints must be ``plan.strategy.select_for_group``'s, its
+    routes :data:`HEURISTIC_ROUTE`'s (highcard's binding "scatter", no
+    launch) and its launches the expected ones.  Calibration's route
+    changes are the calibration leg's (:func:`run_calibration_path`)."""
     from bqueryd_tpu_torch import ops
     from bqueryd_tpu_torch.ops import onehot
 
@@ -706,21 +789,27 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                 raise AssertionError("the controller did not answer a ping")
             pings.append(time.perf_counter() - t0)
         report["ping_s_median"] = float(np.median(pings))
+        _wait(lambda: all(n in controller.shard_stats for n in names),
+              60, "every shard's advertised stats")
         for config in CONFIGS:
             sl = CONFIGS[config][0]
             want = reference(config, parts)
-            expect = expected_launches(config, parts)
             # one message per shard group: the executor configs' shards
             # are one group, the per-shard configs' go one by one
             groups = (len(names[sl]) if config in PER_SHARD_SHAPE else 1)
             modes_want = [
                 "device" if MERGE_MODE[config] == "device" else "none"
             ] * groups
-            route = local[config]["route"]
-            routes_want = [route] * groups if route else []
+            # a per-shard config with no mergeable agg names no route
+            route = heuristic_route(config)
+            routes_want = ([route] * groups
+                           if config != "distinct_sole" else [])
+            expect = (expected_launches(config, parts)
+                      if route == "matmul" else {})
+            hints_want = heuristic_hints(controller, config, names)
             # the worker's loop thread idles between queries
             worker.clear_caches()
-            queries = []
+            queries, launches = [], 0
             for rep in range(warm + 1):
                 before = dict(onehot.LAUNCHES)
                 (order, columns), wall = _timed(
@@ -729,13 +818,15 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                 launched = _launch_delta(before)
                 modes = list(rpc.last_call_merge_modes.values())
                 routes = list(rpc.last_call_strategies["effective"].values())
+                hints = rpc.last_call_strategies["hints"]
                 if (launched != expect or modes != modes_want
-                        or routes != routes_want):
+                        or routes != routes_want or hints != hints_want):
                     raise AssertionError(
                         f"cluster {config} query {rep}: expected {expect}, "
-                        f"merge modes {modes_want} and routes {routes_want}; "
-                        f"launched {launched}, merge modes {modes}, routes "
-                        f"{routes}")
+                        f"merge modes {modes_want}, routes {routes_want} and "
+                        f"hints {hints_want}; launched {launched}, merge "
+                        f"modes {modes}, routes {routes}, hints {hints}")
+                launches += sum(launched.values())
                 queries.append(_reply_split(rpc, wall))
                 _check_prune(config, f"cluster {config} query {rep}",
                              queries[-1]["chunk_prune"])
@@ -773,9 +864,10 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                 open_direct_s_median=float(np.median(opens)),
                 prune_direct=prune_direct,
                 routes=routes,
+                hints=hints,
                 merge_modes=modes,
-                launch_shapes=expect,
-                launches=sum(expect.values()) * (warm + 1),
+                launch_shapes=expected_launches(config, parts),
+                launches=launches,
                 chunk_prune=queries[-1]["chunk_prune"],
                 local_rpc_cold_wall_s=local[config]["cold_wall_s"],
                 local_rpc_warm_wall_s_median=local[config][
@@ -1565,7 +1657,8 @@ def _swarm(url, queries_by_client, window_ms):
     that each round's queries land together, ``window_ms`` set for the leg.
     Returns ``(results[(client, round)], walls, elapsed_s, timings)``:
     ``timings[(client, round)]`` is the reply's phase timings of its one
-    shard group (a bundle member's scaled by its share)."""
+    shard group (a bundle member's scaled by its share), with the route
+    its reply named under ``"_route"``."""
     import logging
 
     from bqueryd_tpu_torch.rpc import RPC
@@ -1589,6 +1682,8 @@ def _swarm(url, queries_by_client, window_ms):
                     walls.append(wall)
                     results[(ci, k)] = out
                     (timings[(ci, k)],) = rpc.last_call_timings.values()
+                    (timings[(ci, k)]["_route"],) = (
+                        rpc.last_call_strategies["effective"].values())
         except Exception as exc:  # noqa: BLE001 - raised below
             errors.append(exc)
             barrier.abort()
@@ -1714,12 +1809,17 @@ def run_concurrency_path(names, parts, data_dir, store_dir, captured):
                 counters = _counter_delta(controller, before)
                 launched = _launch_delta(launches_before)
                 kernel, branch = CONC_KERNEL["swarm"]
+                # a solo query carries the heuristic's advisory "matmul"
+                # hint: every query and member on the contraction
+                routes = [t["_route"] for t in timings.values()]
                 if (sum(launched.values()) != n_queries
+                        or set(routes) != {"matmul"}
                         or any(not k.startswith(f"{kernel}/{branch}/")
                                for k in launched)):
                     raise AssertionError(
                         f"{leg}: launched {launched} for {n_queries} "
-                        "queries (one contraction per query or member)")
+                        f"queries with routes {routes} (one contraction per "
+                        "query or member)")
                 if leg == "fused" and not (
                         counters["plan_bundled_queries"]
                         > counters["plan_bundles"] > 0):
@@ -1729,6 +1829,7 @@ def run_concurrency_path(names, parts, data_dir, store_dir, captured):
                                          or len(bundle_phases) != n_phases):
                     raise AssertionError(f"window 0 bundled: {counters}")
                 report[leg] = {
+                    "routes": {r: routes.count(r) for r in set(routes)},
                     "qps": n_queries / elapsed,
                     "elapsed_s": elapsed,
                     "wall_s_median": float(np.median(walls)),
@@ -1743,12 +1844,17 @@ def run_concurrency_path(names, parts, data_dir, store_dir, captured):
                     report[leg]["reply_phases_s_median"] = {
                         k: float(np.median([t.get(k, 0.0)
                                             for t in timings.values()]))
-                        for k in next(iter(timings.values()))}
+                        for k in next(iter(timings.values()))
+                        if k != "_route"}
                 log(f"concurrency {leg}: qps {report[leg]['qps']:.1f}, "
                     f"median {report[leg]['wall_s_median'] * 1e3:.2f} ms, "
                     f"counters {counters}")
             report["fused_over_unfused_qps"] = (report["fused"]["qps"]
                                                 / report["unfused"]["qps"])
+            report["routing_work_us"] = _routing_work(
+                controller, worker, data_dir, names, gcols, aggs)
+            log(f"concurrency routing work per query (us): "
+                f"{json.dumps(report['routing_work_us'])}")
 
             # two windows of 4 compatible queries per other contraction
             # (the second at thresholds shifted by 0.5)
@@ -1824,6 +1930,343 @@ def run_concurrency_path(names, parts, data_dir, store_dir, captured):
             _stop_cluster(rpc, controller, worker, threads)
     log(f"concurrency: fused/unfused QPS "
         f"{report['fused_over_unfused_qps']:.3f}")
+    return report
+
+
+def _routing_work(controller, worker, data_dir, names, gcols, aggs,
+                  reps=200):
+    """Median µs of the routing work one swarm query pays, timed on this
+    thread while the nodes idle: the worker's gate in ``worker.execute``
+    (the wedge latch, the host-cost estimate over the group's shards, the
+    threshold) and the controller's hint (``plan.select_calibrated`` over
+    the advertised stats and its model), with calibration off and on."""
+    from bqueryd_tpu_torch.models.query import (
+        _host_ns_estimate,
+        host_kernel_rows,
+    )
+    from bqueryd_tpu_torch.plan import strategy as strategymod
+    from bqueryd_tpu_torch.utils import devicehealth
+
+    tables = [worker._open_table(os.path.join(data_dir, n)) for n in names]
+
+    def gate():
+        total = sum(int(t.nrows) for t in tables)
+        return (not devicehealth.backend_wedged()
+                and total > host_kernel_rows(max(
+                    _host_ns_estimate(t, aggs, total) for t in tables)))
+
+    def hint():
+        return strategymod.select_calibrated(
+            controller.shard_stats, names, gcols, controller.calibration)
+
+    out = {}
+    for label, fn, env in (("gate", gate, {}),
+                           ("hint_calib_off", hint,
+                            {"BQUERYD_TPU_CALIB": "0"}),
+                           ("hint_calib_on", hint,
+                            {"BQUERYD_TPU_CALIB": "1"})):
+        walls = []
+        with _env_set(env):
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                walls.append(time.perf_counter() - t0)
+        out[label] = float(np.median(walls)) * 1e6
+    return out
+
+
+#: not-wedged -> wedged flips the run forces (the wedge leg's one)
+FORCED_FLIPS = 1
+#: the wedge leg's window of compatible zones queries (their filters)
+WEDGE_ZONES = (2.0, 7.5, 15.0, 22.5)
+#: walls per route of the host-route leg (alternating host and device)
+ROUTE_REPS = 5
+
+
+def _route_dataset(data_dir, rows):
+    """A shard group of ``rows`` taxi rows in 2 shards, written with
+    :func:`make_dataset` beside the taxi shards as ``route_{i}.bcolzs``."""
+    tmp = tempfile.mkdtemp(prefix="route_", dir=data_dir)
+    names, parts = make_dataset(tmp, rows=rows, shards=2)
+    moved = []
+    for i, name in enumerate(names):
+        moved.append(f"route_{i}.bcolzs")
+        os.rename(os.path.join(tmp, name), os.path.join(data_dir, moved[-1]))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return moved, parts
+
+
+def _cluster_query(rpc, config, names, parts, want, label, expect_route):
+    """One checked ``RPC.groupby`` of ``config`` over ``names``: the
+    answer equal to NumPy's, every reply's route ``expect_route`` and the
+    launches it implies (none off the contraction); with ``expect_route``
+    None (calibrated hints), the launches of the route the reply names.
+    Returns the query's record."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    sl, gcols, aggs, where = CONFIGS[config]
+    before = dict(onehot.LAUNCHES)
+    (order, columns), wall = _timed(lambda: rpc.groupby(
+        names, gcols, aggs, where, **OPTIONS.get(config, {})))
+    check_result(config, order, columns, want)
+    launched = _launch_delta(before)
+    routes = list(rpc.last_call_strategies["effective"].values())
+    if expect_route is None:
+        expect = route_launches(config, parts, routes)
+    elif not routes or any(r != expect_route for r in routes):
+        raise AssertionError(f"{label}: routes {routes}, expected "
+                             f"{expect_route}")
+    else:
+        expect = (expected_launches(config, parts)
+                  if expect_route == "matmul" else {})
+    if launched != expect:
+        raise AssertionError(f"{label}: routes {routes}, expected launches "
+                             f"{expect}, launched {launched}")
+    return {"wall_s": wall, "routes": routes, "launched": launched,
+            "hints": rpc.last_call_strategies["hints"],
+            "merge_modes": list(rpc.last_call_merge_modes.values())}
+
+
+def run_routing_path(names, parts, data_dir, store_dir):
+    """Latency-aware host routing and the device-health latch on a cluster
+    of their own over the taxi shards (result cache off):
+
+    1. the dispatch floor the worker measured after its warmup, and the
+       host-routing threshold at 8 and 32 ns a row, which must lie below
+       the smallest shape a leg runs on the card (the append leg's
+       20,833-row tail views);
+    2. a shard group of half that threshold (2 shards) through the
+       cluster, alternately at the default (route "host", no launch) and
+       under ``BQUERYD_TPU_HOST_KERNEL_ROWS=0`` and the heuristic hints
+       (route "matmul", one launch), both exact: the two walls are the
+       card's crossover;
+    3. the wedge: ``devicehealth.force_state(True)`` in this process, then
+       the five BASELINE configs, dag_join and a 40 ms window of 4
+       ``zones`` queries, every answer exact, every route "host", no
+       launch and no CUDA allocation, the worker map showing
+       ``backend_wedged``; then ``force_state(False)`` and the BASELINE
+       configs, under the heuristic hints (``BQUERYD_TPU_CALIB=0``), take
+       their :data:`HEURISTIC_ROUTE` again and launch its kernels."""
+    import torch
+
+    from bqueryd_tpu_torch.models import query as q
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.utils import devicehealth
+
+    report = {}
+    rpc, controller, worker, threads = _start_cluster(data_dir, store_dir)
+    route_names = []
+    try:
+        # 1. the floor: WorkerNode.go remeasured it once the kernels were
+        # loaded and the CUDA context made
+        floor = q.device_dispatch_floor()
+        rows8 = q.host_kernel_rows()
+        rows32 = q.host_kernel_rows(q._HOST_NS_PER_ROW_SLOW)
+        smallest = INGEST_ROWS // INGEST_SHARDS // 24
+        report["floor"] = {"floor_us": floor * 1e6, "host_rows_8ns": rows8,
+                           "host_rows_32ns": rows32,
+                           "smallest_device_shape_rows": smallest}
+        log(f"dispatch floor {floor * 1e6:.3f} us: host-routing threshold "
+            f"{rows8} rows at 8 ns/row, {rows32} at 32 ns/row")
+        if not 0 < rows32 <= rows8 < smallest:
+            raise AssertionError(f"threshold {report['floor']} not below "
+                                 f"the {smallest}-row tail views")
+
+        # 2. a shard group of half the threshold, host and card in turn
+        route_names, route_parts = _route_dataset(data_dir, max(rows8 // 2,
+                                                                 4))
+        _wait(lambda: all(n in controller.files_map for n in route_names),
+              30, "the worker advertising the host-route shards")
+        want = reference("sharded", route_parts)
+        walls = {"host": [], "device": []}
+        for rep in range(ROUTE_REPS + 1):
+            for leg, env, route in (
+                    ("host", {}, "host"),
+                    ("device", {"BQUERYD_TPU_HOST_KERNEL_ROWS": "0",
+                                "BQUERYD_TPU_CALIB": "0"}, "matmul")):
+                with _env_set(env):
+                    rec = _cluster_query(
+                        rpc, "sharded", route_names, route_parts, want,
+                        f"host-route leg {leg} {rep}", route)
+                if rep:
+                    walls[leg].append(rec["wall_s"])
+        report["host_route"] = {
+            "rows": sum(len(p["fare_amount"]) for p in route_parts),
+            "host_wall_s_median": float(np.median(walls["host"])),
+            "device_wall_s_median": float(np.median(walls["device"])),
+            "walls_s": walls,
+        }
+        log(f"host route: {json.dumps(report['host_route'])}")
+
+        # 3. the wedge: no probe may run (and unlatch) inside the leg
+        stats_before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        before = dict(onehot.LAUNCHES)
+        wedged = {}
+        with _env_set({"BQUERYD_TPU_DEVICE_PROBE_INTERVAL_S": "3600"}):
+            devicehealth.force_state(True)
+            try:
+                _wait(lambda: controller.worker_map.get(
+                    worker.worker_id, {}).get("backend_wedged"), 30,
+                    "backend_wedged in the controller's worker map")
+                for config in BASE_CONFIGS:
+                    wedged[config] = _cluster_query(
+                        rpc, config, names[CONFIGS[config][0]], parts,
+                        reference(config, parts), f"wedged {config}", "host")
+                (order, columns), wall = _timed(lambda: rpc.query(
+                    dict(DAG_SPECS["dag_join"], table=list(names))))
+                check_dag("dag_join", order, columns,
+                          dag_reference("dag_join", parts))
+                routes = list(rpc.last_call_strategies["effective"].values())
+                if routes != ["host"]:
+                    raise AssertionError(f"wedged dag_join: routes {routes}")
+                wedged["dag_join"] = {"wall_s": wall, "routes": routes}
+                counters = dict(controller.counters)
+                gc, ag, _t = CONC_WINDOWS["zones"]
+                cols = {c: np.concatenate([p[c] for p in parts])
+                        for c in ("PULocationID", "fare_amount",
+                                  "trip_distance")}
+                results, zwalls, _elapsed, timings = _swarm(
+                    controller_url(store_dir),
+                    [[(names, gc, ag, [["trip_distance", ">", t]])]
+                     for t in WEDGE_ZONES], CONC_WINDOW_MS)
+                for ci, t in enumerate(WEDGE_ZONES):
+                    check_conc(f"wedged zones > {t}", gc, ag,
+                               *results[(ci, 0)],
+                               conc_reference(cols, gc, ag, t))
+                zroutes = [t["_route"] for t in timings.values()]
+                zcount = _counter_delta(controller, counters)
+                if set(zroutes) != {"host"} or zcount["plan_bundles"] != 1:
+                    raise AssertionError(f"wedged zones window: routes "
+                                         f"{zroutes}, counters {zcount}")
+                wedged["zones_window"] = {
+                    "wall_s_median": float(np.median(zwalls)),
+                    "routes": zroutes, "counters": zcount}
+                launched = _launch_delta(before)
+                allocs = (torch.cuda.memory_stats()["allocation.all.allocated"]
+                          - stats_before)
+                if launched or allocs:
+                    raise AssertionError(f"wedged leg launched {launched}, "
+                                         f"{allocs} CUDA allocations")
+                wedged["worker_map_backend_wedged"] = bool(
+                    controller.worker_map[worker.worker_id]["backend_wedged"])
+            finally:
+                devicehealth.force_state(False)
+        report["wedged"] = wedged
+        log(f"wedged: {json.dumps(wedged)}")
+        _wait(lambda: not controller.worker_map.get(
+            worker.worker_id, {}).get("backend_wedged"), 30,
+            "the recovered worker's WRM")
+        # the heuristic hints alone (calibration off), so that each config
+        # takes the route its shape gives it: the four base-kernel configs
+        # launch their contraction again, highcard runs its binding
+        # "scatter"
+        recovered = {}
+        with _env_set({"BQUERYD_TPU_CALIB": "0"}):
+            for config in BASE_CONFIGS:
+                recovered[config] = _cluster_query(
+                    rpc, config, names[CONFIGS[config][0]], parts,
+                    reference(config, parts), f"recovered {config}",
+                    heuristic_route(config))
+        report["recovered"] = recovered
+        log(f"recovered: {json.dumps(recovered)}")
+    finally:
+        _stop_cluster(rpc, controller, worker, threads)
+        for name in route_names:
+            shutil.rmtree(os.path.join(data_dir, name), ignore_errors=True)
+    return report
+
+
+#: the calibration leg: warm rounds of these configs on a cluster of its
+#: own, default settings
+CALIB_CONFIGS = ("single", "zones", "highcard")
+CALIB_ROUNDS = 20
+HINT_COUNTERS = ("plan_strategy_hints", "plan_calibrated_overrides",
+                 "plan_explore_hints", "plan_matmul_promotions")
+
+
+def run_calibration_path(names, parts, data_dir, store_dir):
+    """Measured-cost calibration on a cluster of its own (result cache
+    off, calibration at its defaults, the worker's store emptied first so
+    that no earlier leg's walls steer it): one cold and
+    :data:`CALIB_ROUNDS` warm rounds of :data:`CALIB_CONFIGS`, each answer
+    exact and its launches held to the route its reply names, every
+    change of route logged; each round's hint and route, the walls per
+    route, the controller's model (``get_info()["calibration"]``, cells
+    tagged "cuda") and the four hint counters; then one round under
+    ``BQUERYD_TPU_CALIB=0``, whose hints must be the heuristic's
+    (``plan.strategy.select_for_group``) and whose routes and launches
+    :data:`HEURISTIC_ROUTE`'s."""
+    from bqueryd_tpu_torch.plan import calibrate
+
+    # the worker-side store is process-global: every earlier leg's
+    # executor and engine recorded into it
+    calibrate._reset_for_tests()
+    rpc, controller, worker, threads = _start_cluster(data_dir, store_dir)
+    report = {"rounds": [], "walls_by_route": {}, "flips": [],
+              "launches": dict.fromkeys(CALIB_CONFIGS, 0)}
+    try:
+        wants = {c: reference(c, parts) for c in CALIB_CONFIGS}
+        for rnd in range(CALIB_ROUNDS + 1):
+            row = {}
+            for config in CALIB_CONFIGS:
+                rec = _cluster_query(rpc, config, names[CONFIGS[config][0]],
+                                     parts, wants[config],
+                                     f"calibration {config} round {rnd}",
+                                     None)
+                (route,) = rec["routes"]
+                report["launches"][config] += sum(rec["launched"].values())
+                row[config] = {"hints": rec["hints"], "route": route,
+                               "wall_s": rec["wall_s"]}
+                if rnd and report["rounds"][-1][config]["route"] != route:
+                    report["flips"].append({
+                        "round": rnd, "config": config, "hints": rec["hints"],
+                        "from": report["rounds"][-1][config]["route"],
+                        "to": route})
+                    log(f"calibration {config} round {rnd}: route "
+                        f"{report['flips'][-1]['from']} -> {route} (hints "
+                        f"{rec['hints']})")
+                if rnd:
+                    report["walls_by_route"].setdefault(
+                        f"{config} {route}", []).append(rec["wall_s"])
+            report["rounds"].append(row)
+        info = rpc.info()["calibration"]
+        # the worker's device type tags its cells: "cuda" on the card
+        tag = f"|{worker.device.type}|"
+        cuda_cells = sorted({k for cells in info["source_cells"].values()
+                             for k in cells if tag in k})
+        if not cuda_cells:
+            raise AssertionError(f"no {tag}-tagged cell: {info}")
+        report["calibration"] = info
+        report["counters"] = {k: controller.counters[k]
+                              for k in HINT_COUNTERS}
+        report["walls_by_route_median_s"] = {
+            k: float(np.median(v)) for k, v in
+            report["walls_by_route"].items()}
+        # the kill switch: heuristic hints, routes and launches only
+        killed = {}
+        with _env_set({"BQUERYD_TPU_CALIB": "0"}):
+            for config in CALIB_CONFIGS:
+                rec = _cluster_query(rpc, config, names[CONFIGS[config][0]],
+                                     parts, wants[config],
+                                     f"calibration off {config}",
+                                     heuristic_route(config))
+                heuristic = heuristic_hints(controller, config, names)
+                if rec["hints"] != heuristic:
+                    raise AssertionError(f"BQUERYD_TPU_CALIB=0 {config}: "
+                                         f"hints {rec['hints']}, heuristic "
+                                         f"{heuristic}")
+                killed[config] = rec
+        report["calib_off"] = killed
+    finally:
+        _stop_cluster(rpc, controller, worker, threads)
+    log(f"calibration: counters {report['counters']}, cuda cells "
+        f"{cuda_cells}")
+    for rnd, row in enumerate(report["rounds"]):
+        log(f"calibration round {rnd}: " + ", ".join(
+            f"{c} {v['hints']} -> {v['route']} {v['wall_s'] * 1e3:.3f} ms"
+            for c, v in row.items()))
+    log(f"calibration walls by route (median s): "
+        f"{json.dumps(report['walls_by_route_median_s'])}")
     return report
 
 
@@ -2682,35 +3125,70 @@ def main():
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
         # the result cache off, so that every warm query runs its kernels
-        # (the delta cache stays on: its bookkeeping is in the walls)
-        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}):
+        # (the delta cache stays on: its bookkeeping is in the walls); the
+        # heuristic hints alone, so that the routes do not depend on walls
+        # earlier legs recorded
+        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0",
+                       "BQUERYD_TPU_CALIB": "0"}):
             cluster = run_cluster_path(
                 names, parts, data_dir,
                 tempfile.mkdtemp(prefix="store_", dir=data_dir), configs)
-        cluster_launches = counted_launches("cluster")
+        # every config's kernel launched, but highcard's: its binding
+        # "scatter" hint takes it off the contraction here
+        cluster_launches = counted_launches(
+            "cluster", [c for c in CONFIGS if heuristic_route(c) == "matmul"])
         log(f"cluster path: {time.perf_counter() - t0:.1f}s")
         # the operator DAGs and the append verb, each a path of its own
         captured, programs = {}, {}
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
-        dag = run_dag_path(names, parts, data_dir,
-                           tempfile.mkdtemp(prefix="dag_store_",
-                                            dir=data_dir), captured, programs)
+        # the heuristic hints alone here too: dag_plain's bytes must equal
+        # those of RPC.groupby, whose hint calibration could route
+        # elsewhere than the DAG's route
+        with _env_set({"BQUERYD_TPU_CALIB": "0"}):
+            dag = run_dag_path(names, parts, data_dir,
+                               tempfile.mkdtemp(prefix="dag_store_",
+                                                dir=data_dir),
+                               captured, programs)
         dag_launches = path_launches("dag")
         log(f"DAG path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
-        append = run_append_path(data_dir, captured)
+        with _env_set({"BQUERYD_TPU_CALIB": "0"}):
+            append = run_append_path(data_dir, captured)
         append_launches = path_launches("append")
         log(f"append path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
-        concurrency = run_concurrency_path(
-            names, parts, data_dir,
-            tempfile.mkdtemp(prefix="conc_store_", dir=data_dir), captured)
+        with _env_set({"BQUERYD_TPU_CALIB": "0"}):
+            concurrency = run_concurrency_path(
+                names, parts, data_dir,
+                tempfile.mkdtemp(prefix="conc_store_", dir=data_dir),
+                captured)
         conc_launches = path_launches("concurrency",
                                       tuple(CONC_KERNEL.values()))
         log(f"concurrency path: {time.perf_counter() - t0:.1f}s")
+        # host routing and the wedge latch, then calibration: each on a
+        # cluster of its own, the result cache off
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}):
+            routing = run_routing_path(
+                names, parts, data_dir,
+                tempfile.mkdtemp(prefix="route_store_", dir=data_dir))
+        routing_launches = path_launches("routing")
+        log(f"routing path: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}):
+            calibration = run_calibration_path(
+                names, parts, data_dir,
+                tempfile.mkdtemp(prefix="calib_store_", dir=data_dir))
+        # the kill-switch round puts single and zones on the contraction
+        calib_launches = path_launches(
+            "calibration", tuple({CONFIG_KERNEL[c] for c in CALIB_CONFIGS
+                                  if heuristic_route(c) == "matmul"}))
+        log(f"calibration path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
@@ -2726,6 +3204,8 @@ def main():
                           "dag_configs": dag,
                           "append": append,
                           "concurrency": concurrency,
+                          "routing": routing,
+                          "calibration": calibration,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
@@ -2733,6 +3213,8 @@ def main():
                                        "dag": dag_launches,
                                        "append": append_launches,
                                        "concurrency": conc_launches,
+                                       "routing": routing_launches,
+                                       "calibration": calib_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -2761,6 +3243,13 @@ def main():
                 "executor": configs[config]["launches"],
                 "cluster": cluster[config]["launches"],
             }
+        # the routing and calibration legs' launches at each row's shape
+        for path, counted in (("routing", routing_launches),
+                              ("calibration", calib_launches)):
+            for label, e in inputs.items():
+                key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
+                if counted.get(key) and not label.startswith("bundle "):
+                    launches[label][path] = counted[key]
         # a bundle row counts the launches made inside the worker's
         # bundles at its shape (solo queries of that shape ran too)
         for label, e in inputs.items():
@@ -2778,6 +3267,17 @@ def main():
         print(json.dumps(sweeps(parts, device)), flush=True)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+    # the end of the run: the latch flipped only where the wedge leg
+    # forced it, and no probe was ever written off as hung
+    from bqueryd_tpu_torch.utils import devicehealth
+
+    health = devicehealth.health_snapshot()
+    print(json.dumps({"device_health": health,
+                      "forced_flips": FORCED_FLIPS}), flush=True)
+    if health != {"wedged": 0, "abandoned_probes": 0,
+                  "wedge_generation": FORCED_FLIPS}:
+        raise AssertionError(f"the device latched outside the forced "
+                             f"flips: {health}")
     print(json.dumps({"profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,7 @@ from test_ingest import _frame
 from test_plan import STATS, shard_stats
 from test_plan import test_stats_can_match as _ref_stats_case
 from tests.conftest import wait_until
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 QUIET = logging.WARNING
 RPC_TIMEOUT = 30

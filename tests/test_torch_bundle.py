@@ -56,6 +56,7 @@ from bqueryd_tpu_torch.storage.ctable import ctable
 from test_concurrency import swarm_df
 from test_torch_groupby import _inputs, assert_trees_match
 from tests.conftest import wait_until
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-6
 QUIET = logging.WARNING
@@ -159,10 +160,9 @@ def test_bundle_fragment_round_trip_matches_reference(strategy):
         assert g.signature() == w.signature()
         assert (g.groupby_cols, g.agg_list, g.where_terms, g.ops) == (
             w.groupby_cols, w.agg_list, w.where_terms, w.ops)
-    # the port has no calibration yet: a binding hint reads as the
-    # advisory "matmul" (the reference's contract without calibration)
-    expect = {None: None, "scatter": "scatter", "matmul!": "matmul"}
-    assert bundlemod.fragment_strategy(port) == expect[strategy]
+    # the binding hint is rebuilt as the reference rebuilds it
+    assert (bundlemod.fragment_strategy(port)
+            == jax_bundle.fragment_strategy(ref) == strategy)
     with pytest.raises(ValueError):
         bundlemod.bundle_to_queries({"v": 99, "members": []})
 

@@ -39,6 +39,7 @@ from test_differential_fuzz import (
     _expected,
     _filter_df,
 )
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RPC_TIMEOUT = 30
@@ -236,7 +237,12 @@ def test_batched_group_merges_once_on_the_device(shards, port, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(ops, "partial_tables", counting)
-    rpc = port["rpc"]
+    # the heuristic hints alone: no wall an earlier query recorded
+    # steers this one
+    monkeypatch.setenv("BQUERYD_TPU_CALIB", "0")
+    rpc, controller = port["rpc"], port["controller"]
+    wait_until(lambda: all(n in controller.shard_stats for n in names),
+               desc="every shard's advertised stats")
     gcols, aggs = ["k_int"], [["v_small", "sum", "s"], ["v_big", "max", "x"]]
     got = frame(rpc.groupby(names, gcols, aggs, []))
     _compare(got, _expected(frames, gcols, aggs, []), gcols, aggs)
@@ -246,7 +252,15 @@ def test_batched_group_merges_once_on_the_device(shards, port, monkeypatch):
     (key,) = rpc.last_call_timings
     assert key == f"{names[0]}+{len(names) - 1}more"
     assert rpc.last_call_merge_modes == {key: "device"}
-    assert rpc.last_call_strategies["hints"] == {"auto": len(names)}
+    # one hint for the whole group: the heuristic's choice from the
+    # advertised stats, the reference's on the same stats
+    from bqueryd_tpu.plan import strategy as jax_strategy
+    from bqueryd_tpu_torch.plan import strategy
+
+    hint = strategy.select_for_group(controller.shard_stats, names, gcols)[0]
+    assert hint == jax_strategy.select_for_group(
+        controller.shard_stats, names, gcols)[0]
+    assert rpc.last_call_strategies["hints"] == {hint: len(names)}
     assert rpc.last_call_strategies["effective"][key] in (
         "matmul", "scatter", "sort")
     timings = rpc.last_call_timings[key]

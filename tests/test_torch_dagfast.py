@@ -47,6 +47,7 @@ from bqueryd_tpu_torch.plan import dag as dagmod
 from bqueryd_tpu_torch.storage.ctable import ctable
 from tests.conftest import wait_until
 from test_dag_fastpath import ALPHA, _dataset, _dim
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-6
 CPU = "cpu"

@@ -24,6 +24,7 @@ from bqueryd_tpu_torch.models.query import ResultPayload
 from bqueryd_tpu_torch.parallel import hostmerge
 from bqueryd_tpu_torch.storage.ctable import ctable
 from test_differential_fuzz import _compare, _dataset, _expected
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 N = 5_000
 

@@ -25,6 +25,7 @@ from test_differential_fuzz import (
     _expected,
     _filter_df,
 )
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 PORT_CASES = list(range(len(CASES)))
 

@@ -42,6 +42,7 @@ from test_differential_fuzz import (
     _expected,
     _filter_df,
 )
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 MERGEABLE = ("sum", "mean", "count", "count_na", "min", "max")
 PORT_CASES = [

@@ -44,6 +44,7 @@ from bqueryd_tpu_torch.rpc import LocalRPC
 from bqueryd_tpu_torch.storage.ctable import ctable, table_cache_key
 from tests.conftest import wait_until
 from test_ingest import _frame
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 QUIET = logging.WARNING
 RPC_TIMEOUT = 30

@@ -45,6 +45,7 @@ from bqueryd_tpu_torch.storage.ctable import ctable
 from tests.conftest import wait_until
 from test_differential_fuzz import CASES
 from test_operators import ALPHA, _dataset, _dim, _pandas_side
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-6
 RPC_TIMEOUT = 30
@@ -676,6 +677,10 @@ def test_plain_query_is_bit_identical_to_groupby(op_cluster, monkeypatch):
     executor, one device merge) and gives the very result of
     ``RPC.groupby``."""
     monkeypatch.setenv("BQUERYD_TPU_RESULT_CACHE_BYTES", "0")
+    # the groupby carries the controller's hint and the DAG none: with
+    # calibration off the hint is the heuristic's advisory "matmul", the
+    # route the executor picks by itself, so both take one route
+    monkeypatch.setenv("BQUERYD_TPU_CALIB", "0")
     op_cluster["worker"]._result_cache = None
     rpc = op_cluster["rpc"]
     aggs = [["v_int", "sum", "s"], ["v_float", "mean", "m"],

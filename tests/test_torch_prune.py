@@ -23,6 +23,7 @@ from bqueryd_tpu_torch.plan import stats
 from bqueryd_tpu_torch.rpc import LocalRPC
 from bqueryd_tpu_torch.storage.ctable import ChunkView, ctable, table_cache_key
 from test_differential_fuzz import _compare, _filter_df
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 CHUNKLEN = 4096
 ROWS = 20_000  # 5 chunks per shard, the last one short

@@ -25,6 +25,7 @@ from bqueryd_tpu_torch.models.query import ResultPayload
 from bqueryd_tpu_torch.parallel import hostmerge
 from bqueryd_tpu_torch.plan import dag as dagmod
 from test_serving import _frame
+from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-6
 QUIET = logging.WARNING
