@@ -11,7 +11,8 @@ names follow ``bqueryd_tpu`` so each counterpart sits at the same path.
 
 The package imports torch, numpy and zmq, never jax and nothing of
 ``bqueryd_tpu``: storage, caches, the host merge, the wire protocol, the
-coordination store and the logical plan are its own copies.  Importing it
+coordination store, the logical plan, the serving layer (``serve``) and
+the metrics registry and flight recorder (``obs``) are its own copies.  Importing it
 is light (torch loads only when a device is resolved or an ``ops``
 module is imported).
 

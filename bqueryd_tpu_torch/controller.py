@@ -49,11 +49,22 @@ with the reference's wire behaviour:
   dispatches carry none.  Each worker's device-health latch
   (``backend_wedged``) is kept in its ``worker_map`` entry.
 
-The controller imports neither torch nor pandas.  Not ported yet: the
-serving layer (subsumption and rollups, whose hook has its place in
-``_admit_plan``), capacity and health scoring of workers, stale-dispatch
-retries and hedging, affinity pins, peer gossip, observability (spans,
-flight events, metrics), chaos and downloads.
+* the serving layer (:mod:`serve`) answers a query before admission when
+  a materialized rollup proves its answer (``answer_source`` "rollup" or
+  "subsume", with ``subsumed_from`` naming the rollup); it builds and
+  delta-refreshes rollups of hot plans with ``rollup`` messages to the
+  workers.  A dispatched answer says "cached" when every shard group came
+  from a worker's result cache, "delta" when any was delta-refreshed, else
+  "recompute".  ``BQUERYD_TPU_SERVE=0`` turns it off.
+* every counter is also a Prometheus counter of ``self.metrics``
+  (``rpc.metrics()``); the flight ring (``self.flight``) records dispatches,
+  worker removals and the serving layer's decisions and rollup lifecycle;
+  ``rpc.debug_bundle()`` assembles it with each worker's heartbeat slice.
+
+The controller imports neither torch nor pandas.  Not ported yet:
+capacity and health scoring of workers, stale-dispatch retries and
+hedging, affinity pins, peer gossip, traces, SLO accounting, the debug
+bundle's sections of those subsystems, chaos and downloads.
 
 Framing on the ROUTER socket:
 
@@ -102,25 +113,45 @@ APPEND_TIMEOUT = 120.0
 RUNFILE_DIR = os.environ.get("BQUERYD_TPU_RUNFILE_DIR", "/srv")
 
 CONTROLLER_VERBS = ("ping", "loglevel", "info", "groupby", "query",
-                    "append")
+                    "append", "metrics", "debug_bundle")
 
-#: the controller's counters, in ``get_info()["counters"]`` (the
-#: reference's names and meanings)
-COUNTERS = (
-    "admission_busy",          # plans refused with BUSY
-    "admission_queued",        # plans held in the admission queue
-    "admission_superseded",    # live tickets retired by a new query
-    "deadline_expired",        # plans or units expired before dispatch
-    "plan_pruned_shards",      # shards the advertised stats excluded
-    "plan_shared_dispatches",  # dispatches a plan joined instead of paying
-    "plan_bundles",            # shared-scan bundle CalcMessages
-    "plan_bundled_queries",    # members over all bundles
-    "plan_strategy_hints",     # non-auto kernel-strategy hints issued
-    "plan_calibrated_overrides",  # measured walls overrode the heuristic
-    "plan_explore_hints",      # exploration hints sampling an unmeasured route
-    "plan_matmul_promotions",  # calibration-backed binding matmul hints
-    "dispatched_shards",       # groupby CalcMessages sent to workers
-)
+#: the controller's counters with their help texts (the reference's names
+#: and meanings): ``self.counters`` is a dict built from them
+#: (:class:`obs.RegistryCounters`), in ``get_info()["counters"]``, and each
+#: key is also the Prometheus counter ``bqueryd_tpu_<key>_total``
+COUNTER_SPECS = {
+    "plan_pruned_shards": "shards excluded at plan time by advertised stats",
+    "plan_shared_dispatches":
+        "concurrent queries that joined an existing dispatch instead of "
+        "paying their own (identical-work dedup + shared-scan bundle "
+        "members beyond the first)",
+    "plan_bundles":
+        "shared-scan bundle dispatches: one decode/align/upload pass and "
+        "one mesh program serving a whole compatible micro-batch",
+    "plan_bundled_queries":
+        "member queries that rode a shared-scan bundle dispatch",
+    "plan_strategy_hints": "non-auto kernel-strategy hints issued",
+    "plan_calibrated_overrides":
+        "dispatches where measured walls overrode the heuristic route",
+    "plan_explore_hints":
+        "bounded-exploration dispatches sampling an unmeasured route",
+    "plan_matmul_promotions":
+        "calibration-backed matmul hints made binding inside the guards",
+    "admission_busy": "BUSY backpressure replies sent to clients",
+    "admission_queued": "plans held in the admission wait queue",
+    "admission_superseded": "abandoned queries retired early on resend",
+    "deadline_expired": "work expired by its deadline before running",
+    "dispatched_shards": "groupby CalcMessages sent to workers",
+    "rollup_builds":
+        "materialized-rollup shard builds completed (serve.rollup full "
+        "rebuilds; delta refreshes count separately)",
+    "rollup_refreshes":
+        "rollup shard refreshes served by aggregating only appended tail "
+        "chunks (growth_since exact-prefix validation)",
+    "rollup_evictions":
+        "rollup entries dropped by the retention sweep (count/byte caps, "
+        "wedged-build timeout)",
+}
 
 
 class ControllerNode:
@@ -136,7 +167,9 @@ class ControllerNode:
         admit_queue_depth=None,
         admit_client_quota=None,
     ):
+        from bqueryd_tpu_torch import obs
         from bqueryd_tpu_torch.plan import AdmissionController, calibrate
+        from bqueryd_tpu_torch.serve import ServingLayer
 
         bqueryd_tpu_torch.configure_logging(loglevel or logging.INFO)
         self.store = coordination_store(
@@ -194,6 +227,11 @@ class ControllerNode:
         # in memory only (the workers own persistence)
         self.calibration = calibrate.CalibrationStore()
         self._worker_wedged = {}      # worker_id -> last advertised latch
+        # the serving layer: subsumption and materialized rollups; a hit
+        # replies before admission, BQUERYD_TPU_SERVE=0 makes every entry
+        # point a no-op
+        self.serving = ServingLayer(self)
+        self._rollup_waiters = {}     # rollup dispatch token -> (key, file)
         # shared dispatch: every groupby work unit has a subscriber list,
         # the parents waiting for its payload
         self._work_subscribers = {}   # work token -> [parent token, ...]
@@ -203,7 +241,39 @@ class ControllerNode:
         # then flushed grouped by compatibility key; empty at window 0
         self._pending_window = []     # [(msg, plan, kwargs), ...]
         self._window_opened = 0.0
-        self.counters = dict.fromkeys(COUNTERS, 0)
+        # observability: the counters dict mirrors every write into a
+        # typed registry counter; liveness gauges are read at render time
+        self.metrics = obs.MetricsRegistry()
+        self.counters = obs.RegistryCounters(self.metrics, COUNTER_SPECS)
+        self.metrics.gauge(
+            "bqueryd_tpu_admission_active",
+            "plans currently executing", fn=lambda: len(self.admission._active),
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_admission_queue_depth",
+            "plans waiting in the admission queue",
+            fn=lambda: len(self.admission._queued),
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_inflight_shards",
+            "shard dispatches awaiting a worker reply",
+            fn=lambda: len(self.inflight),
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_workers_known",
+            "workers currently registered", fn=lambda: len(self.worker_map),
+        )
+        # the flight ring behind rpc.debug_bundle(), and each worker's
+        # heartbeat slice, kept after the worker is removed (its last words
+        # are what a bundle is for), bounded to the newest entries
+        self.flight = obs.FlightRecorder(node_id=self.address)
+        self.metrics.gauge(
+            "bqueryd_tpu_flight_evictions",
+            "flight-ring events evicted by the entry/byte bounds (monotonic)",
+            fn=lambda: self.flight.evictions,
+        )
+        self._worker_debug = {}       # worker_id -> {"data", "ts"}
+        self._worker_debug_cap = 64
         self._append_segments = {}    # append fan-out key -> its state
         self._append_waiters = {}     # append dispatch token -> fan-out key
         self.msg_count_in = 0
@@ -309,6 +379,9 @@ class ControllerNode:
         if now - self.last_heartbeat < self.heartbeat_interval:
             return
         self.last_heartbeat = now
+        # serving housekeeping: abandon wedged rollup builds, hold the
+        # retention caps, dispatch delta refreshes of stale entries
+        self.serving.tick()
         self.store.sadd(bqueryd_tpu_torch.REDIS_SET_KEY, self.address)
 
     def free_dead_workers(self):
@@ -344,8 +417,21 @@ class ControllerNode:
             self.remove_worker(worker_id)
 
     def remove_worker(self, worker_id):
-        """Forget a worker and its files; re-queue its in-flight work."""
+        """Forget a worker and its files; re-queue its in-flight work.  A
+        rollup build sent or queued to it fails its entry: the build cannot
+        complete any more.  Its debug slice is kept for the bundle."""
+        if worker_id in self.worker_map:
+            # forensic event, never gated
+            self.flight.record("worker_removed", worker=worker_id)
         self.worker_map.pop(worker_id, None)
+        self._worker_wedged.pop(worker_id, None)
+        lost = [e["msg"] for e in self.inflight.values()
+                if e["worker"] == worker_id]
+        lost += [m for m in self.pending if m.get("target") == worker_id]
+        for msg in lost:
+            waiter = self._rollup_waiters.pop(msg.get("token"), None)
+            if waiter is not None:
+                self._fail_rollup(waiter[0], waiter[1], "holder removed")
         for filename in list(self.files_map):
             self.files_map[filename].discard(worker_id)
             if not self.files_map[filename]:
@@ -407,8 +493,10 @@ class ControllerNode:
         for msg in queue:
             target = msg.get("target")
             if target is not None:
-                # an append to one holder, while its fan-out waits
-                if msg["token"] not in self._append_waiters:
+                # an append or a rollup build to one holder, while its
+                # fan-out or its rollup entry waits
+                if (msg["token"] not in self._append_waiters
+                        and msg["token"] not in self._rollup_waiters):
                     continue
                 if self.worker_map.get(target, {}).get("busy", True):
                     self.pending.append(msg)
@@ -527,6 +615,20 @@ class ControllerNode:
             return
         if msg.isa("groupby"):
             self.counters["dispatched_shards"] += 1
+        from bqueryd_tpu_torch import obs
+
+        # every work envelope handed to a worker (hot path: under the
+        # BQUERYD_TPU_METRICS kill switch)
+        if obs.enabled():
+            filename = msg.get("filename")
+            self.flight.record(
+                "dispatch",
+                worker=worker_id,
+                verb=msg.get("payload"),
+                token=msg.get("token"),
+                filename=(str(filename)[:200] if filename is not None
+                          else None),
+            )
         info = self.worker_map[worker_id]
         info["busy"] = True
         # ROUTER_MANDATORY: the send would have raised on a gone peer
@@ -594,6 +696,7 @@ class ControllerNode:
                 known["last_seen"] = now
                 known["backend_wedged"] = bool(msg.get("backend_wedged"))
                 self._absorb_wedged(worker_id, msg)
+                self._absorb_worker_debug(worker_id, msg)
                 # the worker's stats advertisement rides either socket
                 self._absorb_shard_stats(msg)
             elif self._adoption_blocked.get(worker_id, 0) <= now:
@@ -602,6 +705,7 @@ class ControllerNode:
                 for filename in info.get("data_files") or []:
                     self.files_map.setdefault(filename, set()).add(worker_id)
                 self._absorb_wedged(worker_id, info)
+                self._absorb_worker_debug(worker_id, info)
                 self._absorb_shard_stats(info)
             return
         prev = self.worker_map.get(worker_id, {})
@@ -621,6 +725,7 @@ class ControllerNode:
                     del self.files_map[filename]
                     self.shard_stats.pop(filename, None)
         self._absorb_wedged(worker_id, info)
+        self._absorb_worker_debug(worker_id, info)
         self._absorb_shard_stats(info)
 
     def _absorb_wedged(self, worker_id, info):
@@ -634,6 +739,23 @@ class ControllerNode:
                 "worker %s advertises a wedged device", worker_id)
         elif prev and not wedged:
             self.logger.info("worker %s device recovered", worker_id)
+
+    def _absorb_worker_debug(self, worker_id, info):
+        """Keep the worker's debug-bundle slice (flight tail, device
+        health) that rides its WRM; popped from ``info``, so that
+        ``worker_map`` and ``rpc.info()`` stay lean.  Past the cap, removed
+        workers' slices go first."""
+        debug = info.pop("debug", None)
+        if not isinstance(debug, dict):
+            return
+        self._worker_debug[worker_id] = {"data": debug, "ts": time.time()}
+        while len(self._worker_debug) > self._worker_debug_cap:
+            victim = min(
+                self._worker_debug,
+                key=lambda w: (w in self.worker_map,
+                               self._worker_debug[w]["ts"]),
+            )
+            self._worker_debug.pop(victim, None)
 
     def _absorb_shard_stats(self, info):
         """Keep the freshest advertised stats per shard, and the worker's
@@ -681,6 +803,16 @@ class ControllerNode:
         if isinstance(token, str) and token.startswith("append_"):
             # its fan-out already failed fast or timed out: the client
             # was answered
+            return
+        if token in self._rollup_waiters:
+            # a controller-originated rollup build or refresh: absorbed by
+            # the serving layer, never forwarded to a client
+            self._absorb_rollup_reply(token, msg)
+            return
+        if isinstance(token, str) and token.startswith("rollup_"):
+            # its entry was evicted or abandoned while the build ran
+            # (matched by prefix: an ErrorMessage's payload is a traceback)
+            self.flight.record("rollup_reply_orphaned", token=token)
             return
         subscribers = self._work_subscribers.get(token)
         self._drop_work(token)
@@ -810,12 +942,23 @@ class ControllerNode:
             for k in dict.fromkeys(covering[f] for f in segment["filenames"])
         ]
         compact = self._compact_timings
+        # the answer's provenance: every shard group from a worker's result
+        # cache -> "cached"; any delta-refreshed group -> "delta"; else a
+        # recompute.  Served answers (_reply_served) say "rollup"/"subsume"
+        routes = set(segment["effective"].values())
+        if routes and routes <= {"cached"}:
+            answer_source = "cached"
+        elif "delta" in routes:
+            answer_source = "delta"
+        else:
+            answer_source = "recompute"
+        self._count_answer(answer_source)
         reply = pickle.dumps(
             {
                 "ok": True,
                 "payloads": payloads,
                 "timings": compact(segment["timings"]),
-                "answer_source": "recompute",
+                "answer_source": answer_source,
                 "subsumed_from": None,
                 "strategies": {
                     "hints": dict(segment["strategies"]),
@@ -923,6 +1066,87 @@ class ControllerNode:
         reply = msg.copy()
         reply.add_as_binary("result", self.get_info())
         self.reply_rpc_message(msg["token"], reply)
+
+    def rpc_metrics(self, msg):
+        """The Prometheus text of this controller's registry."""
+        reply = msg.copy()
+        reply.add_as_binary("result", self.metrics.render())
+        self.reply_rpc_message(msg["token"], reply)
+
+    def rpc_debug_bundle(self, msg):
+        """``rpc.debug_bundle()``: the cross-node forensic artifact (schema
+        ``bqueryd_tpu.debug_bundle/4``), one JSON-safe dict."""
+        reply = msg.copy()
+        reply.add_as_binary("result", self.build_debug_bundle())
+        self.reply_rpc_message(msg["token"], reply)
+
+    def build_debug_bundle(self):
+        """The debug artifact from state the controller holds (the worker
+        slices come from absorbed heartbeats, so a wedged or dead worker
+        cannot stall it).  Only the sections of ported subsystems are
+        present: the reference's health, trace, autopsy, slow-query,
+        worker-histogram, runtime, compile-cache, chaos, replication, SLO,
+        timeline-ring and capacity sections are absent."""
+        from bqueryd_tpu_torch import obs
+
+        now = time.time()
+        controller_section = {
+            "address": self.address,
+            "node": self.node_name,
+            "uptime_s": round(now - self.start_time, 3),
+            "flight": self.flight.events(),
+            "flight_evictions": self.flight.evictions,
+            "counters": dict(self.counters),
+            "admission": self.admission.stats(),
+            "workers_known": sorted(self.worker_map),
+            "inflight": {
+                token: {
+                    "worker": e["worker"],
+                    "age_s": round(now - e["sent_at"], 3),
+                    "retries": e["msg"].get("_retries", 0),
+                }
+                for token, e in self.inflight.items()
+            },
+            "metrics": self.metrics.histogram_snapshot(),
+            "calibration": {
+                **self.calibration.stats(),
+                "sample_cells": self.calibration.summary(max_cells=16),
+            },
+            "batch_window": self._batch_window_info(),
+            "serving": self.serving.snapshot(),
+        }
+        snapshots = {}
+        for worker_id in set(self.worker_map) | set(self._worker_debug):
+            absorbed = self._worker_debug.get(worker_id)
+            snapshots[worker_id] = {
+                "data": absorbed["data"] if absorbed else None,
+                "ts": absorbed["ts"] if absorbed else None,
+                "registered": worker_id in self.worker_map,
+            }
+        # the data dirs and the runfile dir are operational facts; any
+        # other path is reduced to <redacted>/basename
+        allowed = {self.runfile_dir}
+        allowed.update(
+            info.get("data_dir") for info in self.worker_map.values()
+        )
+        return obs.build_bundle(
+            controller_section, snapshots,
+            allowed_path_prefixes=[p for p in allowed if p],
+        )
+
+    def _batch_window_info(self):
+        """The micro-batch window's knobs and what is staged now."""
+        from bqueryd_tpu_torch.plan import bundle as bundlemod
+
+        state = {
+            "window_ms": bundlemod.batch_window_ms(),
+            "batch_max": bundlemod.batch_max(),
+            "staged": len(self._pending_window),
+        }
+        if self._pending_window:
+            state["opened_age_s"] = round(
+                max(time.time() - self._window_opened, 0.0), 3)
+        return state
 
     def get_info(self):
         return {
@@ -1047,8 +1271,11 @@ class ControllerNode:
         unknown = [f for f in plan.filenames if f not in self.files_map]
         if unknown:
             raise ValueError(f"filenames not found on any worker: {unknown}")
-        # the serving layer's answer (a subsumption or rollup hit, with no
-        # admission slot and no dispatch) goes here once it is ported
+        # the serving layer: a proven subsumption or rollup hit answers
+        # here, with no admission slot, no dispatch and no scan; a miss or
+        # refusal falls through unchanged
+        if self.serving.try_serve(msg, plan, kwargs):
+            return
         token = msg["token"]
         # the quota bucket is the client-declared client_id, so that one
         # application's sockets share one quota; else the REQ identity
@@ -1455,6 +1682,135 @@ class ControllerNode:
             groups.setdefault(placement, []).append(f)
         return list(groups.values())
 
+    # -- the serving layer's wire ------------------------------------------
+    def _dispatch_rollup_build(self, entry, prior=None):
+        """One ``rollup`` CalcMessage per shard of a rollup entry, to a live
+        holder.  A refresh (``prior`` set) carries each shard's previous
+        partials and the growth base they were computed from: the worker
+        aggregates only the appended chunks when the base still holds."""
+        spec = entry.spec
+        dag_blob = None
+        if spec.get("dag_wire") is not None:
+            dag_blob = base64.b64encode(
+                pickle.dumps(spec["dag_wire"],
+                             protocol=messages.PICKLE_PROTOCOL)
+            ).decode("ascii")
+        keys, agg_list, where = spec["args"]
+        for fname in entry.filenames:
+            holders = self.files_map.get(fname) or set()
+            worker_id = next(
+                (w for w in sorted(holders) if w in self.worker_map), None
+            )
+            if worker_id is None:
+                self._fail_rollup(entry.key, fname, "no-holder")
+                return
+            calc = CalcMessage({
+                "payload": "rollup",
+                "filename": fname,
+                "token": f"rollup_{os.urandom(8).hex()}",
+                "target": worker_id,
+            })
+            calc.set_args_kwargs(
+                [fname, keys, agg_list, where], {"aggregate": True}
+            )
+            if dag_blob is not None:
+                calc["dag"] = dag_blob
+            pinfo = (prior or {}).get(fname) or {}
+            if pinfo.get("data") and pinfo.get("base") is not None:
+                calc.add_as_binary("rollup_prior", pinfo["data"])
+                calc.add_as_binary("rollup_base", pinfo["base"])
+            self._rollup_waiters[calc["token"]] = (entry.key, fname)
+            self.pending.append(calc)
+        self.flight.record(
+            "rollup_dispatch", entry=entry.key,
+            shards=len(entry.filenames), refresh=prior is not None,
+        )
+
+    def _fail_rollup(self, key, fname, reason):
+        """Drop a rollup entry whose build cannot complete; serving stays
+        on the dispatch path for its view."""
+        self.serving.manager.fail(key, reason)
+        self.flight.record("rollup_build_failed", entry=key, filename=fname,
+                           reason=str(reason)[:200])
+
+    def _absorb_rollup_reply(self, token, msg):
+        """One shard's rollup build or refresh reply into the serving
+        layer.  An error reply (a worker that does not know the verb
+        included) drops the whole entry."""
+        from bqueryd_tpu_torch.models.query import ResultPayload
+
+        key, fname = self._rollup_waiters.pop(token)
+        if msg.isa(ErrorMessage):
+            text = str(msg.get("payload") or "rollup build failed")
+            if "unhandled message payload" in text:
+                text = ("UnsupportedVerb: the worker does not answer rollup "
+                        "builds; rollups stay off until every calc worker "
+                        "does")
+            else:
+                text = (text.strip().splitlines() or ["failed"])[-1]
+            self._fail_rollup(key, fname, text)
+            return
+        data = msg.get("data")
+        mode = msg.get("rollup_mode") or "rebuild"
+        base = (msg.get_from_binary("rollup_base")
+                if msg.get("rollup_base") else None)
+        zones = (msg.get_from_binary("rollup_zones")
+                 if msg.get("rollup_zones") else {})
+        try:
+            payload = dict(ResultPayload.from_bytes(data))
+        except Exception:
+            self._fail_rollup(key, fname, "undecodable payload")
+            return
+        groups = (len(payload.get("rows", ()))
+                  if payload.get("kind") == "partials" else 0)
+        state = self.serving.absorb_build(key, fname, {
+            "data": data,
+            "payload": payload,
+            "base": base,
+            "zones": zones,
+            "groups": int(groups),
+            "mode": mode,
+        })
+        if mode == "delta":
+            self.counters["rollup_refreshes"] += 1
+        elif mode == "rebuild":
+            self.counters["rollup_builds"] += 1
+        if state == "ready":
+            self.flight.record("rollup_materialized", entry=key, mode=mode)
+
+    def _reply_served(self, msg, payloads, source, subsumed_from):
+        """Answer a groupby-shaped verb from the serving layer, in the
+        envelope of :meth:`_maybe_complete_segment` (empty timings and
+        strategies: nothing was dispatched) with the provenance pair.  A
+        live admission ticket of this REQ identity is retired first: its
+        run's reply would pair with the client's next request."""
+        token = msg["token"]
+        if token in self._ticket_sigs:
+            self._cancel_ticket(token)
+        self._count_answer(source)
+        self.reply_rpc_raw(token, pickle.dumps(
+            {
+                "ok": True,
+                "payloads": payloads,
+                "timings": {},
+                "strategies": {"hints": {}, "effective": {}},
+                "merge_modes": {},
+                "answer_source": source,
+                "subsumed_from": subsumed_from,
+            },
+            protocol=messages.PICKLE_PROTOCOL,
+        ))
+
+    def _count_answer(self, source):
+        """The answer counter by provenance; every groupby-shaped reply
+        with a result passes here once."""
+        self.metrics.counter(
+            "bqueryd_tpu_serve_answers_total",
+            "groupby answers by provenance source "
+            "(recompute|cached|delta|rollup|subsume)",
+            labels={"source": source},
+        ).inc()
+
     # -- streaming append ---------------------------------------------------
     def rpc_append(self, msg):
         """``rpc.append(filename, dataframe_like)``: send the batch to every
@@ -1477,6 +1833,10 @@ class ControllerNode:
             info = self.worker_map.get(worker_id) or {}
             group = (info.get("node"), info.get("data_dir") or worker_id)
             targets.setdefault(group, worker_id)
+        # rollups over this shard go stale BEFORE any worker changes it: a
+        # stale but unchanged entry refreshes back to ready, the reverse
+        # order could serve pre-append partials as fresh
+        self.serving.note_append(filename)
         deadline = msg.get("deadline")
         seg_key = f"append_{os.urandom(8).hex()}"
         segment = {

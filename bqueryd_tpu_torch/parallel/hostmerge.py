@@ -207,6 +207,26 @@ def _merge_partials(payloads):
     return _merge_aligned(payloads, key_cols, ops, out_cols, value_kinds)
 
 
+def collapse_partials(payload):
+    """Collapse duplicate key tuples inside ONE partials payload.
+
+    A freshly executed partial has unique keys, but a payload whose key
+    columns were rewritten (a window re-floored onto a coarser grid, a
+    group-key column dropped: the folds of :mod:`bqueryd_tpu_torch.serve.
+    subsume`) maps several stored groups onto one key tuple.  Re-aggregating
+    them is the cross-shard merge of one payload, so this goes through the
+    same merge rules (extremum fills, distinct unions)."""
+    if payload.get("kind") != "partials" or not len(payload.get("rows", ())):
+        return payload
+    return _merge_aligned(
+        [payload],
+        payload["key_cols"],
+        payload["ops"],
+        payload["out_cols"],
+        payload.get("value_kinds"),
+    )
+
+
 def _merge_aligned(payloads, key_cols, ops, out_cols, value_kinds):
     """Shape-validated merge core: align key tuples globally and combine
     every aggregation part under its merge rule."""

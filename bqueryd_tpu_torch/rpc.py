@@ -16,7 +16,10 @@ single-thread lockstep: concurrent callers each hold their own.  Sockets
 built with one ``client_id`` share that client's admission quota at the
 controller; ``priority=`` orders a query in the admission queue; a BUSY
 answer (admission backpressure) is retried with backoff and, on the last
-attempt, raises :class:`RPCBusyError`.
+attempt, raises :class:`RPCBusyError`.  ``last_call_answer_source`` and
+``last_call_subsumed_from`` say how the controller produced the last
+answer; ``rpc.metrics()`` returns its Prometheus text and
+``rpc.debug_bundle()`` its debug bundle.
 
 :class:`LocalRPC` takes the same ``groupby`` arguments and runs the query
 in-process through :func:`bqueryd_tpu_torch.worker.execute` with the
@@ -134,6 +137,12 @@ class RPC:
         self.last_call_timings = None
         self.last_call_strategies = None
         self.last_call_merge_modes = None
+        #: how the most recent groupby or query answer was produced
+        #: ("recompute", "cached", "delta", or served by the controller:
+        #: "rollup", "subsume") and, for a served one, the rollup that
+        #: proved it
+        self.last_call_answer_source = None
+        self.last_call_subsumed_from = None
         #: bytes of the most recent reply, and the client's deserialize,
         #: merge and finalize wall of the most recent groupby
         self.last_call_reply_bytes = None
@@ -324,6 +333,8 @@ class RPC:
         self.last_call_timings = envelope.get("timings")
         self.last_call_strategies = envelope.get("strategies")
         self.last_call_merge_modes = envelope.get("merge_modes")
+        self.last_call_answer_source = envelope.get("answer_source")
+        self.last_call_subsumed_from = envelope.get("subsumed_from")
         result = hostmerge.finalize_table(hostmerge.merge_payloads(payloads))
         self.last_call_client_merge_s = time.perf_counter() - merge_clock
         return result

@@ -45,6 +45,11 @@ device error is not caught on the query path; inside a node it becomes an
 plain version.  A calc worker advertises its device-health latch
 (``backend_wedged``) and its calibration cells (``calibration``,
 :mod:`bqueryd_tpu_torch.plan.calibrate`) in every WRM.
+
+Every node keeps a metrics registry and a flight ring (:mod:`obs`): each
+accepted envelope, its outcome and each rollup build are recorded, and the
+ring's tail with the device-health snapshot rides the WRM (``debug``) as
+the node's slice of the controller's debug bundle.
 """
 
 import contextlib
@@ -59,7 +64,7 @@ import traceback
 import zmq
 
 import bqueryd_tpu_torch
-from bqueryd_tpu_torch import messages
+from bqueryd_tpu_torch import messages, obs
 from bqueryd_tpu_torch.coordination import coordination_store
 from bqueryd_tpu_torch.messages import (
     BusyMessage,
@@ -240,6 +245,25 @@ class WorkerBase:
         self._hb_thread = None
         self._hb_stop = threading.Event()
         self._loop_thread = None
+
+        # observability: a registry and a flight ring per node (nodes of
+        # one process must not mix); the ring's tail rides the WRM
+        self.metrics = obs.MetricsRegistry()
+        self.metrics.gauge(
+            "bqueryd_tpu_worker_uptime_seconds",
+            "seconds since this worker process started",
+            fn=lambda: time.time() - self.start_time,
+        )
+        self.work_errors = self.metrics.counter(
+            "bqueryd_tpu_worker_errors_total",
+            "work items that raised (returned as ErrorMessage)",
+        )
+        self.flight = obs.FlightRecorder(node_id=self.worker_id)
+        self.metrics.gauge(
+            "bqueryd_tpu_flight_evictions",
+            "flight-ring events evicted by the entry/byte bounds (monotonic)",
+            fn=lambda: self.flight.evictions,
+        )
 
     # -- lifecycle ---------------------------------------------------------
     def go(self):
@@ -423,7 +447,49 @@ class WorkerBase:
         except Exception:
             return None
 
+    def _debug_snapshot(self, flight_limit=32):
+        """This node's slice of a debug bundle: the flight ring's tail and
+        the device-health snapshot.  It rides the WRM (small: the tail is
+        capped), so that the controller holds a slice even of a worker that
+        has since died."""
+        return {
+            "node_id": self.worker_id,
+            "workertype": self.workertype,
+            "pid": os.getpid(),
+            "flight": self.flight.tail(flight_limit),
+            "flight_evictions": self.flight.evictions,
+            "device_health": devicehealth.health_snapshot(),
+        }
+
+    #: re-send an unchanged debug slice at most this often (a restarted
+    #: controller has lost the slices it absorbed)
+    DEBUG_READVERTISE_S = 60.0
+
+    def _debug_change_key(self):
+        """What the slice depends on: the flight ring's sequence and the
+        wedge generation."""
+        return (self.flight.seq,
+                devicehealth.health_snapshot()["wedge_generation"])
+
+    def _debug_to_advertise(self):
+        """The debug slice for this WRM, or None when it is unchanged since
+        the last one sent, within the re-send window."""
+        key = self._debug_change_key()
+        now = time.time()
+        if (key == getattr(self, "_debug_sent_key", None)
+                and now - getattr(self, "_debug_sent_ts", 0.0)
+                < self.DEBUG_READVERTISE_S):
+            return None
+        snapshot = self._debug_snapshot()
+        self._debug_sent_key = key
+        self._debug_sent_ts = now
+        return snapshot
+
     def prepare_wrm(self):
+        try:
+            debug = self._debug_to_advertise()
+        except Exception:
+            debug = None  # a debug failure must never break liveness
         return WorkerRegisterMessage(
             {
                 "worker_id": self.worker_id,
@@ -445,6 +511,8 @@ class WorkerBase:
                 # the measured kernel-wall cells (plan.calibrate) the
                 # controller's select_calibrated consults
                 "calibration": self._calibration_to_advertise(),
+                # the node's slice of the controller's debug bundle
+                "debug": debug,
             }
         )
 
@@ -516,6 +584,16 @@ class WorkerBase:
         """Busy, the work, the reply (an ``ErrorMessage`` with the
         traceback when it raised), Done."""
         self.send_to_all(BusyMessage({"worker_id": self.worker_id}))
+        # every accepted envelope (hot path: under the kill switch; a
+        # failure below is recorded regardless)
+        if obs.enabled():
+            self.flight.record(
+                "envelope",
+                verb=msg.get("payload"),
+                token=msg.get("token"),
+                parent=msg.get("parent_token"),
+            )
+        work_clock = time.perf_counter()
         try:
             if msg.deadline_expired():
                 # nobody waits for this answer any more
@@ -524,10 +602,26 @@ class WorkerBase:
                     "before execution"
                 )
             result = self.handle_work(msg)
-        except Exception:
+        except Exception as exc:
             self.logger.exception("error handling work")
+            self.work_errors.inc()
+            # forensic event, never gated: the failure's first line
+            self.flight.record(
+                "work_error",
+                verb=msg.get("payload"),
+                token=msg.get("token"),
+                error=f"{type(exc).__name__}: {exc}"[:300],
+            )
             result = ErrorMessage(msg)
             result["payload"] = traceback.format_exc()
+        else:
+            if obs.enabled():
+                self.flight.record(
+                    "work_done",
+                    verb=msg.get("payload"),
+                    token=msg.get("token"),
+                    wall_s=round(time.perf_counter() - work_clock, 6),
+                )
         try:
             self.send(sender, result)
         except zmq.ZMQError:
@@ -570,6 +664,19 @@ class WorkerNode(WorkerBase):
         self.delta_refreshes = 0
         self.appends = 0
         self.append_rows = 0
+        # the device-health latch as gauges: read-only snapshots, a scrape
+        # never launches a probe
+        snap = devicehealth.health_snapshot
+        self.metrics.gauge(
+            "bqueryd_tpu_backend_wedged",
+            "1 while the accelerator backend is latched as wedged",
+            fn=lambda: snap()["wedged"],
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_device_probes_abandoned",
+            "health probes written off as hung since the last success",
+            fn=lambda: snap()["abandoned_probes"],
+        )
 
     @property
     def device(self):
@@ -934,6 +1041,10 @@ class WorkerNode(WorkerBase):
                     payload = self._execute_dag([table], dag, timer, {})
             with timer.phase("serialize"):
                 data = payload.to_bytes()
+        self.flight.record(
+            "rollup_build", filename=filename, mode=mode,
+            bytes=len(data), token=msg.get("token"),
+        )
         reply = msg.copy()
         for key in ("params", "dag", "rollup_prior", "rollup_base"):
             reply.pop(key, None)

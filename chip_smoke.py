@@ -107,26 +107,47 @@
    "cuda") and the four hint counters; one round under
    ``BQUERYD_TPU_CALIB=0`` must carry the heuristic hints alone and take
    their routes (single and zones launch their kernels);
-11. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
+11. drives the serving layer on a cluster of its own over the taxi
+   shards (``run_serving_path``, ``BQUERYD_TPU_SERVE=1``, a view
+   materialized at its first query, the heuristic hints alone, the result
+   cache off): per config of sharded, multikey, zones and highcard the
+   first query dispatched ("recompute") and the rollup it builds (one
+   ``rollup`` message per shard, one contraction each on the engine over
+   the shard's 1M rows), then 3 queries served from it ("rollup", the
+   entry's key, no dispatched shard, no launch) and 3 dispatched under
+   ``BQUERYD_TPU_SERVE=0`` (launching as their route implies), with walls,
+   reply bytes and client merges; a VendorID groupby folded from
+   multikey's rollup ("subsume"), multikey under ``payment_type >= 1``
+   served by the zone proof and under ``payment_type > 2`` recomputed (a
+   ``filter-partial`` rejection recorded); the kill switch and back; the
+   debug bundle (schema /4, the serving section, the flight events, the
+   worker's device health) and ``rpc.metrics()``; then, on bench.py's
+   ingest deployment, an append under a rollup: the repeat query exact,
+   the heartbeat's delta refresh (4 ``rollup`` refreshes, one launch over
+   each shard's appended rows) and the query served again, exact.  Every
+   answer is checked against NumPy; a logged serving error, a failed fold
+   or build or a ``render-error`` decision fails it.  It prints the
+   ``serving`` line; every other leg runs with serving off;
+12. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
    ``... worker --device=cuda`` as processes, one checked query per config
    (but the unpruned leg, whose environment the worker process does not
    have), dag_join through ``RPC.query`` and an append to a small shard
    of its own (the repeat query a delta refresh), both stopped by SIGTERM
    and exiting 0;
-12. drives the per-shard engine path (``QueryEngine.execute_local`` per
+13. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
-   (executor, cluster, DAG, append, concurrency, engine) and read just
-   after, and every
+   (executor, cluster, DAG, append, concurrency, serving, engine) and
+   read just after, and every
    kernel of each path must have launched there;
-13. breaks queries down into host phases and pipeline stage busy time
+14. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-14. holds every branch of each kernel against its plain PyTorch version at
+15. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
@@ -142,12 +163,12 @@
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-15. sweeps the base kernel's two branches over G (the crossover behind
+16. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-16. times the fast path's torch bodies at the shapes its programs ran
+17. times the fast path's torch bodies at the shapes its programs ran
     (each top-k emission, checked against the sort route, each sketch
     grid, the whole program with its fetch);
-17. prints the sweeps, the fast path's program times, the device-health
+18. prints the sweeps, the fast path's program times, the device-health
     snapshot (the latch must have flipped only where the wedge leg forced
     it, no probe written off), the ``kernels`` JSON line, then the device
     JSON line last.
@@ -231,6 +252,26 @@ CONFIGS = {
               [["fare_amount", "sum", "fare_sum"],
                ["fare_amount", "count", "n"]], []),
 }
+
+#: the serving leg's queries beyond CONFIGS: multikey's shape folded to
+#: VendorID alone (its rollup answers by a key fold), and multikey under a
+#: filter every chunk's zone map proves whole (payment_type is 1..5) and
+#: under one that cuts chunks (recomputed)
+SERVE_QUERIES = {
+    "serve_vendor": (slice(None), ["VendorID"],
+                     CONFIGS["multikey"][2], []),
+    "serve_zone_proof": (slice(None), ["VendorID", "payment_type"],
+                         CONFIGS["multikey"][2], [["payment_type", ">=", 1]]),
+    "serve_partial": (slice(None), ["VendorID", "payment_type"],
+                      CONFIGS["multikey"][2], [["payment_type", ">", 2]]),
+}
+
+
+def _spec(config):
+    """``(shard slice, groupby cols, agg list, where terms)`` of a config
+    or a serving query."""
+    return SERVE_QUERIES.get(config) or CONFIGS[config]
+
 
 #: the five BASELINE configs, which the per-shard engine path and the
 #: breakdown also run
@@ -448,7 +489,7 @@ def make_dataset(data_dir, rows=ROWS, shards=SHARDS):
 def _kept(config, part):
     """The rows of one shard that ``config`` aggregates: its filter, then
     basket expansion within the shard."""
-    _sl, _gcols, _aggs, where = CONFIGS[config]
+    _sl, _gcols, _aggs, where = _spec(config)
     keep = np.ones(len(part["fare_amount"]), dtype=bool)
     for col, op, value in where:
         # a float32 column against a Python float compares in float32
@@ -462,7 +503,7 @@ def _kept(config, part):
 
 def reference(config, parts):
     """NumPy reference of one config: {key tuple: {out col: value}}."""
-    sl, gcols, aggs, _where = CONFIGS[config]
+    sl, gcols, aggs, _where = _spec(config)
     shards = parts[sl]
     kept = [_kept(config, p) for p in shards]
     cols = {c: np.concatenate([p[c][k] for p, k in zip(shards, kept)])
@@ -515,7 +556,7 @@ def reference(config, parts):
 
 
 def check_result(config, order, columns, want):
-    _sl, gcols, aggs, _where = CONFIGS[config]
+    _sl, gcols, aggs, _where = _spec(config)
     assert order == gcols + [a[2] for a in aggs], order
     n = len(columns[gcols[0]])
     assert n == len(want), f"{config}: {n} groups, reference {len(want)}"
@@ -626,7 +667,7 @@ def _env(config):
 
 def _query(rpc, names, config):
     """One groupby of ``config`` through ``rpc`` (LocalRPC or RPC)."""
-    sl, gcols, aggs, where = CONFIGS[config]
+    sl, gcols, aggs, where = _spec(config)
     with _env(config):
         return rpc.groupby(names[sl], gcols, aggs, where,
                            **OPTIONS.get(config, {}))
@@ -902,11 +943,12 @@ def _set_result_cache(worker, nbytes):
 
 
 @contextlib.contextmanager
-def capturing(store, label, n_float=0):
+def capturing(store, label, n_float=0, only=None):
     """Record under ``label`` the inputs of the first launch of each
     kernel shape not yet in ``store`` (label -> (kernel, branch, codes,
     rows, R, G, int rows)), for the kernel rows; nothing more is launched.
-    A second new shape in one block gets the label with its shape."""
+    A second new shape in one block gets the label with its shape.
+    ``only(shape key)``, when given, keeps the shapes it accepts."""
     from bqueryd_tpu_torch.ops import onehot
 
     known = {shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
@@ -918,7 +960,7 @@ def capturing(store, label, n_float=0):
         def run(codes, rows, n_rows, n_groups, plan):
             key = shape_key(name, plan.branch, n_rows, n_groups,
                             codes.shape[0])
-            if key not in known:
+            if key not in known and (only is None or only(key)):
                 known.add(key)
                 at = label if label not in store else f"{label} {key}"
                 store[at] = (name, plan.branch, codes, rows, n_rows,
@@ -2270,6 +2312,515 @@ def run_calibration_path(names, parts, data_dir, store_dir):
     return report
 
 
+#: the serving leg (run_serving_path): the configs whose rollups it builds
+#: on the taxi shards and then serves, each against its dispatched warm
+#: queries; its environment: serving on, a view materialized at its first
+#: query, the heuristic hints alone, the worker's result cache off (so that
+#: a dispatched warm query runs its kernels)
+SERVE_CONFIGS = ("sharded", "multikey", "zones", "highcard")
+SERVE_WARM = 3
+SERVE_ENV = {"BQUERYD_TPU_SERVE": "1", "BQUERYD_TPU_ROLLUP_HEAT_MIN": "1",
+             "BQUERYD_TPU_CALIB": "0", "BQUERYD_TPU_RESULT_CACHE_BYTES": "0"}
+#: the serving layer's internal errors: it logs them and recomputes, so the
+#: leg fails on any of them instead of passing by recomputing
+SERVE_FAILURE_LOGS = ("serving layer error", "rollup fold failed")
+#: the kernel branches the serving leg launches: the builds on the engine
+#: (mma for sharded and multikey, table for zones, hicard cluster for
+#: highcard, mma on the ingest shards and their tails) and the dispatched
+#: queries
+SERVE_KERNELS = (("onehot_rows_dot", "mma"), ("onehot_rows_dot", "table"),
+                 ("onehot_rows_dot_hicard", "cluster"))
+
+
+def _serve_failures():
+    """A log handler collecting the serving layer's internal errors."""
+    import logging
+
+    class Failures(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            text = record.getMessage()
+            if any(t in text for t in SERVE_FAILURE_LOGS):
+                self.records.append(text)
+
+    return Failures()
+
+
+def _settled(controller):
+    """No rollup build in flight, and every entry ready."""
+    entries = list(controller.serving.manager.entries.values())
+    return not controller._rollup_waiters and all(
+        e.state == "ready" for e in entries)
+
+
+def _ready_entry(controller, known):
+    """The one ready entry not in ``known``, or None."""
+    fresh = [e for e in list(controller.serving.manager.entries.values())
+             if e.key not in known and e.state == "ready"]
+    return fresh[0] if len(fresh) == 1 else None
+
+
+def _flight_since(node, seq, kind, **match):
+    """``node``'s flight events of ``kind`` after ``seq`` whose fields
+    equal ``match``."""
+    return [e for e in node.flight.events()
+            if e["seq"] > seq and e["kind"] == kind
+            and all(e.get(k) == v for k, v in match.items())]
+
+
+def _build_seconds(controller, seq, key):
+    """Seconds from the controller's last ``rollup_dispatch`` of ``key``
+    after ``seq`` to its ``rollup_materialized`` (flight-ring clocks)."""
+    sent = _flight_since(controller, seq, "rollup_dispatch", entry=key)
+    done = _flight_since(controller, seq, "rollup_materialized", entry=key)
+    return done[-1]["ts"] - sent[-1]["ts"]
+
+
+def _serve_query(rpc, names, config):
+    """One groupby of ``config`` through the cluster: (order, columns, the
+    reply's provenance, wall, bytes and client merge)."""
+    (order, columns), wall = _timed(lambda: _query(rpc, names, config))
+    merge = rpc.last_call_client_merge_s
+    return order, columns, {
+        "answer_source": rpc.last_call_answer_source,
+        "subsumed_from": rpc.last_call_subsumed_from,
+        "wall_s": wall,
+        "reply_bytes": rpc.last_call_reply_bytes,
+        "client_merge_s": merge,
+        "rest_s": wall - merge,
+    }
+
+
+def _walls(queries):
+    return {k: float(np.median([q[k] for q in queries]))
+            for k in ("wall_s", "reply_bytes", "client_merge_s", "rest_s")}
+
+
+def _serve_config(rpc, controller, worker, names, parts, config, captured):
+    """One config's rollup: the first query dispatched ("recompute") and
+    the build it triggers (one ``rollup`` message per shard, each one
+    contraction on the engine over its 1M rows), then ``SERVE_WARM``
+    served queries ("rollup" from the new entry, no dispatch, no launch)
+    and ``SERVE_WARM`` dispatched ones under ``BQUERYD_TPU_SERVE=0``
+    (launching as the heuristic route implies).  Every answer checked
+    against NumPy."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    want = reference(config, parts)
+    shard_rows = len(parts[0]["fare_amount"])
+    known = set(controller.serving.manager.entries)
+    seq, wseq = controller.flight.seq, worker.flight.seq
+    before = dict(onehot.LAUNCHES)
+    # a kernel row for a build shape no other leg records (zones' table
+    # branch at one shard's rows)
+    block = (capturing(captured, f"serving {config} build",
+                       only=lambda key: key.endswith(f"/n={shard_rows}"))
+             if config == "zones" else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with block:
+        order, columns, first = _serve_query(rpc, names, config)
+        check_result(config, order, columns, want)
+        routes = list(rpc.last_call_strategies["effective"].values())
+        _wait(lambda: _settled(controller)
+              and _ready_entry(controller, known) is not None, 300,
+              f"the {config} rollup")
+    build_wall = time.perf_counter() - t0
+    if first["answer_source"] != "recompute" or routes != [
+            heuristic_route(config)]:
+        raise AssertionError(f"serving {config}: first query {first}, "
+                             f"routes {routes}")
+    entry = _ready_entry(controller, known)
+    build_s = _build_seconds(controller, seq, entry.key)
+    launched = _launch_delta(before)
+    query_launches = route_launches(config, parts, routes)
+    builds = {k: v - query_launches.get(k, 0) for k, v in launched.items()
+              if v - query_launches.get(k, 0)}
+    kernel, branch = CONFIG_KERNEL[config]
+    messages = _flight_since(controller, seq, "dispatch", verb="rollup")
+    built = _flight_since(worker, wseq, "rollup_build", mode="rebuild")
+    if (len(messages) != SHARDS or len(built) != SHARDS or sorted(m["filename"] for m in messages)
+            != sorted(names)
+            or any(launched.get(k, 0) < v for k, v in query_launches.items())
+            or sum(builds.values()) != SHARDS
+            or any(not k.startswith(f"{kernel}/{branch}/")
+                   or not k.endswith(f"/n={shard_rows}") for k in builds)):
+        raise AssertionError(
+            f"serving {config}: {len(messages)} rollup messages, launched "
+            f"{launched}, the query's {query_launches}")
+    if set(entry.view["filenames"]) != set(names) or any(
+            i["mode"] != "rebuild" for i in entry.per_file.values()):
+        raise AssertionError(f"serving {config}: entry {entry.snapshot()}")
+    served = []
+    dispatched_shards = controller.counters["dispatched_shards"]
+    for rep in range(SERVE_WARM):
+        before = dict(onehot.LAUNCHES)
+        order, columns, q = _serve_query(rpc, names, config)
+        check_result(config, order, columns, want)
+        if (q["answer_source"] != "rollup" or q["subsumed_from"] != entry.key
+                or _launch_delta(before)
+                or controller.counters["dispatched_shards"]
+                != dispatched_shards):
+            raise AssertionError(
+                f"served {config} query {rep}: {q}, launched "
+                f"{_launch_delta(before)}")
+        served.append(q)
+    dispatched = []
+    with _env_set({"BQUERYD_TPU_SERVE": "0"}):
+        for rep in range(SERVE_WARM):
+            before = dict(onehot.LAUNCHES)
+            order, columns, q = _serve_query(rpc, names, config)
+            check_result(config, order, columns, want)
+            routes = list(rpc.last_call_strategies["effective"].values())
+            launched = _launch_delta(before)
+            if (q["answer_source"] != "recompute"
+                    or routes != [heuristic_route(config)]
+                    or launched != route_launches(config, parts, routes)):
+                raise AssertionError(
+                    f"dispatched {config} query {rep}: {q}, routes "
+                    f"{routes}, launched {launched}")
+            q.update(_reply_split(rpc, q["wall_s"]), routes=routes,
+                     launched=launched)
+            dispatched.append(q)
+    out = {
+        "entry": entry.key,
+        "groups": len(want),
+        "first": first,
+        "build": {"messages": len(messages),
+                  "worker_builds": len(built),
+                  "launches": builds,
+                  "wall_s": build_wall,
+                  "dispatch_to_ready_s": build_s,
+                  # the worker's wall of each rollup message (its flight
+                  # ring's work_done events)
+                  "worker_walls_s": [e["wall_s"] for e in _flight_since(
+                      worker, wseq, "work_done", verb="rollup")],
+                  "group_rows": entry.group_rows(),
+                  "bytes": entry.nbytes},
+        "served": served,
+        "dispatched": dispatched,
+        "served_median": _walls(served),
+        "dispatched_median": _walls(dispatched),
+    }
+    out["served_over_dispatched_wall"] = (
+        out["served_median"]["wall_s"] / out["dispatched_median"]["wall_s"])
+    return out
+
+
+def _serve_folds(rpc, controller, names, parts, multikey_key, captured):
+    """The multikey rollup's proofs: a VendorID groupby answered by a key
+    fold ("subsume"), the multikey query under ``payment_type >= 1``
+    answered by the zone proof ("rollup"), and under ``payment_type > 2``
+    recomputed, with a ``filter-partial`` rejection recorded."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    out = {}
+    shard_rows = len(parts[0]["fare_amount"])
+    for config, source in (("serve_vendor", "subsume"),
+                           ("serve_zone_proof", "rollup"),
+                           ("serve_partial", "recompute")):
+        _wait(lambda: _settled(controller), 300, "settled rollups")
+        want = reference(config, parts)
+        before = dict(onehot.LAUNCHES)
+        # the key fold's own view (VendorID alone: 2 groups) is built next
+        # on the engine, a shape no other leg records
+        block = (capturing(captured, "serving vendor build",
+                           FLOAT_ROWS["multikey"],
+                           only=lambda key: key.endswith(f"/n={shard_rows}"))
+                 if config == "serve_vendor" else contextlib.nullcontext())
+        with block:
+            order, columns, q = _serve_query(rpc, names, config)
+            if config == "serve_vendor":
+                _wait(lambda: _settled(controller), 300, "the fold's view")
+        check_result(config, order, columns, want)
+        # each query's own view is built too (heat 1): those rollup launches
+        # may fall inside the wall, so only the dispatch's is held
+        launched = _launch_delta(before)
+        dispatch = (expected_launches("multikey", parts)
+                    if source == "recompute" else {})
+        if (q["answer_source"] != source
+                or (source != "recompute"
+                    and q["subsumed_from"] != multikey_key)
+                or any(launched.get(k, 0) < v for k, v in dispatch.items())):
+            raise AssertionError(f"serving {config}: {q}, launched "
+                                 f"{launched}, expected {source} from "
+                                 f"{multikey_key}")
+        q.update(groups=len(want), launched=launched)
+        out[config] = q
+    rejected = [r for d in list(controller.serving.decisions)
+                for r in d["rejected"]]
+    if ["filter-partial:payment_type"] != sorted(
+            {r[1] for r in rejected if r[1].startswith("filter-partial")}):
+        raise AssertionError(f"no filter-partial rejection: {rejected}")
+    _wait(lambda: _settled(controller), 300, "settled rollups")
+    return out
+
+
+def _serve_kill_switch(rpc, controller, names, parts):
+    """``sharded`` under ``BQUERYD_TPU_SERVE=0`` recomputes on the card
+    (its dispatch launch), and is served again at 1 (no launch)."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    want = reference("sharded", parts)
+    out = {}
+    for value, source in (("0", "recompute"), ("1", "rollup")):
+        with _env_set({"BQUERYD_TPU_SERVE": value}):
+            before = dict(onehot.LAUNCHES)
+            order, columns, q = _serve_query(rpc, names, "sharded")
+            check_result("sharded", order, columns, want)
+            launched = _launch_delta(before)
+            expect = (expected_launches("sharded", parts) if value == "0"
+                      else {})
+            if q["answer_source"] != source or launched != expect:
+                raise AssertionError(f"kill switch {value}: {q}, launched "
+                                     f"{launched}")
+            out[f"serve={value}"] = dict(q, launched=launched)
+    if controller.serving.snapshot()["enabled"] is not True:
+        raise AssertionError("serving stayed off")
+    return out
+
+
+def _serve_bundle(rpc, controller, worker):
+    """``rpc.debug_bundle()`` and ``rpc.metrics()`` after the leg."""
+    bundle = rpc.debug_bundle()
+    section = bundle["controller"]
+    serving = section["serving"]
+    kinds = {e["kind"] for e in controller.flight.events()}
+    text = rpc.metrics()
+    worker_slice = bundle["workers"][worker.worker_id]["snapshot"]
+    checks = {
+        "schema": bundle["schema"] == "bqueryd_tpu.debug_bundle/4",
+        "served": serving["served"] >= 1,
+        "ready": any(e["state"] == "ready"
+                     for e in serving["rollups"]["entries"]),
+        "flight": {"rollup_dispatch", "rollup_materialized",
+                   "serve_decision"} <= kinds,
+        "metrics": 'bqueryd_tpu_serve_answers_total{source="rollup"}' in text,
+        "device_health": worker_slice.get("device_health", {}).get(
+            "wedged") == 0,
+        "lint": controller.metrics.lint() == [] and worker.metrics.lint()
+        == [],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"debug bundle: {checks}")
+    answers = {line.split()[0]: float(line.split()[1])
+               for line in text.splitlines()
+               if line.startswith("bqueryd_tpu_serve_answers_total")}
+    return {"checks": checks, "bytes": len(json.dumps(bundle)),
+            "flight_events": len(section["flight"]),
+            "flight_evictions": section["flight_evictions"],
+            "entries": [{k: e[k] for k in ("key", "state", "keys", "hits",
+                                             "bytes", "group_rows")}
+                        for e in serving["rollups"]["entries"]],
+            "answers": answers}
+
+
+def _serve_append(scratch, captured):
+    """An append under a rollup, on bench.py's ingest deployment (2M rows
+    in 4 shards of its own, its own cluster): the ingest query
+    materialized (4 builds) and served; one append of a 24th of a shard to
+    each shard, with the controller's heartbeat held so that every shard
+    has grown before the entry refreshes; the repeat query ("recompute",
+    "cached" or "delta") exact against the concatenated frames; the
+    heartbeat's refresh of the stale entry (one ``rollup`` refresh per
+    shard, mode "delta", one launch over each shard's appended rows);
+    once the grown stats are advertised, the query served again, exact."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    base_dir = tempfile.mkdtemp(prefix="serve_ingest_", dir=scratch)
+    store = tempfile.mkdtemp(prefix="store_", dir=base_dir)
+    frames, _chunklen, rng = write_ingest(base_dir, INGEST_ROWS,
+                                          INGEST_SHARDS)
+    names = sorted(frames)
+    per = INGEST_ROWS // INGEST_SHARDS
+    append_rows = per // 24
+    report = {}
+    rpc, controller, worker, threads = _start_cluster(base_dir, store)
+    try:
+        def stats_rows(rows):
+            return all((controller.shard_stats.get(n) or {}).get("rows")
+                       == rows for n in names)
+
+        def query():
+            before = dict(onehot.LAUNCHES)
+            (order, columns), wall = _timed(lambda: rpc.groupby(
+                names, ["g"], INGEST_AGGS, []))
+            check_ingest(order, columns, ingest_reference(frames))
+            return {"answer_source": rpc.last_call_answer_source,
+                    "subsumed_from": rpc.last_call_subsumed_from,
+                    "wall_s": wall, "reply_bytes": rpc.last_call_reply_bytes,
+                    "launched": _launch_delta(before)}
+
+        _wait(lambda: stats_rows(per), 60, "the ingest shards' stats")
+        before = dict(onehot.LAUNCHES)
+        with capturing(captured, "serving ingest build", INGEST_FLOAT_ROWS,
+                       only=lambda key: key.endswith(f"/n={per}")):
+            report["first"] = query()
+            _wait(lambda: _settled(controller)
+                  and _ready_entry(controller, set()) is not None, 120,
+                  "the ingest rollup")
+        builds = {k: v for k, v in _launch_delta(before).items()
+                  if k.endswith(f"/n={per}")}
+        report["build_launches"] = builds
+        if sum(builds.values()) != INGEST_SHARDS:
+            raise AssertionError(f"ingest rollup builds launched {builds}")
+        entry = _ready_entry(controller, set())
+        report["served"] = query()
+        if (report["first"]["answer_source"] != "recompute"
+                or report["served"]["answer_source"] != "rollup"
+                or report["served"]["launched"]):
+            raise AssertionError(f"ingest rollup: {report}")
+        refreshes = controller.counters["rollup_refreshes"]
+        seq = worker.flight.seq
+        # hold the heartbeat (and with it the refresh) until every shard
+        # has grown
+        controller.heartbeat_interval = 3600.0
+        for name in names:
+            extra = _ingest_frame(rng, append_rows, per)
+            frames[name] = {c: np.concatenate([frames[name][c], extra[c]])
+                            for c in extra}
+            res = rpc.append(name, extra)
+            if res["appended"] != append_rows:
+                raise AssertionError(f"append {name}: {res}")
+        if entry.state != "stale":
+            raise AssertionError(f"the appended rollup is {entry.state}")
+        report["repeat"] = query()
+        if report["repeat"]["answer_source"] not in ("recompute", "cached",
+                                                     "delta"):
+            raise AssertionError(f"after the append: {report['repeat']}")
+        before = dict(onehot.LAUNCHES)
+        cseq = controller.flight.seq
+        controller.heartbeat_interval = 0.5
+        controller.last_heartbeat = 0.0
+        _wait(lambda: _settled(controller) and controller.counters[
+            "rollup_refreshes"] - refreshes >= INGEST_SHARDS, 120,
+            "the delta refresh")
+        report["refresh_s"] = _build_seconds(controller, cseq, entry.key)
+        report["refresh_worker_walls_s"] = [
+            e["wall_s"] for e in _flight_since(worker, seq, "work_done",
+                                               verb="rollup")]
+        tail = _launch_delta(before)
+        modes = {f: i["mode"] for f, i in entry.per_file.items()}
+        deltas = _flight_since(worker, seq, "rollup_build", mode="delta")
+        if (set(modes.values()) != {"delta"}
+                or sorted(e["filename"] for e in deltas) != names
+                or sum(tail.values()) != INGEST_SHARDS
+                or any(not k.endswith(f"/n={append_rows}") for k in tail)):
+            raise AssertionError(f"refresh: modes {modes}, launched {tail}, "
+                                 f"{len(deltas)} delta builds")
+        report["refresh"] = {"modes": modes, "launched": tail,
+                             "refreshes": controller.counters[
+                                 "rollup_refreshes"] - refreshes}
+        _wait(lambda: stats_rows(per + append_rows), 60,
+              "the grown shards' stats")
+        report["after"] = query()
+        if (report["after"]["answer_source"] != "rollup"
+                or report["after"]["subsumed_from"] != entry.key
+                or report["after"]["launched"]):
+            raise AssertionError(f"after the refresh: {report['after']}")
+        report["counters"] = {k: controller.counters[k] for k in (
+            "rollup_builds", "rollup_refreshes", "rollup_evictions")}
+    finally:
+        _stop_cluster(rpc, controller, worker, threads)
+        shutil.rmtree(base_dir, ignore_errors=True)
+    return report
+
+
+def serving_summary(report):
+    """The serving line: per config the served and dispatched medians
+    (wall, reply bytes, client merge), the build's messages and launches;
+    the folds' sources and walls, the kill switch, the append under a
+    rollup, the counters and the bundle's checks."""
+    configs = {}
+    for config, r in report["configs"].items():
+        configs[config] = {
+            "groups": r["groups"],
+            "served": r["served_median"],
+            "dispatched": r["dispatched_median"],
+            "served_over_dispatched_wall": r["served_over_dispatched_wall"],
+            "build_messages": r["build"]["messages"],
+            "build_launches": r["build"]["launches"],
+            "build_wall_s": r["build"]["wall_s"],
+            "build_dispatch_to_ready_s": r["build"]["dispatch_to_ready_s"],
+            "build_worker_walls_s": r["build"]["worker_walls_s"],
+            "entry_bytes": r["build"]["bytes"],
+        }
+    append = report["append"]
+    return {
+        "configs": configs,
+        "folds": {k: {f: v[f] for f in ("answer_source", "wall_s",
+                                        "reply_bytes", "client_merge_s")}
+                  for k, v in report["folds"].items()},
+        "kill_switch": {k: v["answer_source"]
+                        for k, v in report["kill_switch"].items()},
+        "append": {"build_launches": append["build_launches"],
+                   "repeat": append["repeat"]["answer_source"],
+                   "refresh": append["refresh"],
+                   "refresh_s": append["refresh_s"],
+                   "refresh_worker_walls_s": append["refresh_worker_walls_s"],
+                   "after": append["after"]["answer_source"]},
+        "counters": {k: report["counters"][k] for k in (
+            "rollup_builds", "rollup_refreshes", "rollup_evictions",
+            "dispatched_shards")},
+        "answers": report["bundle"]["answers"],
+        "bundle": report["bundle"]["checks"],
+    }
+
+
+def run_serving_path(names, parts, data_dir, store_dir, scratch, captured):
+    """The serving layer on a cluster of its own over the taxi shards
+    (``SERVE_ENV``): per config of ``SERVE_CONFIGS`` the rollup built from
+    the first query and served against dispatched warm queries
+    (:func:`_serve_config`); multikey's key fold, zone proof and partial
+    filter (:func:`_serve_folds`); the kill switch; the debug bundle and
+    the metrics; then an append under a rollup on the ingest deployment
+    (:func:`_serve_append`).  Any logged serving error, fold failure,
+    ``render-error`` decision or failed build fails the leg."""
+    import bqueryd_tpu_torch
+
+    failures = _serve_failures()
+    bqueryd_tpu_torch.logger.addHandler(failures)
+    report = {"configs": {}}
+    try:
+        with _env_set(SERVE_ENV):
+            rpc, controller, worker, threads = _start_cluster(data_dir,
+                                                              store_dir)
+            try:
+                _wait(lambda: all((controller.shard_stats.get(n) or {}).get(
+                    "rows") for n in names), 60, "the shards' stats")
+                for config in SERVE_CONFIGS:
+                    report["configs"][config] = _serve_config(
+                        rpc, controller, worker, names, parts, config,
+                        captured)
+                    log(f"serving {config}: "
+                        f"{json.dumps(report['configs'][config])}")
+                report["folds"] = _serve_folds(
+                    rpc, controller, names, parts,
+                    report["configs"]["multikey"]["entry"], captured)
+                report["kill_switch"] = _serve_kill_switch(
+                    rpc, controller, names, parts)
+                report["bundle"] = _serve_bundle(rpc, controller, worker)
+                report["counters"] = dict(controller.counters)
+                failed = [e for e in controller.flight.events()
+                          if e["kind"] == "rollup_build_failed"]
+                render_errors = [d for d in list(controller.serving.decisions)
+                                 if any(r[1] == "render-error"
+                                        for r in d["rejected"])]
+                if failed or render_errors:
+                    raise AssertionError(f"failed builds {failed}, render "
+                                         f"errors {render_errors}")
+            finally:
+                _stop_cluster(rpc, controller, worker, threads)
+            report["append"] = _serve_append(scratch, captured)
+        if failures.records:
+            raise AssertionError(f"serving errors: {failures.records}")
+    finally:
+        bqueryd_tpu_torch.logger.removeHandler(failures)
+    return report
+
+
 def controller_url(store_dir):
     """The coordination URL of a cluster started on ``store_dir``."""
     return f"file://{store_dir}"
@@ -3122,6 +3673,9 @@ def main():
         log(f"executor path: {time.perf_counter() - t0:.1f}s")
         # the cluster's nodes bind and advertise the loopback address
         os.environ["BQUERYD_TPU_IP"] = "127.0.0.1"
+        # the serving layer stays off on every leg but its own, so that a
+        # repeated query of another leg is dispatched as it always was
+        os.environ["BQUERYD_TPU_SERVE"] = "0"
         t0 = time.perf_counter()
         onehot.reset_launch_counts()
         # the result cache off, so that every warm query runs its kernels
@@ -3189,6 +3743,17 @@ def main():
             "calibration", tuple({CONFIG_KERNEL[c] for c in CALIB_CONFIGS
                                   if heuristic_route(c) == "matmul"}))
         log(f"calibration path: {time.perf_counter() - t0:.1f}s")
+        # the serving layer: rollups built on the card, answers served
+        # with no dispatch and no launch, on a cluster of its own
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        serving = run_serving_path(
+            names, parts, data_dir,
+            tempfile.mkdtemp(prefix="serve_store_", dir=data_dir), data_dir,
+            captured)
+        serving_launches = path_launches("serving", SERVE_KERNELS)
+        log(f"serving path: {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"serving": serving_summary(serving)}), flush=True)
         t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
@@ -3206,6 +3771,7 @@ def main():
                           "concurrency": concurrency,
                           "routing": routing,
                           "calibration": calibration,
+                          "serving": serving,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
@@ -3215,6 +3781,7 @@ def main():
                                        "concurrency": conc_launches,
                                        "routing": routing_launches,
                                        "calibration": calib_launches,
+                                       "serving": serving_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -3243,9 +3810,11 @@ def main():
                 "executor": configs[config]["launches"],
                 "cluster": cluster[config]["launches"],
             }
-        # the routing and calibration legs' launches at each row's shape
+        # the routing, calibration and serving legs' launches at each
+        # row's shape
         for path, counted in (("routing", routing_launches),
-                              ("calibration", calib_launches)):
+                              ("calibration", calib_launches),
+                              ("serving", serving_launches)):
             for label, e in inputs.items():
                 key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
                 if counted.get(key) and not label.startswith("bundle "):

@@ -62,8 +62,38 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.ops.relops",
                    "bqueryd_tpu_torch.parallel.opexec",
                    "bqueryd_tpu_torch.ops.predicates",
-                   "bqueryd_tpu_torch.utils.tracing"):
+                   "bqueryd_tpu_torch.utils.tracing",
+                   "bqueryd_tpu_torch.obs",
+                   "bqueryd_tpu_torch.obs.metrics",
+                   "bqueryd_tpu_torch.obs.flightrec",
+                   "bqueryd_tpu_torch.serve",
+                   "bqueryd_tpu_torch.serve.subsume",
+                   "bqueryd_tpu_torch.serve.rollup"):
         assert module in result["imported"]
+
+
+_CONTROL_PLANE = """
+import json, sys
+import bqueryd_tpu_torch.controller
+import bqueryd_tpu_torch.serve
+import bqueryd_tpu_torch.obs
+from bqueryd_tpu_torch.models.query import ResultPayload
+heavy = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("torch", "pandas", "jax", "jaxlib",
+                                      "bqueryd_tpu"))
+print(json.dumps(heavy))
+"""
+
+
+def test_control_plane_imports_no_torch_and_no_pandas():
+    """The controller, the serving layer and obs (and the payload codec
+    the controller decodes rollup replies with) load without torch."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _CONTROL_PLANE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
 
 
 @pytest.fixture
