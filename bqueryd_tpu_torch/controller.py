@@ -7,8 +7,11 @@ with the reference's wire behaviour:
 * one ROUTER socket bound to a random port in 14300-14399, its identity
   ``tcp://ip:port`` registered in the coordination store;
 * workers register and re-register with WorkerRegisterMessages (WRMs);
-  silent ones are culled, and their in-flight work is re-queued onto
-  another holder within a retry budget;
+  silent ones are culled;
+* messages wait in affinity queues (``worker_out_messages``: ``None`` for
+  unpinned work, a worker id for an append or a rollup build pinned to
+  that worker with ``worker_id``), drained round-robin, every placeable
+  message per tick;
 * a ``groupby`` compiles to a logical plan (``plan.logical``), and its
   shards are batched into one ``CalcMessage`` per group of shards that the
   same workers hold (mergeable aggregations; raw rows and the distinct ops
@@ -24,6 +27,20 @@ with the reference's wire behaviour:
 * an ``append`` goes to every holder of the shard, once per distinct
   (node, data_dir), and is answered when all holders confirmed, or with
   an error naming the failed ones.
+
+* resilience: a unit whose worker was lost, whose dispatch went stale
+  (``dispatch_timeout`` on a silent worker, ``dispatch_hard_timeout`` on a
+  live one) or that failed with a ``transient`` error is re-queued onto a
+  different holder after a backoff (:meth:`_requeue`:
+  ``_excluded_workers``, ``_not_before``, ``_attempt_history``); past
+  ``max_dispatch_retries`` its queries fail with ``error_class``
+  "DispatchExhausted" and the attempts.  With ``BQUERYD_TPU_HEDGE_MS`` > 0
+  a unit in flight that long also goes to a second holder, and the first
+  reply wins.  Replies are deduplicated by token (``duplicate_replies``).
+  ``find_free_worker`` prefers the holders the health scorer
+  (:mod:`obs.health`, fed by the WRMs) rates ok; ``rpc.health()`` shows
+  the statuses.  The fault sites of :mod:`chaos` (``controller.dispatch``,
+  ``controller.reply``) make each path testable.
 
 * before any dispatch, a ``groupby`` or ``query`` passes admission
   (:mod:`plan.admission`: at most ``BQUERYD_TPU_ADMIT_MAX_ACTIVE`` plans
@@ -47,7 +64,7 @@ with the reference's wire behaviour:
   stats, refined by the kernel walls workers gossip in their WRMs
   (``self.calibration``, :mod:`plan.calibrate`); bundles and DAG
   dispatches carry none.  Each worker's device-health latch
-  (``backend_wedged``) is kept in its ``worker_map`` entry.
+  (``backend_wedged``) is kept in its ``worker_map`` entry and scored.
 
 * the serving layer (:mod:`serve`) answers a query before admission when
   a materialized rollup proves its answer (``answer_source`` "rollup" or
@@ -61,10 +78,9 @@ with the reference's wire behaviour:
   worker removals and the serving layer's decisions and rollup lifecycle;
   ``rpc.debug_bundle()`` assembles it with each worker's heartbeat slice.
 
-The controller imports neither torch nor pandas.  Not ported yet:
-capacity and health scoring of workers, stale-dispatch retries and
-hedging, affinity pins, peer gossip, traces, SLO accounting, the debug
-bundle's sections of those subsystems, chaos and downloads.
+The controller imports neither torch nor pandas.  Not ported yet: the
+capacity model, peer gossip, traces, SLO accounting, the debug bundle's
+sections of those subsystems, downloads and the admin verbs.
 
 Framing on the ROUTER socket:
 
@@ -87,7 +103,7 @@ import time
 import zmq
 
 import bqueryd_tpu_torch
-from bqueryd_tpu_torch import messages
+from bqueryd_tpu_torch import backoff, chaos, messages
 from bqueryd_tpu_torch.coordination import coordination_store
 from bqueryd_tpu_torch.messages import (
     BusyMessage,
@@ -105,15 +121,20 @@ from bqueryd_tpu_torch.utils.net import bind_to_random_port, get_my_ip
 POLLING_TIMEOUT = 0.5        # seconds
 DEAD_WORKER_TIMEOUT = 60.0   # cull workers silent longer than this
 HEARTBEAT_INTERVAL = 2.0     # store re-registration period
-DISPATCH_TIMEOUT = 120.0     # a worker holding younger work is not culled
-DISPATCH_HARD_TIMEOUT = 1800.0  # a heartbeat-only worker is culled after it
+DISPATCH_TIMEOUT = 120.0     # re-queue in-flight work of a dead worker
+DISPATCH_HARD_TIMEOUT = 1800.0  # ...and of a live one after this
 MAX_DISPATCH_RETRIES = 2
+#: failover pacing between dispatch attempts of one unit: base * 2^retries,
+#: capped, plus a per-token jitter (:mod:`bqueryd_tpu_torch.backoff`, the
+#: formula the RPC client's retries use too)
+RETRY_BACKOFF_BASE_S = backoff.BACKOFF_BASE_S
+RETRY_BACKOFF_CAP_S = backoff.BACKOFF_CAP_S
 #: how long an append fan-out waits for every holder's reply
 APPEND_TIMEOUT = 120.0
 RUNFILE_DIR = os.environ.get("BQUERYD_TPU_RUNFILE_DIR", "/srv")
 
 CONTROLLER_VERBS = ("ping", "loglevel", "info", "groupby", "query",
-                    "append", "metrics", "debug_bundle")
+                    "append", "metrics", "health", "debug_bundle")
 
 #: the controller's counters with their help texts (the reference's names
 #: and meanings): ``self.counters`` is a dict built from them
@@ -142,6 +163,22 @@ COUNTER_SPECS = {
     "admission_superseded": "abandoned queries retired early on resend",
     "deadline_expired": "work expired by its deadline before running",
     "dispatched_shards": "groupby CalcMessages sent to workers",
+    "health_avoided_dispatches":
+        "dispatch decisions that routed around a degraded/wedged worker",
+    "failover_dispatches":
+        "shards re-queued after a worker loss, timeout, or transient fault "
+        "(the retry excludes the failed holder)",
+    "transient_faults":
+        "transient (retryable) worker error replies that triggered a "
+        "shard failover instead of a query abort",
+    "hedged_dispatches":
+        "duplicate tail-shard dispatches issued past BQUERYD_TPU_HEDGE_MS",
+    "hedge_wins":
+        "hedged dispatches whose duplicate replied before the original",
+    "duplicate_replies":
+        "worker replies deduplicated by query token (hedge losers, "
+        "late retries, chaos-duplicated envelopes) — counted, never "
+        "double-merged",
     "rollup_builds":
         "materialized-rollup shard builds completed (serve.rollup full "
         "rebuilds; delta refreshes count separately)",
@@ -162,35 +199,51 @@ class ControllerNode:
         runfile_dir=RUNFILE_DIR,
         heartbeat_interval=HEARTBEAT_INTERVAL,
         dead_worker_timeout=None,
+        dispatch_timeout=None,
+        dispatch_hard_timeout=None,
         port_range=(14300, 14400),
         admit_max_active=None,
         admit_queue_depth=None,
         admit_client_quota=None,
+        max_dispatch_retries=None,
+        hedge_ms=None,
     ):
         from bqueryd_tpu_torch import obs
         from bqueryd_tpu_torch.plan import AdmissionController, calibrate
         from bqueryd_tpu_torch.serve import ServingLayer
 
         bqueryd_tpu_torch.configure_logging(loglevel or logging.INFO)
+        # fault injection: armed only when BQUERYD_TPU_FAULT_PLAN is set;
+        # every fault site is one None check otherwise
+        chaos.maybe_arm_from_env()
         self.store = coordination_store(
             coordination_url or bqueryd_tpu_torch.DEFAULT_COORDINATION_URL
         )
         self.heartbeat_interval = heartbeat_interval
-        self.dead_worker_timeout = (
-            dead_worker_timeout if dead_worker_timeout is not None
-            else env_num("BQUERYD_TPU_DEAD_WORKER_TIMEOUT",
-                         DEAD_WORKER_TIMEOUT)
+        # the timing knobs: the constructor argument, else the env var,
+        # else the module constant
+        if dead_worker_timeout is None:
+            dead_worker_timeout = env_num("BQUERYD_TPU_DEAD_WORKER_TIMEOUT",
+                                          DEAD_WORKER_TIMEOUT)
+        if dispatch_timeout is None:
+            dispatch_timeout = env_num("BQUERYD_TPU_DISPATCH_TIMEOUT",
+                                       DISPATCH_TIMEOUT)
+        if dispatch_hard_timeout is None:
+            dispatch_hard_timeout = env_num(
+                "BQUERYD_TPU_DISPATCH_HARD_TIMEOUT", DISPATCH_HARD_TIMEOUT)
+        self.dead_worker_timeout = dead_worker_timeout
+        self.dispatch_timeout = dispatch_timeout
+        self.dispatch_hard_timeout = max(dispatch_hard_timeout,
+                                         dispatch_timeout)
+        self.max_dispatch_retries = (
+            max_dispatch_retries if max_dispatch_retries is not None
+            else env_num("BQUERYD_TPU_MAX_DISPATCH_RETRIES",
+                         MAX_DISPATCH_RETRIES, int)
         )
-        self.dispatch_timeout = env_num("BQUERYD_TPU_DISPATCH_TIMEOUT",
-                                        DISPATCH_TIMEOUT)
-        self.dispatch_hard_timeout = max(
-            env_num("BQUERYD_TPU_DISPATCH_HARD_TIMEOUT",
-                    DISPATCH_HARD_TIMEOUT),
-            self.dispatch_timeout,
-        )
-        self.max_dispatch_retries = env_num(
-            "BQUERYD_TPU_MAX_DISPATCH_RETRIES", MAX_DISPATCH_RETRIES, int
-        )
+        # hedged dispatch of tail work: 0 (the default) is off; past this
+        # many milliseconds in flight a unit goes to a second holder too
+        self.hedge_ms = (hedge_ms if hedge_ms is not None
+                         else env_num("BQUERYD_TPU_HEDGE_MS", 0.0))
 
         self.context = zmq.Context.instance()
         self.socket = self.context.socket(zmq.ROUTER)
@@ -210,8 +263,18 @@ class ControllerNode:
         self.worker_map = {}          # worker_id -> WRM info (+ last_seen/busy)
         self._adoption_blocked = {}   # worker_id -> until-ts (hb-only cull)
         self.files_map = {}           # filename -> set(worker_id)
-        self.pending = []             # CalcMessages waiting for a worker
-        self.inflight = {}            # work token -> {worker, sent_at, msg}
+        # messages waiting for a worker, one queue per affinity: None for
+        # unpinned work, a worker id for the messages pinned to it
+        self.worker_out_messages = {None: []}
+        self._affinity_rr = 0
+        self.inflight = {}            # work token -> {worker, sent_at, msg,
+        #                               parent, retries[, hedged, hedged_at]}
+        self._hedged_tokens = {}      # answered token -> ts (dedup ring)
+        self._hedge_losers = {}       # token -> {workers, since}: reclaim
+        #                               handles on the side that lost
+        self._requeued_tokens = set()  # retries waiting in a queue: a late
+        #                                reply of the failed attempt must
+        #                                neither abort nor run again
         self.rpc_segments = {}        # parent token -> fan-out bookkeeping
         # admission: the REQ identity is the ticket
         self.admission = AdmissionController(
@@ -227,6 +290,10 @@ class ControllerNode:
         # in memory only (the workers own persistence)
         self.calibration = calibrate.CalibrationStore()
         self._worker_wedged = {}      # worker_id -> last advertised latch
+        self._worker_metrics = {}     # worker_id -> last histogram snapshot
+        # rolling latency and error baselines from the WRMs, which
+        # find_free_worker's candidate order acts on
+        self.health = obs.HealthScorer()
         # the serving layer: subsumption and materialized rollups; a hit
         # replies before admission, BQUERYD_TPU_SERVE=0 makes every entry
         # point a no-op
@@ -262,6 +329,18 @@ class ControllerNode:
         self.metrics.gauge(
             "bqueryd_tpu_workers_known",
             "workers currently registered", fn=lambda: len(self.worker_map),
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_fault_injected_total",
+            "faults injected by the armed chaos plan, process-lifetime "
+            "(0 while BQUERYD_TPU_FAULT_PLAN is unarmed)",
+            fn=chaos.injected_total,
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_workers_degraded",
+            "registered workers currently scored degraded or wedged",
+            fn=lambda: sum(1 for st in self.health.statuses().values()
+                           if st.get("status") != obs.STATUS_OK),
         )
         # the flight ring behind rpc.debug_bundle(), and each worker's
         # heartbeat slice, kept after the worker is removed (its last words
@@ -322,6 +401,8 @@ class ControllerNode:
                 try:
                     self.heartbeat()
                     self.free_dead_workers()
+                    self.retry_stale_dispatches()
+                    self.maybe_hedge()
                     # a staged window bounds the poll: its flush is due
                     # when it closes, not a full POLLING_TIMEOUT later
                     # (closed-loop clients send nothing while staged)
@@ -417,21 +498,18 @@ class ControllerNode:
             self.remove_worker(worker_id)
 
     def remove_worker(self, worker_id):
-        """Forget a worker and its files; re-queue its in-flight work.  A
-        rollup build sent or queued to it fails its entry: the build cannot
-        complete any more.  Its debug slice is kept for the bundle."""
+        """Forget a worker and its files; re-queue its in-flight work onto
+        another holder (a hedged flight collapses onto its surviving side
+        instead).  An append or a rollup build pinned to it, queued or in
+        flight, fails its fan-out or its rollup entry: it cannot complete
+        any more.  Its debug slice is kept for the bundle."""
         if worker_id in self.worker_map:
             # forensic event, never gated
             self.flight.record("worker_removed", worker=worker_id)
         self.worker_map.pop(worker_id, None)
+        self.health.remove(worker_id)
         self._worker_wedged.pop(worker_id, None)
-        lost = [e["msg"] for e in self.inflight.values()
-                if e["worker"] == worker_id]
-        lost += [m for m in self.pending if m.get("target") == worker_id]
-        for msg in lost:
-            waiter = self._rollup_waiters.pop(msg.get("token"), None)
-            if waiter is not None:
-                self._fail_rollup(waiter[0], waiter[1], "holder removed")
+        self._worker_metrics.pop(worker_id, None)
         for filename in list(self.files_map):
             self.files_map[filename].discard(worker_id)
             if not self.files_map[filename]:
@@ -450,90 +528,218 @@ class ControllerNode:
                 )
             if gone and not segment["pending"]:
                 self._finish_append_segment(seg_key, segment)
+        # the worker's own queue: its pinned messages can never be sent
+        for msg in self.worker_out_messages.pop(worker_id, []):
+            self._fail_pinned(msg, "holder removed")
         for token, entry in list(self.inflight.items()):
-            if entry["worker"] == worker_id:
+            if entry.get("hedged") == worker_id:
                 self.inflight.pop(token)
-                self._requeue(entry["msg"], f"worker {worker_id} lost")
+                self._collapse_hedge(token, entry, worker_id)
+            elif entry["worker"] == worker_id:
+                self.inflight.pop(token)
+                if entry.get("hedged"):
+                    self._collapse_hedge(token, entry, worker_id)
+                else:
+                    self._requeue(entry, reason=f"worker {worker_id} lost")
 
-    def _requeue(self, msg, reason):
-        """Queue a work unit again, or fail its query once it has used
-        ``max_dispatch_retries`` retries.  An append goes to one holder
-        only: its fan-out records that holder's failure instead."""
-        if msg.get("target") is not None:
+    def _fail_pinned(self, msg, reason):
+        """A message pinned to one worker (``worker_id``: an append or a
+        rollup build) that can no longer be answered: its rollup entry
+        fails, or its append fan-out records the holder's failure."""
+        token = msg.get("token")
+        waiter = self._rollup_waiters.pop(token, None)
+        if waiter is not None:
+            self._fail_rollup(waiter[0], waiter[1], reason)
+        seg_key = self._append_waiters.pop(token, None)
+        segment = self._append_segments.get(seg_key)
+        if segment is not None:
+            holder = segment["pending"].pop(token, None)
+            if holder is not None:
+                segment["errors"][holder] = str(reason)[:300]
+            if not segment["pending"]:
+                self._finish_append_segment(seg_key, segment)
+
+    def _retry_backoff(self, msg, retries):
+        """The pause before the next dispatch attempt of one work unit:
+        base * 2^retries, capped, stretched by up to 25% keyed on its
+        token (stable across runs, different across shards, so that
+        simultaneous failovers do not stampede one holder)."""
+        return backoff.backoff_delay(
+            retries, str(msg.get("token") or ""),
+            base=RETRY_BACKOFF_BASE_S, cap=RETRY_BACKOFF_CAP_S,
+        )
+
+    def _requeue(self, entry, charge_retry=True, failed_worker=None,
+                 reason=None):
+        """Queue a failed dispatch attempt again, on another holder while
+        one exists (``_excluded_workers``), after a backoff
+        (``_not_before``), with the attempt in ``_attempt_history``; or,
+        once ``max_dispatch_retries`` charged retries are spent, fail its
+        queries with ``error_class`` "DispatchExhausted" and that history.
+        ``entry`` is an inflight entry (``msg``, ``worker``, ``retries``).
+        A message pinned to one worker is not re-queued: its append
+        fan-out or rollup entry records the failure."""
+        msg = entry["msg"]
+        retries = entry.get("retries", 0)
+        if failed_worker is None:
+            failed_worker = entry.get("worker")
+        reason = str(reason or "worker lost or dispatch timed out")
+        if msg.get("worker_id") is not None:
+            self._fail_pinned(msg, reason)
             return
-        retries = msg.get("_retries", 0)
-        if retries >= self.max_dispatch_retries:
+        # the per-attempt history rides the message (bounded by the retry
+        # budget); the exhaustion envelope hands it to the client
+        history = list(msg.get("_attempt_history") or [])
+        history.append({
+            "worker": failed_worker,
+            "reason": reason[:200],
+            "retries": retries,
+            "ts": round(time.time(), 3),
+        })
+        msg["_attempt_history"] = history
+        if failed_worker:
+            # the retry lands on a different holder while one exists
+            excluded = list(msg.get("_excluded_workers") or [])
+            if failed_worker not in excluded:
+                excluded.append(failed_worker)
+            msg["_excluded_workers"] = excluded
+        if charge_retry and retries >= self.max_dispatch_retries:
             self._abort_work(
                 msg,
                 f"shard {msg.get('filename')} failed after {retries} "
-                f"retries ({reason})",
+                f"retries (worker lost, timed out, or faulted)",
                 error_class="DispatchExhausted",
+                attempts=history,
             )
             return
-        msg["_retries"] = retries + 1
-        self.pending.append(msg)
+        if charge_retry and failed_worker:
+            self.counters["failover_dispatches"] += 1
+        msg["_retries"] = retries + 1 if charge_retry else retries
+        backoff_s = self._retry_backoff(msg, retries)
+        msg["_not_before"] = time.time() + backoff_s
+        msg["_backoff_s"] = round(backoff_s, 6)
+        if msg.get("token"):
+            self._requeued_tokens.add(msg.get("token"))
+        self.worker_out_messages.setdefault(msg.get("affinity"), []).append(
+            msg)
 
     # -- scheduling --------------------------------------------------------
-    def find_free_worker(self, filename):
-        """A random free calc worker that advertises ``filename``: one
-        name, or every name of a batched shard group's list."""
-        needed = [filename] if isinstance(filename, str) else list(filename)
+    def find_free_worker(self, needs_local=False, filename=None, exclude=()):
+        """A random free calc worker that advertises ``filename`` (one
+        name, or every name of a batched shard group's list), on this
+        controller's host when ``needs_local``.
+
+        ``exclude`` is the failover set: holders this unit already failed
+        on, avoided while any other candidate exists (a sole holder still
+        serves: a transient fault may have cleared).  Among the rest,
+        workers the health scorer rates degraded or wedged are used only
+        when no healthy candidate is free (counted in
+        ``health_avoided_dispatches``); ``BQUERYD_TPU_HEALTH_ROUTING=0``
+        turns that preference off."""
+        from bqueryd_tpu_torch.obs import health as health_mod
+
+        needed = ([filename] if isinstance(filename, str)
+                  else list(filename or []))
         candidates = [
             worker_id for worker_id, info in self.worker_map.items()
             if info.get("workertype") == "calc" and not info.get("busy")
             and all(worker_id in self.files_map.get(f, ()) for f in needed)
+            and (not needs_local or info.get("node") == self.node_name)
         ]
-        return random.choice(candidates) if candidates else None
+        if exclude:
+            kept = [w for w in candidates if w not in exclude]
+            if kept:
+                candidates = kept
+        if not candidates:
+            return None
+        if len(candidates) > 1 and health_mod.routing_enabled():
+            healthy = self.health.healthy_subset(candidates)
+            if healthy and len(healthy) < len(candidates):
+                self.counters["health_avoided_dispatches"] += 1
+                candidates = healthy
+        return random.choice(candidates)
 
     def dispatch_pending(self):
-        """Send every queued message that a free worker can take, in queue
-        order; expire those past their deadline and fail those whose files
-        no worker holds any more."""
-        queue, self.pending = self.pending, []
-        for msg in queue:
-            target = msg.get("target")
-            if target is not None:
-                # an append or a rollup build to one holder, while its
-                # fan-out or its rollup entry waits
-                if (msg["token"] not in self._append_waiters
-                        and msg["token"] not in self._rollup_waiters):
-                    continue
-                if self.worker_map.get(target, {}).get("busy", True):
-                    self.pending.append(msg)
-                else:
-                    self._send_to_worker(target, msg)
+        """Drain the affinity queues round-robin, every message that can
+        be placed this tick (the reference sends one per queue per tick).
+        A message inside its failover backoff is skipped without blocking
+        the queue behind it; a pinned message (``worker_id``) waits for its
+        worker; the rest expire past their deadline, fail when no worker
+        holds their files any more, or go to a free holder."""
+        affinities = sorted(self.worker_out_messages,
+                            key=lambda a: (a is None, str(a)))
+        for offset in range(len(affinities)):
+            affinity = affinities[
+                (self._affinity_rr + offset) % len(affinities)]
+            queue = self.worker_out_messages.get(affinity)
+            if not queue:
+                if affinity is not None:
+                    self.worker_out_messages.pop(affinity, None)
                 continue
-            if not any(p in self.rpc_segments
-                       for p in self._work_parents(msg)):
-                self._drop_work(msg.get("token"))
-                continue  # every query waiting for it was aborted
-            if msg.deadline_expired():
-                # nobody waits any more: expire instead of dispatching
-                self.counters["deadline_expired"] += 1
-                self._abort_work(msg, "deadline exceeded before dispatch")
-                continue
-            filename = msg.get("filename")
-            worker_id = self.find_free_worker(filename)
-            if worker_id is not None:
-                self._send_to_worker(worker_id, msg)
-                continue
-            needed = [filename] if isinstance(filename, str) else filename
-            missing = [f for f in needed if f not in self.files_map]
-            if missing:
-                # every holder is gone: no later tick can serve this
-                self._abort_work(
-                    msg, f"file(s) no longer on any worker: {missing}",
-                )
-            elif isinstance(filename, list) and not self._servable_by_one(
-                filename
-            ):
-                # placement changed since batching: one message per shard,
-                # carrying the batch's subscribers
-                children = self._split_batch(msg)
-                self._transfer_work(msg, children)
-                self.pending.extend(children)
-            else:
-                self.pending.append(msg)  # its holders are busy
+            # messages queued while this one drains (a failed send's
+            # requeue) land behind the kept ones
+            self.worker_out_messages[affinity] = []
+            kept = []
+            for msg in queue:
+                if self._place(msg, kept) is False:
+                    kept.append(msg)
+            self.worker_out_messages[affinity] = (
+                kept + self.worker_out_messages.get(affinity, []))
+        self._affinity_rr += 1
+
+    def _place(self, msg, queue):
+        """One queued message's fate this tick: False to keep it queued;
+        anything else means it was sent, re-split into ``queue`` or
+        dropped."""
+        not_before = msg.get("_not_before")
+        if not_before is not None and not_before > time.time():
+            return False  # backing off
+        pinned = msg.get("worker_id")
+        if pinned is not None:
+            # an append or a rollup build to one holder, while its fan-out
+            # or its rollup entry waits
+            if (msg["token"] not in self._append_waiters
+                    and msg["token"] not in self._rollup_waiters):
+                return None
+            if self.worker_map.get(pinned, {}).get("busy", True):
+                return False
+            self._send_to_worker(pinned, msg)
+            return True
+        if not any(p in self.rpc_segments for p in self._work_parents(msg)):
+            self._drop_work(msg.get("token"))
+            return None  # every query waiting for it was aborted
+        if msg.deadline_expired():
+            # nobody waits any more: expire instead of dispatching
+            self.counters["deadline_expired"] += 1
+            self._abort_work(msg, "deadline exceeded before dispatch")
+            return None
+        filename = msg.get("filename")
+        worker_id = self.find_free_worker(
+            needs_local=msg.get("needs_local", False),
+            filename=filename,
+            exclude=frozenset(msg.get("_excluded_workers") or ()),
+        )
+        if worker_id is not None:
+            self._send_to_worker(worker_id, msg)
+            return True
+        needed = [filename] if isinstance(filename, str) else filename
+        missing = [f for f in needed if f not in self.files_map]
+        if missing:
+            # every holder is gone: no later tick can serve this
+            self._abort_work(
+                msg, f"file(s) no longer on any worker: {missing}",
+            )
+            return None
+        if isinstance(filename, list) and not self._servable_by_one(
+            filename
+        ):
+            # placement changed since batching: one message per shard,
+            # carrying the batch's subscribers
+            children = self._split_batch(msg)
+            self._transfer_work(msg, children)
+            queue.extend(children)
+            return None
+        return False  # its holders are busy
 
     def _servable_by_one(self, filenames):
         """True if any calc worker, busy or not, advertises every file."""
@@ -575,6 +781,7 @@ class ControllerNode:
 
     def _drop_work(self, token):
         self._work_subscribers.pop(token, None)
+        self._requeued_tokens.discard(token)
         key = self._work_keys.pop(token, None)
         if key is not None and self._work_index.get(key) == token:
             self._work_index.pop(key, None)
@@ -596,22 +803,56 @@ class ControllerNode:
         for child in children:
             self._register_work(child, subs)
 
-    def _abort_work(self, msg, error_text, error_class=None):
+    def _abort_work(self, msg, error_text, error_class=None, attempts=None):
         """Fail every parent subscribed to one work unit."""
         parents = self._work_parents(msg)
         self._drop_work(msg.get("token"))
         for parent in parents:
-            self.abort_parent(parent, error_text, error_class=error_class)
+            self.abort_parent(parent, error_text, error_class=error_class,
+                              attempts=attempts)
+
+    def _dispatch_wire(self, worker_id, msg):
+        """The send seam of the primary and the hedge dispatch: the
+        ``controller.dispatch`` fault site (``drop``, ``duplicate``,
+        ``delay``) and the ROUTER send.  False when the envelope was
+        dropped by a fault; a gone peer's ``zmq.ZMQError`` propagates."""
+        fault = chaos.fire(
+            "controller.dispatch",
+            worker=worker_id,
+            verb=msg.get("payload"),
+            token=msg.get("token"),
+            filename=str(msg.get("filename")),
+        ) if chaos.enabled() else None
+        if fault is not None and fault.action == "drop":
+            self.flight.record("chaos_dispatch_dropped", worker=worker_id,
+                               token=msg.get("token"))
+            return False
+        frames = [worker_id.encode(), msg.to_json().encode()]
+        self.socket.send_multipart(frames)
+        if fault is not None and fault.action == "duplicate":
+            self.socket.send_multipart(frames)
+        return True
 
     def _send_to_worker(self, worker_id, msg):
         try:
-            self.socket.send_multipart(
-                [worker_id.encode(), msg.to_json().encode()]
-            )
+            # a fault-dropped envelope "left" and never arrives: it is
+            # tracked in flight, and the dispatch timeout recovers it
+            self._dispatch_wire(worker_id, msg)
         except zmq.ZMQError as exc:
             self.logger.warning("send to worker %s failed: %s", worker_id, exc)
             self.remove_worker(worker_id)
-            self._requeue(msg, f"send failed: {exc}")
+            # a missing route (EHOSTUNREACH) is a fact of the controller's
+            # routing, not evidence against the shard: re-queued without
+            # charging the retry budget.  Any other send failure charges,
+            # or a wedged worker that keeps re-registering would loop the
+            # dispatch forever
+            unroutable = getattr(exc, "errno", None) == zmq.EHOSTUNREACH
+            self._requeue(
+                {"msg": msg, "retries": msg.get("_retries", 0)},
+                charge_retry=not unroutable,
+                failed_worker=worker_id,
+                reason=f"send failed: {exc}",
+            )
             return
         if msg.isa("groupby"):
             self.counters["dispatched_shards"] += 1
@@ -629,13 +870,205 @@ class ControllerNode:
                 filename=(str(filename)[:200] if filename is not None
                           else None),
             )
-        info = self.worker_map[worker_id]
-        info["busy"] = True
-        # ROUTER_MANDATORY: the send would have raised on a gone peer
-        info["last_seen"] = time.time()
-        self.inflight[msg["token"]] = {
-            "worker": worker_id, "sent_at": time.time(), "msg": msg,
-        }
+        info = self.worker_map.get(worker_id)
+        if info is not None:
+            info["busy"] = True
+            # ROUTER_MANDATORY: the send would have raised on a gone peer
+            info["last_seen"] = time.time()
+        token = msg.get("token")
+        if token:
+            self._requeued_tokens.discard(token)
+            self.inflight[token] = {
+                "worker": worker_id, "sent_at": time.time(), "msg": msg,
+                "parent": msg.get("parent_token"),
+                "retries": msg.get("_retries", 0),
+            }
+
+    # -- stale dispatches and hedging ----------------------------------------
+    def retry_stale_dispatches(self):
+        """Re-queue in-flight work older than ``dispatch_timeout`` whose
+        worker stopped heartbeating, or older than
+        ``dispatch_hard_timeout`` on a live one (which is then removed: a
+        worker hung past the hard cap would sit busy and advertised
+        forever).  A live worker inside the hard cap is left alone: a cold
+        query (a kernel build, a first upload) may outlast
+        ``dispatch_timeout``, and re-running it would double the work.  A
+        hedge loser or an outdistanced attempt still computing an answered
+        token is removed past the hard cap too."""
+        now = time.time()
+        for token, entry in list(self.inflight.items()):
+            if token not in self.inflight:
+                continue  # reclaimed by a remove_worker below
+            age = now - entry["sent_at"]
+            if age <= self.dispatch_timeout:
+                continue
+            winfo = self.worker_map.get(entry["worker"])
+            worker_alive = (
+                winfo is not None
+                and now - winfo.get("last_seen", 0.0)
+                <= self.dead_worker_timeout
+            )
+            if worker_alive and age <= self.dispatch_hard_timeout:
+                continue
+            self.logger.warning(
+                "dispatch %s to %s timed out (age %.0fs, worker %s)",
+                token, entry["worker"], age,
+                "alive" if worker_alive else "dead",
+            )
+            # forensic event, never gated
+            self.flight.record(
+                "dispatch_timeout",
+                token=token,
+                worker=entry["worker"],
+                age_s=round(age, 3),
+                hard=age > self.dispatch_hard_timeout,
+                worker_alive=worker_alive,
+                filename=str(entry["msg"].get("filename"))[:200],
+            )
+            self.inflight.pop(token)
+            if entry.get("hedged"):
+                # the hedge duplicate still computes: collapse onto it
+                # instead of a third dispatch
+                self._collapse_hedge(token, entry, entry["worker"])
+            else:
+                self._requeue(
+                    entry,
+                    reason=f"dispatch timeout after {age:.0f}s "
+                           f"(worker {'alive' if worker_alive else 'dead'})",
+                )
+            if worker_alive:
+                self.logger.warning(
+                    "worker %s hung past hard timeout, removing",
+                    entry["worker"])
+                self.remove_worker(entry["worker"])
+        for token, rec in list(self._hedge_losers.items()):
+            remaining = []
+            for worker in rec["workers"]:
+                if worker not in self.worker_map:
+                    continue  # culled independently
+                age = now - rec["since"]
+                if age <= self.dispatch_hard_timeout:
+                    remaining.append(worker)
+                    continue
+                self.logger.warning(
+                    "hedge loser %s silent past hard timeout on %s, "
+                    "removing", worker, token)
+                self.flight.record("hedge_loser_timeout", token=token,
+                                   worker=worker, age_s=round(age, 3))
+                self.remove_worker(worker)
+            if remaining:
+                rec["workers"] = remaining
+            else:
+                self._hedge_losers.pop(token, None)
+
+    def _mark_hedged(self, token, ts):
+        """Put a token in the answered-token dedup ring, bounded to 256
+        entries (a marker for a worker that dies before answering is never
+        popped by a reply)."""
+        self._hedged_tokens[token] = ts
+        while len(self._hedged_tokens) > 256:
+            self._hedged_tokens.pop(next(iter(self._hedged_tokens)))
+
+    def _withdraw_queued(self, token):
+        """Drop a queued, not yet dispatched message by token: a late reply
+        of an earlier attempt answered it."""
+        for affinity, queue in list(self.worker_out_messages.items()):
+            kept = [m for m in queue if m.get("token") != token]
+            if len(kept) != len(queue):
+                self.worker_out_messages[affinity] = kept
+
+    def _collapse_hedge(self, token, entry, failed_worker):
+        """One side of a hedged pair is gone (a fault, a timeout, a cull):
+        re-key the inflight entry onto the surviving side instead of
+        re-queueing, exclude the failed side, and clear the token's dedup
+        marker, so that the survivor's reply is THE reply."""
+        hedged = entry.get("hedged")
+        survivor = (hedged if failed_worker == entry.get("worker")
+                    else entry["worker"])
+        refiled = dict(entry, worker=survivor)
+        refiled.pop("hedged", None)
+        refiled.pop("hedged_at", None)
+        if survivor == hedged:
+            # the survivor's timeout clock starts at the hedge dispatch
+            refiled["sent_at"] = entry.get("hedged_at", entry["sent_at"])
+        excluded = list(entry["msg"].get("_excluded_workers") or [])
+        if failed_worker and failed_worker not in excluded:
+            excluded.append(failed_worker)
+        entry["msg"]["_excluded_workers"] = excluded
+        self._hedged_tokens.pop(token, None)
+        self.inflight[token] = refiled
+        self.flight.record("hedge_collapsed", token=token,
+                           failed=failed_worker, survivor=survivor)
+        return refiled
+
+    def _note_losers(self, token, workers):
+        """Keep hard-timeout reclaim handles on workers still computing an
+        answered token (hedge losers, outdistanced attempts)."""
+        workers = [w for w in workers if w]
+        if workers:
+            self._hedge_losers[token] = {"workers": workers,
+                                         "since": time.time()}
+
+    def _discard_loser(self, token, worker_id):
+        """A tracked loser answered after all: stop holding its handle."""
+        rec = self._hedge_losers.get(token)
+        if rec is None:
+            return
+        rec["workers"] = [w for w in rec["workers"] if w != worker_id]
+        if not rec["workers"]:
+            self._hedge_losers.pop(token, None)
+
+    def maybe_hedge(self):
+        """Hedged dispatch of tail work (off unless ``hedge_ms`` > 0,
+        ``BQUERYD_TPU_HEDGE_MS``): a groupby unit in flight past the
+        threshold is sent again to a second free holder (not the original,
+        not one it failed on).  The first reply wins; the other is counted
+        in ``duplicate_replies`` and never merged."""
+        if self.hedge_ms <= 0 or not self.inflight:
+            return
+        now = time.time()
+        for token, entry in list(self.inflight.items()):
+            if token not in self.inflight:
+                # a remove_worker below re-queued it: its retry is parked,
+                # and a dedup marker would discard the retry's reply
+                continue
+            if entry.get("hedged"):
+                continue
+            if (now - entry["sent_at"]) * 1000.0 < self.hedge_ms:
+                continue
+            msg = entry["msg"]
+            if not msg.isa("groupby") or msg.get("worker_id"):
+                # only the idempotent shard verb runs twice, and a pinned
+                # message chose its worker
+                continue
+            exclude = {entry["worker"]} | set(
+                msg.get("_excluded_workers") or ())
+            target = self.find_free_worker(
+                needs_local=msg.get("needs_local", False),
+                filename=msg.get("filename"),
+                exclude=exclude,
+            )
+            if target is None or target in exclude:
+                continue  # no second holder free now
+            try:
+                if not self._dispatch_wire(target, msg):
+                    continue  # dropped by a fault: a later tick may retry
+            except zmq.ZMQError:
+                # a gone peer: cull it, or every tick hedges onto it again
+                self.remove_worker(target)
+                continue
+            entry["hedged"] = target
+            entry["hedged_at"] = now
+            self._mark_hedged(token, now)
+            if target in self.worker_map:
+                self.worker_map[target]["busy"] = True
+                self.worker_map[target]["last_seen"] = now
+            self.counters["hedged_dispatches"] += 1
+            self.flight.record(
+                "hedged_dispatch", token=token, worker=target,
+                original=entry["worker"],
+                age_ms=round((now - entry["sent_at"]) * 1000.0, 1),
+            )
 
     # -- inbound demux -----------------------------------------------------
     def handle_in(self, frames):
@@ -684,6 +1117,119 @@ class ControllerNode:
             info["busy"] = False
             self._absorb_reply(worker_id, msg)
 
+    def _absorb_reply(self, worker_id, msg):
+        """A worker's reply to a work unit, deduplicated by token: a
+        hedge loser's reply, a late reply of an attempt that was re-queued
+        and a fault-duplicated envelope are counted in
+        ``duplicate_replies`` and never merged twice.  A late valid reply
+        of an earlier attempt wins (holders compute identical payloads);
+        a late error of one is dropped while a live attempt stands.  The
+        ``controller.reply`` fault site (``drop``, ``duplicate``,
+        ``delay``) fires here for shard replies."""
+        token = msg["token"]
+        fault = chaos.fire(
+            "controller.reply",
+            worker=worker_id,
+            token=token,
+            verb=msg.get("payload"),
+            parent=msg.get("parent_token"),
+        ) if chaos.enabled() and msg.get("parent_token") else None
+        if fault is not None and fault.action == "drop":
+            self.flight.record("chaos_reply_dropped", token=token,
+                               worker=worker_id)
+            return
+        entry = self.inflight.pop(token, None)
+        if entry is None and token in self._hedged_tokens:
+            # the token was answered: first reply won, this one is counted
+            # and dropped
+            self._hedged_tokens.pop(token, None)
+            self._discard_loser(token, worker_id)
+            self.counters["duplicate_replies"] += 1
+            return
+        if entry is None and token in self._requeued_tokens:
+            # the unit's retry waits in its queue and a late reply of the
+            # failed attempt landed first
+            if msg.isa(ErrorMessage):
+                # a stale fault: the queued retry stands
+                self.counters["duplicate_replies"] += 1
+                self.flight.record("stale_reply_dropped", token=token,
+                                   worker=worker_id,
+                                   error=str(msg.get("payload"))[:200])
+                return
+            # a late valid result wins: withdraw the queued retry, and
+            # mark the token so that another superseded attempt's later
+            # reply is counted and dropped
+            self._requeued_tokens.discard(token)
+            self._withdraw_queued(token)
+            self._mark_hedged(token, time.time())
+        if entry is not None:
+            assigned, hedged = entry.get("worker"), entry.get("hedged")
+            outstanding = [w for w in (assigned, hedged)
+                           if w is not None and w != worker_id]
+            if worker_id not in (assigned, hedged):
+                # a late reply of an earlier attempt, while the current
+                # one computes on `outstanding`
+                if msg.isa(ErrorMessage):
+                    # a stale fault: the live attempt stands
+                    self.inflight[token] = entry
+                    self.counters["duplicate_replies"] += 1
+                    self.flight.record("stale_reply_dropped", token=token,
+                                       worker=worker_id,
+                                       error=str(msg.get("payload"))[:200])
+                    return
+                # a late valid result wins; the live attempt's reply will
+                # be deduplicated, and its workers keep reclaim handles
+                self._mark_hedged(token, time.time())
+                self._note_losers(token, outstanding)
+            elif hedged and msg.isa(ErrorMessage):
+                # one side of a hedged pair failed while the other still
+                # computes: collapse onto the survivor, whose answer
+                # decides (no re-queue, no retry charge, no abort)
+                refiled = self._collapse_hedge(token, entry, worker_id)
+                transient = bool(msg.get("transient"))
+                if transient:
+                    self.counters["transient_faults"] += 1
+                self.flight.record(
+                    "transient_fault" if transient else "hedge_side_error",
+                    token=token, worker=worker_id,
+                    survivor=refiled["worker"],
+                    error=str(msg.get("payload"))[:200],
+                )
+                return
+            elif hedged:
+                self._mark_hedged(token, time.time())  # the loser is due
+                if worker_id == hedged:
+                    self.counters["hedge_wins"] += 1
+                    self.flight.record("hedge_win", token=token,
+                                       winner=worker_id, loser=assigned)
+                else:
+                    self.flight.record("hedge_loss", token=token,
+                                       winner=worker_id, loser=hedged)
+                self._note_losers(token, outstanding)
+        else:
+            if token in self._hedge_losers:
+                # its ring marker was evicted, but the loser record proves
+                # the token was answered: counted and dropped
+                self._discard_loser(token, worker_id)
+                self.counters["duplicate_replies"] += 1
+                self.flight.record(
+                    "stale_reply_dropped", token=token, worker=worker_id,
+                    error=(str(msg.get("payload"))[:200]
+                           if msg.isa(ErrorMessage) else None),
+                )
+                return
+        self.process_worker_result(msg, entry)
+        if fault is not None and fault.action == "duplicate":
+            # the replay is a duplicate by definition: an open segment
+            # counts it where its key is found again, so it is counted
+            # here only when no open segment will
+            parent = msg.get("parent_token")
+            subs = self._work_subscribers.get(token) or (
+                (parent,) if parent is not None else ())
+            if not any(p in self.rpc_segments for p in subs):
+                self.counters["duplicate_replies"] += 1
+            self.process_worker_result(msg, None)
+
     def _register(self, worker_id, msg, now):
         if msg.get("liveness_only"):
             # a WRM from the worker's heartbeat thread: refresh a known
@@ -695,8 +1241,7 @@ class ControllerNode:
             if known is not None:
                 known["last_seen"] = now
                 known["backend_wedged"] = bool(msg.get("backend_wedged"))
-                self._absorb_wedged(worker_id, msg)
-                self._absorb_worker_debug(worker_id, msg)
+                self._absorb_worker_metrics(worker_id, msg)
                 # the worker's stats advertisement rides either socket
                 self._absorb_shard_stats(msg)
             elif self._adoption_blocked.get(worker_id, 0) <= now:
@@ -704,8 +1249,7 @@ class ControllerNode:
                 self.worker_map[worker_id] = info
                 for filename in info.get("data_files") or []:
                     self.files_map.setdefault(filename, set()).add(worker_id)
-                self._absorb_wedged(worker_id, info)
-                self._absorb_worker_debug(worker_id, info)
+                self._absorb_worker_metrics(worker_id, info)
                 self._absorb_shard_stats(info)
             return
         prev = self.worker_map.get(worker_id, {})
@@ -724,21 +1268,40 @@ class ControllerNode:
                 if not self.files_map[filename]:
                     del self.files_map[filename]
                     self.shard_stats.pop(filename, None)
-        self._absorb_wedged(worker_id, info)
-        self._absorb_worker_debug(worker_id, info)
+        self._absorb_worker_metrics(worker_id, info)
         self._absorb_shard_stats(info)
 
-    def _absorb_wedged(self, worker_id, info):
-        """Track each worker's advertised device-health latch and log its
-        flips."""
+    def _absorb_worker_metrics(self, worker_id, info):
+        """The health signals a WRM carries (the histogram snapshot, the
+        error counter, the device-health latch) into the health scorer,
+        the latch's flips into the flight ring (``worker_wedged``,
+        ``worker_unwedged``), and the worker's debug slice (see
+        :meth:`_absorb_worker_debug`).  The snapshot is popped from
+        ``info``, so that ``worker_map`` stays lean."""
+        snap = info.pop("metrics", None)
+        if isinstance(snap, dict):
+            self._worker_metrics[worker_id] = snap
         wedged = bool(info.get("backend_wedged"))
         prev = self._worker_wedged.get(worker_id)
         self._worker_wedged[worker_id] = wedged
         if wedged and not prev:
+            # forensic event, never gated
+            self.flight.record("worker_wedged", worker=worker_id)
             self.logger.warning(
                 "worker %s advertises a wedged device", worker_id)
         elif prev and not wedged:
+            self.flight.record("worker_unwedged", worker=worker_id)
             self.logger.info("worker %s device recovered", worker_id)
+        # every heartbeat is a sample, even with unchanged totals: a
+        # silent window is a signal too
+        self.health.observe(
+            worker_id,
+            snapshot=self._worker_metrics.get(worker_id),
+            wedged=wedged,
+            errors=info.get("work_errors"),
+            pid=info.get("pid"),
+        )
+        self._absorb_worker_debug(worker_id, info)
 
     def _absorb_worker_debug(self, worker_id, info):
         """Keep the worker's debug-bundle slice (flight tail, device
@@ -780,22 +1343,14 @@ class ControllerNode:
             except Exception:
                 self.logger.debug("calibration absorb failed", exc_info=True)
 
-    def _absorb_reply(self, worker_id, msg):
-        """A worker's reply to a work unit.  A late reply of an earlier
-        attempt (its worker was culled and the unit re-queued) counts when
-        it is a result: the first result wins.  Its errors are dropped
-        while the live attempt stands."""
-        token = msg["token"]
-        entry = self.inflight.get(token)
-        if entry is not None and entry["worker"] != worker_id:
-            if msg.isa(ErrorMessage):
-                return
-        else:
-            self.inflight.pop(token, None)
-        self.pending = [m for m in self.pending if m.get("token") != token]
-        self.process_worker_result(msg)
-
-    def process_worker_result(self, msg):
+    def process_worker_result(self, msg, entry=None):
+        """A reply into the sink.  ``entry`` is the attempt's inflight
+        entry (None for a replay or an attempt already re-queued): a
+        ``transient`` error with one fails the unit over to another holder
+        (:meth:`_requeue`; a bundle fails over whole, under its one
+        token), without one it is a duplicate.  A payload whose shard
+        group already has one in its segment is counted in
+        ``duplicate_replies`` and overwrites its own identical copy."""
         token = msg.get("token")
         if token in self._append_waiters:
             self._absorb_append_reply(token, msg)
@@ -813,6 +1368,24 @@ class ControllerNode:
             # its entry was evicted or abandoned while the build ran
             # (matched by prefix: an ErrorMessage's payload is a traceback)
             self.flight.record("rollup_reply_orphaned", token=token)
+            return
+        if msg.isa(ErrorMessage) and msg.get("transient"):
+            # a retryable fault: fail over instead of killing the query;
+            # _requeue excludes the faulted worker and aborts with the
+            # structured envelope only once the budget is spent
+            reason = str(msg.get("payload") or "transient fault")
+            reason = (reason.strip().splitlines() or ["transient fault"])[-1]
+            if entry is not None:
+                self.counters["transient_faults"] += 1
+                self.flight.record("transient_fault", token=token,
+                                   worker=entry.get("worker"),
+                                   error=reason[:200])
+                self._requeue(entry, failed_worker=entry.get("worker"),
+                              reason=reason)
+            else:
+                # already re-queued or answered, or a replay: a duplicate
+                # of a fault, not a new one
+                self.counters["duplicate_replies"] += 1
             return
         subscribers = self._work_subscribers.get(token)
         self._drop_work(token)
@@ -843,17 +1416,27 @@ class ControllerNode:
         # a batched group's reply covers all its files with one merged
         # payload: completion counts covered files, not replies
         key = tuple(filename) if isinstance(filename, list) else (filename,)
-        delivered = False
+        delivered = counted = False
         for parent in parents:
             segment = self.rpc_segments.get(parent)
             if segment is None:
                 continue  # that subscriber aborted earlier
             delivered = True
+            counted = self._count_duplicate(segment, key, counted)
             self._record_result(segment, key, msg, msg.get("data") or b"",
                                 msg.get("phase_timings"))
             self._maybe_complete_segment(parent)
         if not delivered:
             self.logger.debug("orphaned result for token %s dropped", token)
+
+    def _count_duplicate(self, segment, key, counted):
+        """Count a payload whose shard group the segment already holds (a
+        late retry, a hedge loser, a duplicated envelope): once per reply,
+        not per subscriber.  Returns whether this reply is counted."""
+        if key in segment["results"] and not counted:
+            self.counters["duplicate_replies"] += 1
+            return True
+        return counted
 
     @staticmethod
     def _record_result(segment, key, msg, data, timings):
@@ -866,7 +1449,7 @@ class ControllerNode:
             segment["effective"][key] = effective
         merge_mode = msg.get("merge_mode")
         if isinstance(merge_mode, str):
-            segment["merge"][key] = merge_mode
+            segment.setdefault("merge", {})[key] = merge_mode
 
     def _demux_bundle(self, msg):
         """A shared-scan bundle reply, per member: its data frame is one
@@ -890,6 +1473,7 @@ class ControllerNode:
             member_shares = {}
         filename = msg.get("filename")
         key = tuple(filename) if isinstance(filename, list) else (filename,)
+        counted = False
         for member_id, parent in bundle_parents.items():
             segment = self.rpc_segments.get(parent)
             if segment is None:
@@ -903,6 +1487,7 @@ class ControllerNode:
                 self.abort_parent(
                     parent, "bundle reply missing this member's payload")
                 continue
+            counted = self._count_duplicate(segment, key, counted)
             timings = msg.get("phase_timings")
             share = member_shares.get(member_id)
             try:
@@ -964,7 +1549,7 @@ class ControllerNode:
                     "hints": dict(segment["strategies"]),
                     "effective": compact(segment["effective"]),
                 },
-                "merge_modes": compact(segment["merge"]),
+                "merge_modes": compact(segment.get("merge", {})),
             },
             protocol=messages.PICKLE_PROTOCOL,
         )
@@ -991,11 +1576,13 @@ class ControllerNode:
             for k, v in timings.items()
         }
 
-    def abort_parent(self, parent, error_text, reply=True, error_class=None):
+    def abort_parent(self, parent, error_text, reply=True, error_class=None,
+                     attempts=None):
         """Fail a query: detach it from its work units (a unit left with
-        no subscriber dies, a shared one keeps computing for the others),
-        drop its queued work, release its ticket and, unless ``reply`` is
-        false, send the client the error envelope."""
+        no subscriber dies, a shared one keeps computing for the others,
+        its retries included), drop its queued work, release its ticket
+        and, unless ``reply`` is false, send the client the error envelope
+        with ``error_class`` and the failed ``attempts``."""
         segment = self.rpc_segments.pop(parent, None)
         if segment is None:
             return
@@ -1008,17 +1595,19 @@ class ControllerNode:
                     self._drop_work(token)
         for token in dead:
             self.inflight.pop(token, None)
-        self.pending = [
-            m for m in self.pending
-            if m.get("token") not in dead
-            and not (m.get("parent_token") == parent
-                     and m.get("token") not in self._work_subscribers)
-        ]
+        for queue in self.worker_out_messages.values():
+            queue[:] = [
+                m for m in queue
+                if m.get("token") not in dead
+                and not (m.get("parent_token") == parent
+                         and m.get("token") not in self._work_subscribers)
+            ]
         self._finish_segment(
             segment,
             pickle.dumps(
                 {"ok": False, "error": str(error_text),
-                 "error_class": error_class, "attempts": []},
+                 "error_class": error_class,
+                 "attempts": list(attempts or [])},
                 protocol=messages.PICKLE_PROTOCOL,
             ) if reply else None,
         )
@@ -1073,6 +1662,18 @@ class ControllerNode:
         reply.add_as_binary("result", self.metrics.render())
         self.reply_rpc_message(msg["token"], reply)
 
+    def rpc_health(self, msg):
+        """``rpc.health()``: each worker's health status (ok, degraded,
+        wedged) from the rolling baselines, the view dispatch acts on."""
+        from bqueryd_tpu_torch.obs import health as health_mod
+
+        reply = msg.copy()
+        reply.add_as_binary("result", {
+            "workers": self.health.statuses(),
+            "routing_enabled": health_mod.routing_enabled(),
+        })
+        self.reply_rpc_message(msg["token"], reply)
+
     def rpc_debug_bundle(self, msg):
         """``rpc.debug_bundle()``: the cross-node forensic artifact (schema
         ``bqueryd_tpu.debug_bundle/4``), one JSON-safe dict."""
@@ -1084,8 +1685,8 @@ class ControllerNode:
         """The debug artifact from state the controller holds (the worker
         slices come from absorbed heartbeats, so a wedged or dead worker
         cannot stall it).  Only the sections of ported subsystems are
-        present: the reference's health, trace, autopsy, slow-query,
-        worker-histogram, runtime, compile-cache, chaos, replication, SLO,
+        present: the reference's trace, autopsy, slow-query,
+        worker-histogram, runtime, compile-cache, replication, SLO,
         timeline-ring and capacity sections are absent."""
         from bqueryd_tpu_torch import obs
 
@@ -1103,14 +1704,20 @@ class ControllerNode:
                 token: {
                     "worker": e["worker"],
                     "age_s": round(now - e["sent_at"], 3),
-                    "retries": e["msg"].get("_retries", 0),
+                    "retries": e.get("retries", 0),
                 }
                 for token, e in self.inflight.items()
             },
+            "health": self.health.statuses(),
             "metrics": self.metrics.histogram_snapshot(),
             "calibration": {
                 **self.calibration.stats(),
                 "sample_cells": self.calibration.summary(max_cells=16),
+            },
+            "chaos": {
+                "armed": chaos.enabled(),
+                "injected_total": chaos.injected_total(),
+                "site_stats": chaos.site_stats(),
             },
             "batch_window": self._batch_window_info(),
             "serving": self.serving.snapshot(),
@@ -1155,7 +1762,9 @@ class ControllerNode:
             "uptime": time.time() - self.start_time,
             "msg_count_in": self.msg_count_in,
             "workers": self.worker_map,
-            "pending": len(self.pending),
+            "worker_out_messages": {
+                str(k): len(v) for k, v in self.worker_out_messages.items()
+            },
             "inflight": len(self.inflight),
             "rpc_segments": len(self.rpc_segments),
             "counters": dict(self.counters),
@@ -1533,6 +2142,7 @@ class ControllerNode:
                                if all(d is not None for d in deadlines)
                                else None)
             sole = len(keep) == 1
+            affinity = kwargs0.get("affinity")
             for group in self._shard_groups(keep, groupby_cols, agg_list0,
                                             kwargs0):
                 target = group if len(group) > 1 else group[0]
@@ -1554,6 +2164,7 @@ class ControllerNode:
                 shard["token"] = os.urandom(8).hex()
                 shard["parent_token"] = parents[0]
                 shard["filename"] = target
+                shard["affinity"] = affinity
                 if bundle_deadline is not None:
                     shard["deadline"] = bundle_deadline
                 shard.add_as_binary("bundle", bundlemod.bundle_fragment(
@@ -1565,7 +2176,8 @@ class ControllerNode:
                 # each member beyond the first shares a dispatch it would
                 # have paid for itself
                 self.counters["plan_shared_dispatches"] += len(members) - 1
-                self.pending.append(shard)
+                self.worker_out_messages.setdefault(affinity, []).append(
+                    shard)
         except Exception:
             for parent in opened:
                 self.abort_parent(parent, "bundle launch failed",
@@ -1584,6 +2196,7 @@ class ControllerNode:
         from bqueryd_tpu_torch import plan as planmod
         from bqueryd_tpu_torch.plan import fragment_for
 
+        affinity = kwargs.get("affinity")
         planner_on = planmod.planner_enabled()
         dag_blob = None
         if kwargs.get("dag") is not None:
@@ -1624,9 +2237,11 @@ class ControllerNode:
                 segment["strategies"].get(hint, 0) + len(group)
             )
             # identical pending work is joined, not dispatched again.  The
-            # deadline is part of the identity: fusing across deadlines
-            # would expire one client's work on another's budget
-            work_key = (tuple(group), plan_sig, sole, msg.get("deadline"))
+            # deadline is part of the identity (fusing across deadlines
+            # would expire one client's work on another's budget), and so
+            # is the affinity (a pinned query would run elsewhere)
+            work_key = (tuple(group), plan_sig, sole, msg.get("deadline"),
+                         affinity)
             existing = self._work_index.get(work_key)
             if existing is not None and existing in self._work_subscribers:
                 self._work_subscribers[existing].append(parent_token)
@@ -1643,6 +2258,7 @@ class ControllerNode:
             shard["token"] = os.urandom(8).hex()
             shard["parent_token"] = parent_token
             shard["filename"] = target
+            shard["affinity"] = affinity
             if msg.get("deadline") is not None:
                 shard["deadline"] = msg["deadline"]
             shard.add_as_binary("plan", fragment_for(
@@ -1650,7 +2266,7 @@ class ControllerNode:
             if dag_blob is not None:
                 shard["dag"] = dag_blob
             self._register_work(shard, [parent_token], work_key=work_key)
-            self.pending.append(shard)
+            self.worker_out_messages.setdefault(affinity, []).append(shard)
 
     def _shard_groups(self, filenames, groupby_cols, agg_list, kwargs):
         """Shards held by the same set of workers go out as ONE message,
@@ -1684,8 +2300,8 @@ class ControllerNode:
 
     # -- the serving layer's wire ------------------------------------------
     def _dispatch_rollup_build(self, entry, prior=None):
-        """One ``rollup`` CalcMessage per shard of a rollup entry, to a live
-        holder.  A refresh (``prior`` set) carries each shard's previous
+        """One ``rollup`` CalcMessage per shard of a rollup entry, pinned
+        to a live holder (``worker_id``, that worker's affinity queue).  A refresh (``prior`` set) carries each shard's previous
         partials and the growth base they were computed from: the worker
         aggregates only the appended chunks when the base still holds."""
         spec = entry.spec
@@ -1708,7 +2324,7 @@ class ControllerNode:
                 "payload": "rollup",
                 "filename": fname,
                 "token": f"rollup_{os.urandom(8).hex()}",
-                "target": worker_id,
+                "worker_id": worker_id,
             })
             calc.set_args_kwargs(
                 [fname, keys, agg_list, where], {"aggregate": True}
@@ -1720,7 +2336,7 @@ class ControllerNode:
                 calc.add_as_binary("rollup_prior", pinfo["data"])
                 calc.add_as_binary("rollup_base", pinfo["base"])
             self._rollup_waiters[calc["token"]] = (entry.key, fname)
-            self.pending.append(calc)
+            self.worker_out_messages.setdefault(worker_id, []).append(calc)
         self.flight.record(
             "rollup_dispatch", entry=entry.key,
             shards=len(entry.filenames), refresh=prior is not None,
@@ -1853,10 +2469,10 @@ class ControllerNode:
             calc["payload"] = "append"
             calc["filename"] = filename
             calc["token"] = f"append_{os.urandom(8).hex()}"
-            calc["target"] = worker_id
+            calc["worker_id"] = worker_id
             segment["pending"][calc["token"]] = worker_id
             self._append_waiters[calc["token"]] = seg_key
-            self.pending.append(calc)
+            self.worker_out_messages.setdefault(worker_id, []).append(calc)
         self._append_segments[seg_key] = segment
 
     def _absorb_append_reply(self, token, msg):

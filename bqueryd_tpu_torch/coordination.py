@@ -16,6 +16,10 @@ interface, chosen by URL:
 
 Only what the nodes need: string sets and key scans.  The reference's
 hashes and TTL locks serve parts of its controller that are not ported.
+
+:func:`chaos_store` wraps a store with the ``coordination.store`` fault
+site (:class:`ChaosStore`), so that a fault plan can partition one node
+from the store while its sockets stay up.
 """
 
 import fnmatch
@@ -23,7 +27,13 @@ import json
 import os
 import threading
 
-__all__ = ["coordination_store", "CoordinationStore"]
+__all__ = ["coordination_store", "CoordinationStore", "ChaosStore",
+           "StorePartitioned", "chaos_store"]
+
+
+class StorePartitioned(OSError):
+    """The store is unreachable from this node: a ``partition`` fault of
+    the ``coordination.store`` site (:class:`ChaosStore`)."""
 
 
 class CoordinationStore:
@@ -196,7 +206,7 @@ class RedisStore(CoordinationStore):
 def coordination_store(url):
     """The backend for ``url``; a store instance passes through unchanged
     (tests inject doubles)."""
-    if isinstance(url, CoordinationStore):
+    if isinstance(url, (CoordinationStore, ChaosStore)):
         return url
     if url.startswith("mem://"):
         return MemoryStore(url)
@@ -205,3 +215,61 @@ def coordination_store(url):
     if url.startswith("redis://") or url.startswith("rediss://"):
         return RedisStore(url)
     raise ValueError(f"unsupported coordination url: {url!r}")
+
+
+# ---------------------------------------------------------------------------
+# chaos seam — the coordination.store fault site
+# ---------------------------------------------------------------------------
+
+class ChaosStore:
+    """A delegating wrapper that fires the ``coordination.store`` fault
+    site before every operation, tagged with this node's id, so that a
+    fault plan can partition ONE node from the store while its zmq sockets
+    stay up.  The ``partition`` action raises :class:`StorePartitioned`;
+    disarmed, each operation pays one None check in ``chaos.fire``.
+
+    Not a :class:`CoordinationStore` subclass: the base class defines every
+    operation as a stub, which would shadow the ``__getattr__``
+    delegation.  The port's stores have no locks, so there is no lock
+    proxy."""
+
+    _OPS = ("sadd", "srem", "smembers", "keys")
+
+    def __init__(self, inner, node_id=None):
+        self._inner = inner
+        self._node_id = node_id
+        self.url = inner.url
+
+    def _guarded(self, op):
+        from bqueryd_tpu_torch import chaos
+
+        if not chaos.enabled():
+            return
+        fault = chaos.fire("coordination.store", op=op, node=self._node_id)
+        if fault is not None and fault.action == "partition":
+            raise StorePartitioned(
+                f"chaos: coordination store partitioned from "
+                f"{self._node_id or 'node'} (op {op})"
+            )
+
+    def __getattr__(self, name):
+        # only store operations are guarded; anything else passes through
+        attr = getattr(self._inner, name)
+        if name not in self._OPS:
+            return attr
+
+        def guarded(*args, **kwargs):
+            self._guarded(name)
+            return attr(*args, **kwargs)
+
+        guarded.__name__ = name
+        return guarded
+
+
+def chaos_store(store, node_id=None):
+    """``store`` wrapped with the ``coordination.store`` fault site.  Nodes
+    wrap unconditionally: disarmed, the cost is one None check per store
+    operation, and those run at heartbeat cadence."""
+    if isinstance(store, ChaosStore):
+        return store
+    return ChaosStore(store, node_id=node_id)

@@ -15,18 +15,25 @@ Envelope keys the port's nodes read and write:
 * controller -> worker (``CalcMessage``): ``token`` (the work unit),
   ``parent_token`` (the client query), ``filename`` (one shard or a list
   for a batched shard group), ``sole_shard``, ``plan`` (the pickled plan
-  fragment, ``plan.logical.fragment_for``), ``deadline``;
+  fragment, ``plan.logical.fragment_for``), ``deadline``, ``affinity``
+  (its queue), ``worker_id`` (an append or rollup build pinned to one
+  worker); the controller's bookkeeping keys ``_retries``,
+  ``_not_before``, ``_backoff_s``, ``_excluded_workers`` and
+  ``_attempt_history`` ride along;
 * worker -> controller: ``data`` (the result payload bytes, sent as a
   frame of its own), ``phase_timings`` (``{phase: s, "_total": s}``),
   ``effective_strategy``, ``merge_mode``, ``strategy``,
-  ``deadline_remaining``; ``WorkerRegisterMessage`` carries
+  ``deadline_remaining``, ``transient`` (on an ErrorMessage: a retryable
+  fault the controller fails over); ``WorkerRegisterMessage`` carries
   ``worker_id``, ``node``, ``ip``, ``data_dir``, ``data_files``,
   ``workertype``, ``pid``, ``uptime``, ``msg_count``, ``shard_stats``
   (per-shard planning stats), ``backend_wedged`` (bool, the device-health
   latch of ``utils.devicehealth``), ``calibration`` (the worker's
   measured-cost strategy cells, ``plan.calibrate.summary_for_wire``,
   absorbed controller-side per worker; None while calibration is off or
-  nothing is measured) and, from the liveness thread, ``liveness_only``.
+  nothing is measured), ``work_errors`` and ``metrics`` (the error
+  counter and the histogram snapshot the health scorer reads), ``debug``
+  and, from the liveness thread, ``liveness_only``.
 
 Pickled payloads assume a trusted network, as the reference does;
 :meth:`Message.get_from_binary` is the one place that unpickles.

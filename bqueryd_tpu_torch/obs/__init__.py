@@ -6,11 +6,12 @@ The port's copy of the first part of ``bqueryd_tpu/obs``:
   registry, Prometheus text rendering (``rpc.metrics()``), fixed
   log-scale buckets whose cross-node merge is a vector add;
 * :mod:`.flightrec` — a bounded always-on flight ring per node and the
-  cross-node ``rpc.debug_bundle()`` artifact.
+  cross-node ``rpc.debug_bundle()`` artifact;
+* :mod:`.health`    — per-worker health scoring from the WRM signals,
+  which the controller's dispatch acts on (``rpc.health()``).
 
 The reference's tracing, structured logs, slow-query log, compile
-profiling, health scoring, SLO accounting and capacity model are not
-ported yet.
+profiling, SLO accounting and capacity model are not ported yet.
 
 ``BQUERYD_TPU_METRICS=0`` (read on every call) or :func:`set_enabled`
 turns off the hot-path events (the envelope and dispatch flight events);
@@ -29,6 +30,12 @@ from bqueryd_tpu_torch.obs.flightrec import (  # noqa: F401
     build_bundle,
     dump_bundle,
     redact_paths,
+)
+from bqueryd_tpu_torch.obs.health import (  # noqa: F401
+    STATUS_DEGRADED,
+    STATUS_OK,
+    STATUS_WEDGED,
+    HealthScorer,
 )
 from bqueryd_tpu_torch.obs.metrics import (  # noqa: F401
     BYTES_BUCKETS,

@@ -50,6 +50,10 @@ one alignment, one unmasked codes upload, one upload per distinct measure,
 the members' masks stacked on the device, one member-per-launch
 ``bundle_partial_tables`` call and one fetch for every member.
 
+Each entry point (``execute``, ``execute_bundle``, ``execute_dag``) first
+fires the ``worker.device`` fault site (:mod:`bqueryd_tpu_torch.chaos`),
+before any upload, working-set insert or launch.
+
 Waiting for a later slice: several devices (the ``torch.distributed``
 merge, its host-merge kill switch and the ``psum`` mode).
 """
@@ -62,6 +66,19 @@ import numpy as np
 
 from bqueryd_tpu_torch.models.query import GroupByQuery, ResultPayload
 from bqueryd_tpu_torch.storage.ctable import table_cache_key as _table_key
+
+
+def _fire_device_site(n_tables, signature):
+    """The ``worker.device`` fault site of the executor's entry points
+    (``raise``: a transient ``DeviceBusyError`` that the worker flags
+    ``transient`` and the controller fails over; ``delay``).  ``signature``
+    is called only while a plan is armed, so that the disarmed path pays
+    one None check."""
+    from bqueryd_tpu_torch import chaos
+
+    if chaos.enabled():
+        chaos.fire("worker.device", n_tables=n_tables,
+                   signature=signature()[:120])
 
 
 def _wire_dtype(tables, col):
@@ -404,6 +421,9 @@ class MeshQueryExecutor:
         from bqueryd_tpu_torch.parallel import pipeline
         from bqueryd_tpu_torch.plan import calibrate
 
+        # the worker.device fault site, before any upload, working-set
+        # insert or launch: a failed attempt launches nothing
+        _fire_device_site(len(tables), lambda: str(query.signature()))
         self.last_effective_strategy = None
         self.last_merge_mode = None
         if strategy in (None, "auto", "host"):
@@ -733,6 +753,7 @@ class MeshQueryExecutor:
 
         if not queries:
             return []
+        _fire_device_site(len(tables), lambda: f"bundle:{len(queries)}")
         self.last_effective_strategy = None
         self.last_merge_mode = None
         if strategy in (None, "auto", "host"):
@@ -924,6 +945,8 @@ class MeshQueryExecutor:
         from bqueryd_tpu_torch.parallel import opexec, pipeline
         from bqueryd_tpu_torch.plan.dag import DagValidationError, parse_op
 
+        _fire_device_site(len(tables),
+                          lambda: f"dag:{str(dag.signature())[:100]}")
         self.last_effective_strategy = None
         self.last_merge_mode = None
         self.last_prune_counts = []

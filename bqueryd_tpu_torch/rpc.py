@@ -19,7 +19,11 @@ answer (admission backpressure) is retried with backoff and, on the last
 attempt, raises :class:`RPCBusyError`.  ``last_call_answer_source`` and
 ``last_call_subsumed_from`` say how the controller produced the last
 answer; ``rpc.metrics()`` returns its Prometheus text and
-``rpc.debug_bundle()`` its debug bundle.
+``rpc.debug_bundle()`` its debug bundle, ``rpc.health()`` the controller's
+per-worker health statuses.  A failed query raises :class:`RPCError`; a
+structured failure carries ``error_class`` (``"DispatchExhausted"`` when
+every dispatch attempt of a shard failed) and ``attempts``, the worker and
+reason of each failed attempt.
 
 :class:`LocalRPC` takes the same ``groupby`` arguments and runs the query
 in-process through :func:`bqueryd_tpu_torch.worker.execute` with the
@@ -36,7 +40,7 @@ import time
 import zmq
 
 import bqueryd_tpu_torch
-from bqueryd_tpu_torch import backoff, worker
+from bqueryd_tpu_torch import backoff, chaos, worker
 from bqueryd_tpu_torch.coordination import coordination_store
 from bqueryd_tpu_torch.messages import ErrorMessage, RPCMessage, msg_factory
 from bqueryd_tpu_torch.models.query import GroupByQuery, QueryEngine
@@ -120,6 +124,7 @@ class RPC:
     ):
         bqueryd_tpu_torch.configure_logging(loglevel)
         self.logger = bqueryd_tpu_torch.logger.getChild("rpc")
+        chaos.maybe_arm_from_env()
         self.timeout = timeout
         self.retries = retries
         #: the admission quota bucket: sockets sharing a client_id share
@@ -226,8 +231,21 @@ class RPC:
             try:
                 if self.socket is None:
                     self.connect()
+                # the rpc.call fault site: "timeout" discards the reply
+                # window, "disconnect" forces a reconnect, "delay"
+                # stretches the call
+                fault = chaos.fire(
+                    "rpc.call", verb=name, attempt=attempt,
+                ) if chaos.enabled() else None
+                if fault is not None and fault.action == "disconnect":
+                    self._close_socket()
+                    raise zmq.ZMQError(zmq.ENOTCONN, "chaos: disconnected")
                 self.socket.send(wire)
-                if self.socket.poll(int(self.timeout * 1000), zmq.POLLIN):
+                answered = self.socket.poll(int(self.timeout * 1000),
+                                            zmq.POLLIN)
+                if fault is not None and fault.action == "timeout":
+                    answered = False  # as if the reply never arrived
+                if answered:
                     reply = self.socket.recv()
                     self.last_call_reply_bytes = len(reply)
                     try:

@@ -49,7 +49,22 @@ plain version.  A calc worker advertises its device-health latch
 Every node keeps a metrics registry and a flight ring (:mod:`obs`): each
 accepted envelope, its outcome and each rollup build are recorded, and the
 ring's tail with the device-health snapshot rides the WRM (``debug``) as
-the node's slice of the controller's debug bundle.
+the node's slice of the controller's debug bundle.  The WRM also carries
+the health signals the controller's scorer reads: ``work_errors`` and the
+snapshot of the ``bqueryd_tpu_worker_groupby_seconds`` histogram
+(``metrics``), observed once per groupby CalcMessage.
+
+Resilience (:mod:`bqueryd_tpu_torch.chaos`): a work item that raises a
+:class:`~bqueryd_tpu_torch.chaos.TransientError` replies an ErrorMessage
+flagged ``transient``, which the controller fails over to another holder.
+The ``worker.execute`` fault site (``raise``, ``delay``, ``wedge``,
+``die_after_ack``) fires before each work item and ``worker.reply``
+(``drop``, ``delay``) before its reply; a ``wedge`` latches this node
+alone (``_chaos_wedged``: advertised as ``backend_wedged``, every later
+groupby raises ``DeviceBusyError``), never the process-global device
+latch.  With ``restart_check`` on, a memory watchdog after each work item
+sheds the caches once RSS passes ``memory_limit_mb`` and stops the node
+when that was not enough.
 """
 
 import contextlib
@@ -64,8 +79,8 @@ import traceback
 import zmq
 
 import bqueryd_tpu_torch
-from bqueryd_tpu_torch import messages, obs
-from bqueryd_tpu_torch.coordination import coordination_store
+from bqueryd_tpu_torch import chaos, messages, obs
+from bqueryd_tpu_torch.coordination import chaos_store, coordination_store
 from bqueryd_tpu_torch.messages import (
     BusyMessage,
     DoneMessage,
@@ -82,6 +97,7 @@ from bqueryd_tpu_torch.utils.tracing import PhaseTimer
 
 DEFAULT_HEARTBEAT_INTERVAL = 20.0   # WRM re-broadcast / rescan period
 DEFAULT_POLL_TIMEOUT = 1.0          # seconds per zmq poll tick
+DEFAULT_MEMORY_LIMIT_MB = 2048      # RSS past which the watchdog acts
 SHARD_EXTENSIONS = (".bcolz", ".bcolzs")
 
 
@@ -201,9 +217,18 @@ def _host_stage(engine, query):
 
 class WorkerBase:
     """The event loop of a worker node: discovery, registration, liveness
-    and the Busy/Done envelope around each work item."""
+    and the Busy/Done envelope around each work item.
+
+    ``restart_check`` turns on the memory watchdog (off by default: a node
+    that shares its process with others, as in-process clusters do, would
+    read their memory as its own); ``memory_limit_mb`` is its limit."""
 
     workertype = "worker"
+    #: the chaos wedge latch (the ``worker.execute`` site's ``wedge``):
+    #: advertised in WRMs like the device-health latch, and every later
+    #: groupby on this node raises the transient DeviceBusyError.  A class
+    #: default, so that a node built piecemeal still answers prepare_wrm
+    _chaos_wedged = False
 
     def __init__(
         self,
@@ -212,6 +237,8 @@ class WorkerBase:
         loglevel=None,
         heartbeat_interval=DEFAULT_HEARTBEAT_INTERVAL,
         poll_timeout=DEFAULT_POLL_TIMEOUT,
+        restart_check=False,
+        memory_limit_mb=DEFAULT_MEMORY_LIMIT_MB,
     ):
         bqueryd_tpu_torch.configure_logging(loglevel or logging.INFO)
         self.worker_id = os.urandom(8).hex()
@@ -219,14 +246,23 @@ class WorkerBase:
             f"{self.workertype}.{self.worker_id[:6]}"
         )
         self.node_name = socket_mod.gethostname()
-        self.store = coordination_store(
-            coordination_url or bqueryd_tpu_torch.DEFAULT_COORDINATION_URL
+        # fault injection: armed only when BQUERYD_TPU_FAULT_PLAN is set;
+        # the store is wrapped so that the coordination.store site can
+        # partition THIS node from the store while its sockets stay up
+        chaos.maybe_arm_from_env()
+        self.store = chaos_store(
+            coordination_store(
+                coordination_url or bqueryd_tpu_torch.DEFAULT_COORDINATION_URL
+            ),
+            node_id=self.worker_id,
         )
         self.data_dir = data_dir or bqueryd_tpu_torch.DEFAULT_DATA_DIR
         if self.workertype == "calc" and not os.path.isdir(self.data_dir):
             raise ValueError(f"Datadir {self.data_dir} is not a valid directory")
         self.heartbeat_interval = heartbeat_interval
         self.poll_timeout = poll_timeout
+        self.restart_check = restart_check
+        self.memory_limit_mb = memory_limit_mb
 
         self.context = zmq.Context.instance()
         self.socket = self.context.socket(zmq.ROUTER)
@@ -249,6 +285,17 @@ class WorkerBase:
         # observability: a registry and a flight ring per node (nodes of
         # one process must not mix); the ring's tail rides the WRM
         self.metrics = obs.MetricsRegistry()
+        self.metrics.gauge(
+            "bqueryd_tpu_worker_rss_bytes",
+            "resident set size of this worker process",
+            fn=self._rss_bytes,
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_fault_injected_total",
+            "faults injected by the armed chaos plan, process-lifetime "
+            "(0 while BQUERYD_TPU_FAULT_PLAN is unarmed)",
+            fn=chaos.injected_total,
+        )
         self.metrics.gauge(
             "bqueryd_tpu_worker_uptime_seconds",
             "seconds since this worker process started",
@@ -294,18 +341,26 @@ class WorkerBase:
         self.logger.info("SIGTERM received, stopping")
         self.running = False
 
-    def stop(self):
-        """Stop the node.  From another thread this only flags the loop:
-        zmq sockets belong to one thread, so the loop thread tears its
-        sockets down itself when it leaves ``go``."""
+    def _request_stop_only(self):
+        """Flag the loop (and the heartbeat thread) to exit.  True when the
+        caller is not the loop thread of a live loop: zmq sockets belong to
+        one thread, so the loop thread tears its sockets down itself when
+        it leaves ``go``."""
         self.running = False
         self._hb_stop.set()
         loop = self._loop_thread
-        if (loop is not None and loop.is_alive()
-                and threading.current_thread() is not loop):
-            return
-        if self._hb_thread is not None and self._hb_thread.ident is not None:
+        external = (loop is not None and loop.is_alive()
+                    and threading.current_thread() is not loop)
+        if (not external and self._hb_thread is not None
+                and self._hb_thread.ident is not None):
             self._hb_thread.join(timeout=2.0)
+        return external
+
+    def stop(self):
+        """Stop the node.  From another thread this only flags the loop
+        (:meth:`_request_stop_only`)."""
+        if self._request_stop_only():
+            return
         for addr in list(self.controllers):
             try:
                 self.send(addr, StopMessage({"worker_id": self.worker_id}))
@@ -432,7 +487,10 @@ class WorkerBase:
         """The device-health latch this node advertises.  A calc worker
         owns the device, so its heartbeat ticks the probe clock too: an
         idle wedged worker recovers without waiting for a query.  Other
-        roles only read the latch."""
+        roles only read the latch.  A chaos ``wedge`` latches this node's
+        advertisement alone (the process-global latch stays as it is)."""
+        if self._chaos_wedged:
+            return True
         return devicehealth.backend_wedged(launch=self.workertype == "calc")
 
     def _calibration_to_advertise(self):
@@ -486,6 +544,9 @@ class WorkerBase:
         return snapshot
 
     def prepare_wrm(self):
+        # getattr: a node built piecemeal (``__new__``) must still answer
+        registry = getattr(self, "metrics", None)
+        errors = getattr(self, "work_errors", None)
         try:
             debug = self._debug_to_advertise()
         except Exception:
@@ -501,8 +562,16 @@ class WorkerBase:
                 "pid": os.getpid(),
                 "uptime": time.time() - self.start_time,
                 "msg_count": self.msg_count,
-                # the device-health latch, for rpc.info()
+                # the device-health latch, for rpc.info() and the
+                # controller's health scorer ("wedged")
                 "backend_wedged": self._backend_wedged(),
+                # the error counter's total: the scorer's windowed error
+                # rate is its delta across heartbeats
+                "work_errors": errors.value if errors is not None else 0,
+                # the histogram snapshot (the groupby latency family the
+                # scorer reads)
+                "metrics": (registry.histogram_snapshot()
+                            if registry is not None else None),
                 # metadata-only per-shard stats (rows, min/max,
                 # cardinality) for the controller's plan-time pruning and
                 # strategy hints; None when unchanged stats went out
@@ -582,7 +651,9 @@ class WorkerBase:
     # -- work --------------------------------------------------------------
     def handle(self, msg, sender):
         """Busy, the work, the reply (an ``ErrorMessage`` with the
-        traceback when it raised), Done."""
+        traceback when it raised, flagged ``transient`` for a
+        :class:`~bqueryd_tpu_torch.chaos.TransientError`), Done, then the
+        memory watchdog."""
         self.send_to_all(BusyMessage({"worker_id": self.worker_id}))
         # every accepted envelope (hot path: under the kill switch; a
         # failure below is recorded regardless)
@@ -595,6 +666,27 @@ class WorkerBase:
             )
         work_clock = time.perf_counter()
         try:
+            # the worker.execute fault site: a transient raise (the
+            # failover trigger), the wedge latch, die-after-ack (the Busy
+            # above was the ack) and delay, all before the deadline check
+            # so that an injected stall expires a deadline as a real one
+            fault = chaos.fire(
+                "worker.execute",
+                worker=self.worker_id,
+                verb=msg.get("payload"),
+                token=msg.get("token"),
+                filename=str(msg.get("filename")),
+            ) if chaos.enabled() else None
+            if fault is not None and fault.action == "die_after_ack":
+                self._chaos_die()
+                return  # a hard crash: no reply, no Done, no goodbye
+            if fault is not None and fault.action == "wedge":
+                self._chaos_wedged = True
+                self.flight.record("chaos_wedged")
+                self.logger.warning(
+                    "chaos: wedge latched, advertising backend_wedged")
+            if self._chaos_wedged and msg.isa("groupby"):
+                raise chaos.DeviceBusyError("chaos: device backend wedged")
             if msg.deadline_expired():
                 # nobody waits for this answer any more
                 raise TimeoutError(
@@ -614,6 +706,10 @@ class WorkerBase:
             )
             result = ErrorMessage(msg)
             result["payload"] = traceback.format_exc()
+            if isinstance(exc, chaos.TransientError):
+                # the retryable class: the controller fails the shard over
+                # to another holder instead of aborting its query
+                result["transient"] = True
         else:
             if obs.enabled():
                 self.flight.record(
@@ -622,11 +718,94 @@ class WorkerBase:
                     token=msg.get("token"),
                     wall_s=round(time.perf_counter() - work_clock, 6),
                 )
-        try:
-            self.send(sender, result)
-        except zmq.ZMQError:
-            self.logger.exception("could not send result to %r", sender)
+        if result is not None:
+            # the worker.reply fault site: drop loses the finished result
+            # on the wire (the dispatch timeout and the failover recover
+            # it), delay stretches the reply
+            fault = chaos.fire(
+                "worker.reply",
+                worker=self.worker_id,
+                verb=msg.get("payload"),
+                token=msg.get("token"),
+            ) if chaos.enabled() else None
+            if fault is not None and fault.action == "drop":
+                self.flight.record("chaos_reply_dropped",
+                                   token=msg.get("token"))
+                result = None
+        if result is not None:
+            try:
+                self.send(sender, result)
+            except zmq.ZMQError:
+                self.logger.exception("could not send result to %r", sender)
         self.send_to_all(DoneMessage({"worker_id": self.worker_id}))
+        self._check_mem()
+
+    def _chaos_die(self):
+        """die_after_ack: a hard crash after the work was accepted.  No
+        reply, no Done, no StopMessage, and the heartbeat thread stops too
+        (``_hb_stop``), or it would keep a dead node alive; the controller
+        recovers through its dispatch timeout, the dead-worker cull and the
+        failover.  The loop thread still closes its own sockets on exit."""
+        self.logger.warning("chaos: die_after_ack, simulating a hard crash")
+        self.flight.record("chaos_die_after_ack")
+        self._hb_stop.set()
+        self.send = lambda *a, **k: None  # silent from now on
+        self.running = False
+
+    # -- memory watchdog ---------------------------------------------------
+    @staticmethod
+    def _rss_bytes():
+        """Resident set size of this process: psutil when it is installed,
+        else ``/proc/self/statm`` (resident pages times the page size)."""
+        try:
+            import psutil
+        except ImportError:
+            with open("/proc/self/statm") as f:
+                resident_pages = int(f.read().split()[1])
+            return resident_pages * os.sysconf("SC_PAGE_SIZE")
+        return psutil.Process(os.getpid()).memory_info().rss
+
+    def _check_mem(self):
+        """Past ``memory_limit_mb``, shed the caches; if that is not enough
+        (or the RSS after it cannot be read), stop the loop so that a
+        supervisor restarts the process."""
+        if not self.restart_check:
+            return
+        try:
+            rss_mb = self._rss_bytes() / 1e6
+        except Exception:
+            return
+        if rss_mb <= self.memory_limit_mb:
+            return
+        shed_mb = self._shed_caches()
+        if shed_mb is not None and shed_mb <= self.memory_limit_mb:
+            return
+        self.logger.warning(
+            "RSS %s MB above limit %d MB, stopping for supervisor restart",
+            "?" if shed_mb is None else f"{shed_mb:.0f}",
+            self.memory_limit_mb,
+        )
+        self.running = False
+
+    def _shed_caches(self):
+        """Drop the query caches (decoded columns, the executor's working
+        set, the engine's factorizations, the open tables, the result and
+        delta caches) and collect; returns the RSS after it in MB, or None
+        when it cannot be read."""
+        import gc
+
+        from bqueryd_tpu_torch.storage import free_cachemem
+
+        free_cachemem()
+        clear = getattr(self, "clear_caches", None)
+        if clear is not None:
+            clear()
+        getattr(self, "_table_cache", {}).clear()
+        gc.collect()
+        try:
+            return self._rss_bytes() / 1e6
+        except Exception:
+            return None
 
     def handle_work(self, msg):
         raise ValueError(f"unhandled message payload {msg.get('payload')!r}")
@@ -676,6 +855,12 @@ class WorkerNode(WorkerBase):
             "bqueryd_tpu_device_probes_abandoned",
             "health probes written off as hung since the last success",
             fn=lambda: snap()["abandoned_probes"],
+        )
+        # the latency family the controller's health scorer reads from
+        # the WRM's histogram snapshot
+        self.groupby_seconds = self.metrics.histogram(
+            "bqueryd_tpu_worker_groupby_seconds",
+            "whole-CalcMessage wall on the worker (open to serialize)",
         )
 
     @property
@@ -1183,6 +1368,7 @@ class WorkerNode(WorkerBase):
             reply["effective_strategy"] = report["effective_strategy"]
         if report["merge_mode"] is not None:
             reply["merge_mode"] = report["merge_mode"]
+        self.groupby_seconds.observe(timer.total())
         return reply
 
     def _handle_bundle(self, msg):
@@ -1196,7 +1382,9 @@ class WorkerNode(WorkerBase):
         member by member); a key space past int64
         (``ops.CompositeOverflow``) or a member-shape rejection
         (``ValueError``) runs the members one by one through
-        :func:`execute`, where a failing member fails alone.  Any other
+        :func:`execute`, where a failing member fails alone.  A
+        :class:`~bqueryd_tpu_torch.chaos.TransientError` fails the whole
+        bundle (over to another holder, under its one token).  Any other
         error, a device error included, propagates.  The reply's data
         frame is one pickled ``{"v": 1, "payloads": {member_id: bytes},
         "errors": {member_id: text}}`` envelope, beside
@@ -1252,6 +1440,10 @@ class WorkerNode(WorkerBase):
                 try:
                     bundled = self.mesh_executor_for_bundle(
                         tables, list(active.values()), timer, strategy)
+                except chaos.TransientError:
+                    # a transient device fault fails the whole bundle over
+                    # to another holder, never one member
+                    raise
                 except ops.CompositeOverflow:
                     self.logger.info("composite key space exceeds int64; "
                                      "running the bundle's members one by "
@@ -1273,6 +1465,8 @@ class WorkerNode(WorkerBase):
                                 tables, query, self.engine,
                                 executor=self.executor, strategy=strategy,
                                 report=report, timer=timer)
+                    except chaos.TransientError:
+                        raise  # the whole bundle fails over, as above
                     except Exception as exc:
                         self.logger.exception("bundle member %s failed",
                                               member_id)
@@ -1305,6 +1499,8 @@ class WorkerNode(WorkerBase):
             reply["effective_strategy"] = effective
         if report["merge_mode"] is not None:
             reply["merge_mode"] = report["merge_mode"]
+        # one CalcMessage executed, whatever its member count
+        self.groupby_seconds.observe(timer.total())
         return reply
 
     def _bundle_mesh_eligible(self, tables, queries):

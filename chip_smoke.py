@@ -128,26 +128,34 @@
    answer is checked against NumPy; a logged serving error, a failed fold
    or build or a ``render-error`` decision fails it.  It prints the
    ``serving`` line; every other leg runs with serving off;
-12. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
+12. drives the resilience layer on a cluster of its own
+   (``run_resilience_path``): a controller with short timeouts and two
+   workers on cuda over the same shards, sharded and zones through eight
+   fault scenarios (clean, a transient device fault, a hedge, a dropped
+   reply, a bundle's failover, exhaustion, a worker dying after its ack
+   and a third joining, a wedge), each under a fault plan, exact, with
+   the launches each scenario implies per worker; one ``resilience`` line
+   per scenario;
+13. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
    ``... worker --device=cuda`` as processes, one checked query per config
    (but the unpruned leg, whose environment the worker process does not
    have), dag_join through ``RPC.query`` and an append to a small shard
    of its own (the repeat query a delta refresh), both stopped by SIGTERM
    and exiting 0;
-13. drives the per-shard engine path (``QueryEngine.execute_local`` per
+14. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
-   (executor, cluster, DAG, append, concurrency, serving, engine) and
-   read just after, and every
+   (executor, cluster, DAG, append, concurrency, routing, calibration,
+   serving, resilience, engine) and read just after, and every
    kernel of each path must have launched there;
-14. breaks queries down into host phases and pipeline stage busy time
+15. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-15. holds every branch of each kernel against its plain PyTorch version at
+16. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
@@ -163,12 +171,13 @@
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-16. sweeps the base kernel's two branches over G (the crossover behind
-    ``onehot.MMA_GROUPS_LIMIT``) and the hicard cluster count C;
-17. times the fast path's torch bodies at the shapes its programs ran
+17. sweeps the base kernel's two branches over G (the crossover behind
+    ``onehot.MMA_GROUPS_LIMIT``), beside ``index_add_``, at n = 1M and at
+    the executor's n = 10,223,616, and the hicard cluster count C;
+18. times the fast path's torch bodies at the shapes its programs ran
     (each top-k emission, checked against the sort route, each sketch
     grid, the whole program with its fetch);
-18. prints the sweeps, the fast path's program times, the device-health
+19. prints the sweeps, the fast path's program times, the device-health
     snapshot (the latch must have flipped only where the wedge leg forced
     it, no probe written off), the ``kernels`` JSON line, then the device
     JSON line last.
@@ -181,6 +190,7 @@ leg's.  Exits non-zero, printing no result, without a CUDA card or
 outside a checkout of the repository.  Any failed phase fails the run.
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -2821,6 +2831,523 @@ def run_serving_path(names, parts, data_dir, store_dir, scratch, captured):
     return report
 
 
+# -- the resilience leg -------------------------------------------------------
+
+#: the resilience leg's controller timeouts (seconds): short, so that each
+#: failover completes within a few seconds
+RES_TIMEOUTS = {"dispatch_timeout": 2.0, "dispatch_hard_timeout": 3.0,
+                "dead_worker_timeout": 3.0}
+RES_CONFIGS = ("sharded", "zones")
+RES_KERNELS = (("onehot_rows_dot", "mma"), ("onehot_rows_dot", "table"))
+RES_COUNTERS = ("dispatched_shards", "failover_dispatches",
+                "transient_faults", "hedged_dispatches", "hedge_wins",
+                "duplicate_replies", "health_avoided_dispatches",
+                "plan_bundles", "plan_bundled_queries")
+#: the controller's flight events that make up a scenario's attempt
+#: history
+RES_EVENTS = ("dispatch", "transient_fault", "dispatch_timeout",
+              "hedged_dispatch", "hedge_win", "hedge_loss",
+              "stale_reply_dropped", "worker_removed", "worker_wedged")
+RES_HEDGE_MS = 200.0
+RES_DELAY_S = 1.5
+RES_BATCH_WINDOW_MS = "400"
+
+
+class _ThreadLaunches(collections.Counter):
+    """``onehot.LAUNCHES`` with a per-thread tally beside it, so that the
+    launches of several in-process workers are told apart: each wrapper
+    still adds one per launch, and the tally records which node's loop
+    thread made it."""
+
+    def __init__(self):
+        self.by_thread = collections.Counter()
+        super().__init__()
+
+    def __setitem__(self, key, value):
+        added = value - self.get(key, 0)
+        super().__setitem__(key, value)
+        if added > 0:
+            self.by_thread[(threading.current_thread().name, key)] += added
+
+    def clear(self):
+        super().clear()
+        self.by_thread.clear()
+
+
+class _Resilience:
+    """The resilience leg's cluster: one controller and calc workers on
+    cuda over ONE data_dir (every shard has every worker as a holder), as
+    named threads of this process, with per-worker launch tallies."""
+
+    def __init__(self, names, data_dir, store_dir, tally):
+        import logging
+
+        from bqueryd_tpu_torch.controller import ControllerNode
+        from bqueryd_tpu_torch.rpc import RPC
+
+        self.names = names
+        self.data_dir = data_dir
+        self.url = f"file://{store_dir}"
+        self.tally = tally
+        self.quiet = logging.WARNING
+        self.controller = ControllerNode(
+            coordination_url=self.url, loglevel=self.quiet,
+            runfile_dir=store_dir, heartbeat_interval=0.5, **RES_TIMEOUTS)
+        self.threads = [threading.Thread(target=self.controller.go,
+                                         name="controller", daemon=True)]
+        self.threads[0].start()
+        self.workers = {}  # label -> WorkerNode
+        for label in ("w1", "w2"):
+            self.add_worker(label)
+        self.rpc = RPC(coordination_url=self.url, timeout=120, retries=1,
+                       loglevel=self.quiet)
+
+    def add_worker(self, label):
+        from bqueryd_tpu_torch.worker import WorkerNode
+
+        worker = WorkerNode(coordination_url=self.url,
+                            data_dir=self.data_dir, loglevel=self.quiet,
+                            heartbeat_interval=0.5, poll_timeout=0.05)
+        thread = threading.Thread(target=worker.go, name=label, daemon=True)
+        self.workers[label] = worker
+        self.threads.append(thread)
+        thread.start()
+        _wait(lambda: all(worker.worker_id in self.controller.files_map.get(
+            n, ()) for n in self.names), 120, f"{label}'s registration")
+        return worker
+
+    def label_of(self, worker_id):
+        return next((label for label, w in self.workers.items()
+                     if w.worker_id == worker_id), worker_id)
+
+    def stop(self):
+        self.rpc._close_socket()
+        for node in [self.controller] + list(self.workers.values()):
+            node.running = False
+        for t in self.threads:
+            t.join(timeout=20)
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("a resilience node did not stop")
+
+    # -- measurement ---------------------------------------------------------
+    def snapshot(self):
+        return {"counters": {k: self.controller.counters[k]
+                             for k in RES_COUNTERS},
+                "seq": self.controller.flight.seq,
+                "tally": dict(self.tally.by_thread)}
+
+    def since(self, snap):
+        """Counter deltas, the attempt history (the controller's flight
+        events, workers by label) and the launches per worker and shape
+        since ``snap``."""
+        counters = {k: self.controller.counters[k] - snap["counters"][k]
+                    for k in RES_COUNTERS}
+        attempts = []
+        for e in self.controller.flight.events():
+            if e["seq"] <= snap["seq"] or e["kind"] not in RES_EVENTS:
+                continue
+            entry = {"kind": e["kind"]}
+            for k in ("worker", "token", "winner", "loser", "original",
+                      "error", "age_s", "hard"):
+                if e.get(k) is not None:
+                    entry[k] = (self.label_of(e[k])
+                                if k in ("worker", "winner", "loser",
+                                         "original") else e[k])
+            attempts.append(entry)
+        launches = {}
+        for (thread, key), n in self.tally.by_thread.items():
+            added = n - snap["tally"].get((thread, key), 0)
+            if added:
+                per = launches.setdefault(thread, {})
+                per[shape_key(*key)] = added
+        return counters, attempts, launches
+
+    def query(self, config, rpc=None, where=None):
+        """One checked query of ``config`` (``where`` replaces its
+        filter); its wall."""
+        sl, gcols, aggs, own_where = CONFIGS[config]
+        t0 = time.perf_counter()
+        order, columns = (rpc or self.rpc).groupby(
+            self.names[sl], gcols, aggs,
+            own_where if where is None else where)
+        wall = time.perf_counter() - t0
+        check_result(config, order, columns, self.want[config])
+        return wall
+
+    def pinned(self, label, config):
+        """Start ``config``'s query with every other live holder marked
+        busy, so that its first dispatch goes to worker ``label``; release
+        the others once that dispatch is in flight.  Returns the query's
+        thread and its result box."""
+        target = self.workers[label].worker_id
+        others = [w.worker_id for w in self.workers.values()
+                  if w.worker_id != target
+                  and w.worker_id in self.controller.worker_map]
+        for wid in others:
+            self.controller.worker_map[wid]["busy"] = True
+        seq = self.controller.flight.seq
+        box = {}
+
+        def run():
+            try:
+                box["wall"] = self.query(config)
+            except Exception as exc:  # surfaced by the caller
+                box["error"] = exc
+
+        thread = threading.Thread(target=run, daemon=True)
+        thread.start()
+        try:
+            _wait(lambda: _flight_since(self.controller, seq, "dispatch",
+                                        worker=target), 60,
+                  f"the dispatch to {label}")
+        finally:
+            for wid in others:
+                info = self.controller.worker_map.get(wid)
+                if info is not None:
+                    info["busy"] = False
+        return thread, box
+
+
+def _joined(thread, box, what, timeout=120):
+    thread.join(timeout)
+    if thread.is_alive():
+        raise AssertionError(f"{what}: the query did not finish")
+    if "error" in box:
+        raise AssertionError(f"{what}: {box['error']!r}") from box["error"]
+    return box["wall"]
+
+
+def _per_worker_total(launches):
+    return {w: sum(v.values()) for w, v in launches.items()}
+
+
+def _by_shape(launches):
+    """Launches per shape key over every worker."""
+    out = collections.Counter()
+    for per in launches.values():
+        out.update(per)
+    return dict(out)
+
+
+def _times(shapes, k):
+    """``k`` queries' launches of each {shape: launches} in ``shapes``."""
+    out = collections.Counter()
+    for per in shapes:
+        out.update({key: n * k for key, n in per.items()})
+    return dict(out)
+
+
+def _expect(cond, what, detail):
+    if not cond:
+        raise AssertionError(f"resilience {what}: {json.dumps(detail)}")
+
+
+def run_resilience_path(names, parts, data_dir, store_dir):
+    """The resilience layer on a cluster of its own: one port controller
+    with short timeouts (``RES_TIMEOUTS``) and two calc workers on cuda
+    over the SAME data_dir, so that every shard has two holders; sharded
+    (``mma``) and zones (``table``), each answer checked against NumPy.
+    Each scenario arms one fault plan, matched by worker where its site
+    knows the worker, and disarms in a ``finally``:
+
+    1. clean: each holder warmed, then 3 queries per config (the walls and
+       launches the others are held to);
+    2. transient: ``worker.device`` raises ``DeviceBusyError`` on each
+       query's first attempt: one failover per query to the other holder,
+       launches as clean's (the failed attempt launched nothing);
+    3. hedge: ``hedge_ms`` 200 and a 1.5 s ``worker.execute`` delay on the
+       first holder: a hedge win per query, the slow reply deduplicated,
+       launches twice clean's;
+    4. dropped reply: ``worker.reply`` drops the first holder's reply
+       once: recovered after the hard timeout (the worker is alive and
+       removed), launches twice clean's;
+    5. bundle: a 400 ms window, two compatible queries and a transient
+       fault on the first holder: the bundle fails over whole, under one
+       token, both members exact;
+    6. exhaustion: ``worker.device`` raises on every attempt: the client
+       gets ``DispatchExhausted`` with attempts naming both workers, and
+       nothing launches;
+    7. die after ack: the first holder dies after its Busy: recovered by
+       the dead-worker cull and the dispatch timeout (``worker_removed``
+       in the flight ring); a third worker then joins;
+    8. wedge: a ``wedge`` on one live worker: its WRM advertises
+       ``backend_wedged``, ``rpc.health()`` lists it as wedged, queries
+       go to the other holder (``health_avoided_dispatches``) and it
+       launches nothing after the latch; the process-global device latch
+       stays clear.
+
+    Every scenario prints one ``resilience`` line (walls, counter deltas,
+    attempt history, launches per worker and shape)."""
+    from bqueryd_tpu_torch import chaos
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.rpc import RPC, RPCError
+    from bqueryd_tpu_torch.utils import devicehealth
+
+    tally = _ThreadLaunches()
+    saved = onehot.LAUNCHES
+    onehot.LAUNCHES = tally
+    report = {}
+    cluster = None
+    try:
+        cluster = _Resilience(names, data_dir, store_dir, tally)
+        cluster.want = {c: reference(c, parts) for c in RES_CONFIGS}
+        ctl = cluster.controller
+        one = {c: expected_launches(c, parts) for c in RES_CONFIGS}
+
+        def record(name, walls, snap, **extra):
+            counters, attempts, launches = cluster.since(snap)
+            report[name] = dict(walls=walls, counters=counters,
+                                attempts=attempts, launches=launches,
+                                **extra)
+            print(json.dumps({"resilience": name, **report[name]}),
+                  flush=True)
+            return counters, attempts, launches
+
+        def arm(spec):
+            chaos.arm(dict(spec, seed=11))
+
+        # 1. clean: each holder warmed (cold walls), then free placement
+        snap = cluster.snapshot()
+        cold = {}
+        for label in ("w1", "w2"):
+            for config in RES_CONFIGS:
+                thread, box = cluster.pinned(label, config)
+                cold[f"{label} {config}"] = _joined(thread, box,
+                                                    f"cold {config}")
+        warm_snap = cluster.snapshot()
+        walls = {c: [cluster.query(c) for _ in range(3)]
+                 for c in RES_CONFIGS}
+        _c, _a, warm_launches = cluster.since(warm_snap)
+        record("clean", walls, snap, cold_walls=cold,
+               warm_launches=warm_launches)
+        _expect(_by_shape(warm_launches) == _times(one.values(), 3),
+                "clean launches", warm_launches)
+
+        # 2. transient: every query's first attempt raises on the device
+        snap = cluster.snapshot()
+        try:
+            arm({"faults": [{"site": "worker.device", "action": "raise",
+                             "args": {"error": "DeviceBusyError"},
+                             "every": 2, "times": len(RES_CONFIGS)}]})
+            walls = {c: cluster.query(c) for c in RES_CONFIGS}
+        finally:
+            chaos.disarm()
+        counters, attempts, launches = record("transient", walls, snap)
+        _expect(counters["transient_faults"] == len(RES_CONFIGS)
+                and counters["failover_dispatches"] == len(RES_CONFIGS),
+                "transient counters", counters)
+        for fault in (a for a in attempts if a["kind"] == "transient_fault"):
+            sent = [a["worker"] for a in attempts
+                    if a["kind"] == "dispatch"
+                    and a.get("token") == fault["token"]]
+            _expect(len(sent) == 2 and sent[0] == fault["worker"]
+                    and sent[1] != sent[0], "transient retry", attempts)
+        _expect(_by_shape(launches) == _times(one.values(), 1),
+                "transient launches", launches)
+
+        # 3. hedge: the first holder answers late, the hedge wins
+        snap = cluster.snapshot()
+        slow = cluster.workers["w1"].worker_id
+        walls = {}
+        try:
+            ctl.hedge_ms = RES_HEDGE_MS
+            arm({"faults": [{"site": "worker.execute", "action": "delay",
+                             "args": {"seconds": RES_DELAY_S},
+                             "match": {"worker": slow, "verb": "groupby"}}]})
+            for config in RES_CONFIGS:
+                dups = ctl.counters["duplicate_replies"]
+                thread, box = cluster.pinned("w1", config)
+                walls[config] = _joined(thread, box, f"hedge {config}")
+                _wait(lambda: ctl.counters["duplicate_replies"] > dups, 30,
+                      "the slow reply's dedup")
+        finally:
+            chaos.disarm()
+            ctl.hedge_ms = 0.0
+        counters, attempts, launches = record("hedge", walls, snap)
+        n = len(RES_CONFIGS)
+        _expect(counters["hedged_dispatches"] == n
+                and counters["hedge_wins"] == n
+                and counters["duplicate_replies"] == n, "hedge counters",
+                counters)
+        _expect(_per_worker_total(launches) == {"w1": n, "w2": n}
+                and _by_shape(launches) == _times(one.values(), 2),
+                "hedge launches", launches)
+
+        # 4. a dropped reply, recovered after the hard timeout
+        snap = cluster.snapshot()
+        try:
+            arm({"faults": [{"site": "worker.reply", "action": "drop",
+                             "match": {"worker": slow, "verb": "groupby"},
+                             "times": 1}]})
+            thread, box = cluster.pinned("w1", "sharded")
+            walls = {"sharded": _joined(thread, box, "dropped reply")}
+        finally:
+            chaos.disarm()
+        counters, attempts, launches = record("dropped_reply", walls, snap)
+        _expect(counters["failover_dispatches"] == 1
+                and any(a["kind"] == "dispatch_timeout" and a.get("hard")
+                        for a in attempts), "dropped-reply recovery",
+                attempts)
+        _expect(_per_worker_total(launches) == {"w1": 1, "w2": 1}
+                and _by_shape(launches) == _times([one["sharded"]], 2),
+                "dropped-reply launches", launches)
+        # the removed (live) worker registers again
+        _wait(lambda: all(slow in ctl.files_map.get(n, ()) for n in names)
+              and not ctl.worker_map.get(slow, {}).get("hb_only"), 60,
+              "the removed worker's return")
+
+        # 5. a bundle fails over whole on a transient fault
+        snap = cluster.snapshot()
+        try:
+            with _env_set({"BQUERYD_TPU_BATCH_WINDOW_MS":
+                           RES_BATCH_WINDOW_MS}):
+                arm({"faults": [{"site": "worker.execute", "action": "raise",
+                                 "args": {"error": "DeviceBusyError"},
+                                 "match": {"worker": slow,
+                                           "verb": "groupby"},
+                                 "times": 1}]})
+                other = cluster.workers["w2"].worker_id
+                ctl.worker_map[other]["busy"] = True
+                boxes = [{}, {}]
+                clients = []
+                for box, op in zip(boxes, (">", ">=")):
+                    client = RPC(coordination_url=cluster.url, timeout=120,
+                                 retries=1, loglevel=cluster.quiet)
+                    clients.append(client)
+
+                    def run(box=box, op=op, client=client):
+                        try:
+                            box["wall"] = cluster.query(
+                                "sharded", rpc=client,
+                                where=[["fare_amount", op, 0]])
+                        except Exception as exc:
+                            box["error"] = exc
+
+                    box["thread"] = threading.Thread(target=run, daemon=True)
+                    box["thread"].start()
+                try:
+                    _wait(lambda: _flight_since(ctl, snap["seq"], "dispatch",
+                                                worker=slow), 60,
+                          "the bundle's dispatch to w1")
+                finally:
+                    ctl.worker_map[other]["busy"] = False
+                walls = {f"member {i}": _joined(b["thread"], b,
+                                                f"bundle member {i}")
+                         for i, b in enumerate(boxes)}
+                for client in clients:
+                    client._close_socket()
+        finally:
+            chaos.disarm()
+        counters, attempts, launches = record("bundle", walls, snap)
+        sent = [a for a in attempts if a["kind"] == "dispatch"]
+        _expect(counters["plan_bundles"] == 1
+                and counters["plan_bundled_queries"] == 2
+                and counters["transient_faults"] == 1
+                and counters["failover_dispatches"] == 1
+                and len(sent) == 2 and sent[0]["token"] == sent[1]["token"]
+                and [a["worker"] for a in sent] == ["w1", "w2"],
+                "bundle failover", {"counters": counters,
+                                    "attempts": attempts})
+        _expect(_per_worker_total(launches) == {"w2": 2}
+                and _by_shape(launches) == _times([one["sharded"]], 2),
+                "bundle launches", launches)
+
+        # 6. exhaustion: every attempt faults
+        snap = cluster.snapshot()
+        t0 = time.perf_counter()
+        try:
+            arm({"faults": [{"site": "worker.device", "action": "raise",
+                             "args": {"error": "DeviceBusyError"}}]})
+            try:
+                cluster.query("sharded")
+            except RPCError as exc:
+                error = exc
+            else:
+                raise AssertionError("exhaustion: the query answered")
+        finally:
+            chaos.disarm()
+        walls = {"sharded": time.perf_counter() - t0}
+        counters, attempts, launches = record(
+            "exhaustion", walls, snap, error_class=error.error_class,
+            client_attempts=[dict(a, worker=cluster.label_of(a["worker"]))
+                             for a in error.attempts])
+        _expect(error.error_class == "DispatchExhausted"
+                and len(error.attempts) == ctl.max_dispatch_retries + 1
+                and {a["worker"] for a in error.attempts}
+                == {w.worker_id for w in cluster.workers.values()}
+                and not launches, "exhaustion",
+                {"error": str(error), "launches": launches})
+
+        # 7. die after ack, then a third worker joins
+        snap = cluster.snapshot()
+        dead = cluster.workers["w1"]
+        try:
+            arm({"faults": [{"site": "worker.execute",
+                             "action": "die_after_ack",
+                             "match": {"worker": dead.worker_id,
+                                       "verb": "groupby"},
+                             "times": 1}]})
+            thread, box = cluster.pinned("w1", "sharded")
+            walls = {"sharded": _joined(thread, box, "die after ack")}
+        finally:
+            chaos.disarm()
+        _wait(lambda: _flight_since(ctl, snap["seq"], "worker_removed",
+                                    worker=dead.worker_id), 30,
+              "the dead worker's cull")
+        t0 = time.perf_counter()
+        cluster.add_worker("w3")
+        walls["w3_join"] = time.perf_counter() - t0
+        counters, attempts, launches = record("die_after_ack", walls, snap)
+        _expect(counters["failover_dispatches"] == 1
+                and dead.worker_id not in ctl.worker_map
+                and not dead.running, "die-after-ack recovery", attempts)
+        _expect(_by_shape(launches) == _times([one["sharded"]], 1)
+                and list(launches) == ["w2"], "die-after-ack launches",
+                launches)
+
+        # 8. a wedge on one live worker
+        snap = cluster.snapshot()
+        wedged = cluster.workers["w2"]
+        try:
+            arm({"faults": [{"site": "worker.execute", "action": "wedge",
+                             "match": {"worker": wedged.worker_id,
+                                       "verb": "groupby"},
+                             "times": 1}]})
+            thread, box = cluster.pinned("w2", "sharded")
+            walls = {"failover": _joined(thread, box, "wedge failover")}
+        finally:
+            chaos.disarm()
+        _wait(lambda: cluster.rpc.health()["workers"].get(
+            wedged.worker_id, {}).get("status") == "wedged", 30,
+            "rpc.health() listing the wedged worker")
+        for config in RES_CONFIGS:
+            walls[config] = [cluster.query(config) for _ in range(2)]
+        health = cluster.rpc.health()
+        counters, attempts, launches = record(
+            "wedge", walls, snap,
+            health={cluster.label_of(w): s["status"]
+                    for w, s in health["workers"].items()},
+            device_latch=devicehealth.health_snapshot())
+        _expect(counters["transient_faults"] == 1
+                and counters["failover_dispatches"] == 1
+                and counters["health_avoided_dispatches"] >= 1
+                and wedged._chaos_wedged
+                and list(launches) == ["w3"]
+                and _by_shape(launches) == _times(
+                    [one["sharded"], one["sharded"], one["sharded"],
+                     one["zones"], one["zones"]], 1)
+                and devicehealth.health_snapshot()["wedged"] == 0
+                and any(a["kind"] == "worker_wedged" for a in attempts),
+                "wedge", {"counters": counters, "launches": launches})
+    finally:
+        chaos.disarm()
+        onehot.LAUNCHES = saved
+        saved.update(tally)
+        if cluster is not None:
+            cluster.stop()
+    return report
+
+
 def controller_url(store_dir):
     """The coordination URL of a cluster started on ``store_dir``."""
     return f"file://{store_dir}"
@@ -3422,6 +3949,30 @@ def _launch(name, expect, codes, rows, n_rows, n_groups, **forced):
     return lambda: run(codes, rows, n_rows, n_groups, plan)
 
 
+def _library_call(name, codes, rows, n_rows, n_groups, device):
+    """The library yardstick of a kernel call: one ``index_add_`` over
+    pre-arranged inputs (slot indices and ``[n, R]`` values) that computes
+    the same tables (per block of ``BLOCK_K`` rows for the base kernel);
+    timed only, used nowhere in the port.  Returns ``(call, kept row
+    indices)``."""
+    import torch
+
+    from bqueryd_tpu_torch.ops import onehot
+
+    c = codes.to(torch.int64)
+    keep = torch.nonzero(c >= 0).squeeze(1)
+    vals = rows[:, keep].t().to(torch.float32).contiguous()
+    if name == "onehot_rows_dot":
+        slot = (keep // onehot.BLOCK_K) * n_groups + c[keep]
+        nb = -(-codes.shape[0] // onehot.BLOCK_K)
+        acc = torch.zeros(nb * n_groups, n_rows, device=device)
+    else:
+        slot = c[keep]
+        vals = vals.to(torch.int64)
+        acc = torch.zeros(n_groups, n_rows, dtype=vals.dtype, device=device)
+    return (lambda: acc.index_add_(0, slot, vals)), keep
+
+
 #: kernel rows whose branch is forced: the executor's highcard inputs on
 #: the hicard "global" branch, which that shape does not route to
 FORCED = ("executor highcard global",)
@@ -3461,21 +4012,9 @@ def check_kernels(inputs, device, launches, iters=50):
             if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
                 raise AssertionError(f"{label}: two launches differ")
 
-        # the library yardstick: one index_add_ over pre-arranged inputs
-        # (slot indices and [n, R] values), timed here only
-        c = codes.to(torch.int64)
-        keep = torch.nonzero(c >= 0).squeeze(1)
-        vals = rows[:, keep].t().to(torch.float32).contiguous()
+        library, keep = _library_call(name, codes, rows, n_rows, n_groups,
+                                      device)
         n = codes.shape[0]
-        if name == "onehot_rows_dot":
-            slot = (keep // onehot.BLOCK_K) * n_groups + c[keep]
-            nb = -(-n // onehot.BLOCK_K)
-            acc = torch.zeros(nb * n_groups, n_rows, device=device)
-        else:
-            slot = c[keep]
-            vals = vals.to(torch.int64)
-            acc = torch.zeros(n_groups, n_rows, dtype=vals.dtype,
-                              device=device)
         in_bytes = rows.numel() * 2 + n * 4
         bytes_moved = in_bytes + got.numel() * 4
         if branch == "mma":
@@ -3494,7 +4033,7 @@ def check_kernels(inputs, device, launches, iters=50):
         ms_events = _time_ms(run, iters)
         plain_ms = _time_ms(
             lambda: plain(codes, rows, n_rows, n_groups), max(iters // 5, 3))
-        library_ms = _time_ms(lambda: acc.index_add_(0, slot, vals), iters)
+        library_ms = _time_ms(library, iters)
         stream_ms = _device_ms(
             lambda: (rows.view(torch.int16).sum(), codes.sum()), "", iters)
         results.append({
@@ -3526,39 +4065,51 @@ def check_kernels(inputs, device, launches, iters=50):
 
 #: group counts of the base kernel's branch sweep
 G_SWEEP = (9, 16, 32, 64, 256, 1024, 8192)
+#: row counts of the G sweep: one shard, and the executor's contraction
+#: over the 10 shards (``ops.program_bucket(10M, fine=True)``)
+G_SWEEP_N = (1_000_000, 10_223_616)
 
 
 def sweeps(parts, device, iters=30):
-    """The base kernel's two branches over G at R = 9 on shard 0's rows,
-    and the hicard cluster count C on the engine path's highcard inputs
-    (one shard)."""
+    """The base kernel's two branches over G at R = 9 on shard 0's rows
+    (n = 1M, and tiled to the executor's n = 10,223,616), each beside the
+    library call (``index_add_``, device time); and the hicard cluster
+    count C on the engine path's highcard inputs (one shard)."""
     import torch
 
     from bqueryd_tpu_torch.ops import onehot
 
     inputs = _shard_inputs(parts, device)
-    _, _, _, rows, n_rows, _, _ = inputs["shard R=9"]
-    n = rows.shape[1]
+    _, _, _, shard_rows, n_rows, _, _ = inputs["shard R=9"]
     rng = np.random.RandomState(SEED)
     g_sweep = []
-    for g in G_SWEEP:
-        codes = torch.from_numpy(rng.randint(0, g, n).astype(np.int32)).to(
-            device)
-        want = onehot.onehot_rows_dot_plain(codes, rows, n_rows, g)
-        row = {"G": g, "R": n_rows, "n": n,
-               "chosen": onehot._base_plan(n_rows, g, n).branch}
-        for branch in ("mma", "table"):
-            try:
-                run = _launch("onehot_rows_dot", branch, codes, rows,
-                              n_rows, g, branch=branch)
-            except ValueError:
-                row[f"{branch}_ms"] = None  # the branch cannot take G
-                continue
-            _compare(f"G sweep {branch} G={g}", run(), want, n_rows, n_rows)
-            row[f"{branch}_ms"] = _device_ms(
-                run, BRANCH_KERNEL[("onehot_rows_dot", branch)], iters)
-        g_sweep.append(row)
-        log(f"G sweep: {json.dumps(row)}")
+    for n in G_SWEEP_N:
+        reps = -(-n // shard_rows.shape[1])
+        rows = (shard_rows if n == shard_rows.shape[1] else _stack(
+            [r.repeat(reps)[:n] for r in shard_rows], device))
+        for g in G_SWEEP:
+            codes = torch.from_numpy(
+                rng.randint(0, g, n).astype(np.int32)).to(device)
+            want = onehot.onehot_rows_dot_plain(codes, rows, n_rows, g)
+            row = {"G": g, "R": n_rows, "n": n,
+                   "chosen": onehot._base_plan(n_rows, g, n).branch}
+            for branch in ("mma", "table"):
+                try:
+                    run = _launch("onehot_rows_dot", branch, codes, rows,
+                                  n_rows, g, branch=branch)
+                except ValueError:
+                    row[f"{branch}_ms"] = None  # the branch cannot take G
+                    continue
+                _compare(f"G sweep {branch} G={g} n={n}", run(), want,
+                         n_rows, n_rows)
+                row[f"{branch}_ms"] = _device_ms(
+                    run, BRANCH_KERNEL[("onehot_rows_dot", branch)], iters)
+            library, _keep = _library_call("onehot_rows_dot", codes, rows,
+                                           n_rows, g, device)
+            row["library_ms"] = _device_ms(library, "", iters)
+            g_sweep.append(row)
+            log(f"G sweep: {json.dumps(row)}")
+            del want, library
 
     name, _, codes, rows, n_rows, n_groups, _ = inputs["shard hicard"]
     want = onehot.onehot_rows_dot_hicard_plain(codes, rows, n_rows, n_groups)
@@ -3754,6 +4305,17 @@ def main():
         serving_launches = path_launches("serving", SERVE_KERNELS)
         log(f"serving path: {time.perf_counter() - t0:.1f}s")
         print(json.dumps({"serving": serving_summary(serving)}), flush=True)
+        # resilience: failover, hedging, dedup, exhaustion, a lost and a
+        # wedged worker, on a cluster of two (then three) holders
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0",
+                       "BQUERYD_TPU_CALIB": "0"}):
+            resilience = run_resilience_path(
+                names, parts, data_dir,
+                tempfile.mkdtemp(prefix="res_store_", dir=data_dir))
+        resilience_launches = path_launches("resilience", RES_KERNELS)
+        log(f"resilience path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
@@ -3772,6 +4334,7 @@ def main():
                           "routing": routing,
                           "calibration": calibration,
                           "serving": serving,
+                          "resilience": resilience,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
@@ -3782,6 +4345,7 @@ def main():
                                        "routing": routing_launches,
                                        "calibration": calib_launches,
                                        "serving": serving_launches,
+                                       "resilience": resilience_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -3810,11 +4374,12 @@ def main():
                 "executor": configs[config]["launches"],
                 "cluster": cluster[config]["launches"],
             }
-        # the routing, calibration and serving legs' launches at each
-        # row's shape
+        # the routing, calibration, serving and resilience legs' launches
+        # at each row's shape
         for path, counted in (("routing", routing_launches),
                               ("calibration", calib_launches),
-                              ("serving", serving_launches)):
+                              ("serving", serving_launches),
+                              ("resilience", resilience_launches)):
             for label, e in inputs.items():
                 key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
                 if counted.get(key) and not label.startswith("bundle "):

@@ -312,7 +312,13 @@ def groupby_msg(filenames, where=None, token="00", deadline=None,
 
 
 def queued(controller):
-    return list(controller.pending)
+    return [m for queue in controller.worker_out_messages.values()
+            for m in queue]
+
+
+def clear_queues(controller):
+    for queue in controller.worker_out_messages.values():
+        queue.clear()
 
 
 def reply_to(msg, data):
@@ -328,7 +334,7 @@ def test_plan_time_pruning_skips_excluded_shards(controller):
     controller.rpc_groupby(
         groupby_msg(["a.bcolzs", "b.bcolzs"], where=[["x", ">", 100]]))
     assert len(queued(controller)) == 1  # x has no stats: both, batched
-    controller.pending.clear()
+    clear_queues(controller)
     controller.rpc_segments.clear()
     controller.rpc_groupby(groupby_msg(
         ["a.bcolzs", "b.bcolzs"], where=[["k", "<", 60]], token="01"))
@@ -521,7 +527,7 @@ def test_admission_busy_reply(new_controller):
     assert client == "cc"
     assert envelope["busy"] is True and envelope["ok"] is False
     (msg,) = queued(node)
-    node.pending.clear()  # the dispatch
+    clear_queues(node)  # the dispatch
     node.process_worker_result(reply_to(msg, b"x"))
     assert {c for c, _ in node._replies} == {"aa", "cc"}
     (msg2,) = queued(node)  # bb launched into the freed capacity
@@ -929,7 +935,8 @@ def test_rpc_sends_client_id_and_priority_on_the_envelope(cluster,
 
 def _window_zero_expected(msg, plan, group, sole):
     """The CalcMessage the port's controller built for one shard group
-    before it had admission and a window."""
+    before it had admission and a window, with the affinity key the
+    affinity queues add (None: unpinned, as in the reference)."""
     from bqueryd_tpu_torch.plan import fragment_for
 
     target = group if len(group) > 1 else group[0]
@@ -942,6 +949,7 @@ def _window_zero_expected(msg, plan, group, sole):
     shard["token"] = msg["token"]
     shard["parent_token"] = msg["parent_token"]
     shard["filename"] = target
+    shard["affinity"] = None
     shard["created"] = msg["created"]
     shard.add_as_binary("plan", fragment_for(plan, group, sole=sole))
     return shard

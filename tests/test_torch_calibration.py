@@ -281,7 +281,8 @@ def test_calibrated_hints_and_counters(new_controller,  # noqa: F811
         controller.rpc_groupby(groupby_msg(
             ["a.bcolzs"], token=token, where=[["v", ">", len(seen)]]))
         msg = queued(controller)[-1]
-        controller.pending.clear()
+        for queue in controller.worker_out_messages.values():
+            queue.clear()
         return msg.get_from_binary("plan")
 
     frag = hint("aa")

@@ -66,6 +66,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.obs",
                    "bqueryd_tpu_torch.obs.metrics",
                    "bqueryd_tpu_torch.obs.flightrec",
+                   "bqueryd_tpu_torch.obs.health",
+                   "bqueryd_tpu_torch.chaos",
+                   "bqueryd_tpu_torch.chaos.plan",
                    "bqueryd_tpu_torch.serve",
                    "bqueryd_tpu_torch.serve.subsume",
                    "bqueryd_tpu_torch.serve.rollup"):
@@ -77,6 +80,8 @@ import json, sys
 import bqueryd_tpu_torch.controller
 import bqueryd_tpu_torch.serve
 import bqueryd_tpu_torch.obs
+import bqueryd_tpu_torch.chaos
+import bqueryd_tpu_torch.coordination
 from bqueryd_tpu_torch.models.query import ResultPayload
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("torch", "pandas", "jax", "jaxlib",
@@ -86,8 +91,9 @@ print(json.dumps(heavy))
 
 
 def test_control_plane_imports_no_torch_and_no_pandas():
-    """The controller, the serving layer and obs (and the payload codec
-    the controller decodes rollup replies with) load without torch."""
+    """The controller, the serving layer, obs, chaos and the store (and
+    the payload codec the controller decodes rollup replies with) load
+    without torch."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
         [sys.executable, "-c", _CONTROL_PLANE], cwd=REPO, env=env,

@@ -485,6 +485,12 @@ def port_serving_cluster(loopback, tmp_path, monkeypatch):
             return False
 
         wait_until(_stats_known, desc="shard stats advertisement")
+        # the stats may ride a liveness WRM of a worker adopted from its
+        # heartbeat thread before its loop's own WRM lists its files
+        wait_until(lambda: "t.bcolzs" in controller.files_map
+                   and not controller.worker_map.get(
+                       worker.worker_id, {}).get("hb_only"),
+                   desc="the worker's own registration")
         rpc = RPC(coordination_url=url, timeout=RPC_TIMEOUT, retries=1,
                   loglevel=QUIET)
         yield {"rpc": FrameRPC(rpc), "controller": controller,
@@ -559,13 +565,14 @@ def test_served_answer_dispatches_nothing_and_records_its_path(
     assert {"envelope", "rollup_build", "work_done"} <= {
         e["kind"] for e in slice_["flight"]}
     section = bundle["controller"]
-    for absent in ("health", "trace", "autopsy", "slow_queries",
-                   "worker_histograms", "runtime", "compile_cache", "chaos",
+    for absent in ("trace", "autopsy", "slow_queries",
+                   "worker_histograms", "runtime", "compile_cache",
                    "replication", "slo", "timeline_ring", "capacity"):
         assert absent not in section
     assert {"address", "node", "uptime_s", "flight", "flight_evictions",
             "counters", "admission", "workers_known", "inflight", "metrics",
-            "calibration", "batch_window", "serving"} <= set(section)
+            "calibration", "batch_window", "serving", "health",
+            "chaos"} <= set(section)
     assert section["counters"]["rollup_builds"] == 1
     kinds = [e["kind"] for e in section["flight"]]
     assert "dispatch" in kinds and "rollup_dispatch" in kinds
@@ -698,10 +705,11 @@ def test_removed_holder_fails_its_queued_rollup_build(bare_controller):
     controller._dispatch_rollup_build(entry)
     (token, waiter), = controller._rollup_waiters.items()
     assert waiter == ("k", "t.bcolzs") and token.startswith("rollup_")
-    (msg,) = controller.pending
-    assert msg.isa("rollup") and msg["target"] == "w1"
+    (msg,) = controller.worker_out_messages["w1"]
+    assert msg.isa("rollup") and msg["worker_id"] == "w1"
+    assert "target" not in msg
     controller.dispatch_pending()  # w1 is busy: the build waits
-    assert sent == [] and controller.pending == [msg]
+    assert sent == [] and controller.worker_out_messages["w1"] == [msg]
     controller.remove_worker("w1")
     assert controller.serving.manager.entries == {}
     assert controller._rollup_waiters == {}
@@ -711,8 +719,8 @@ def test_removed_holder_fails_its_queued_rollup_build(bare_controller):
               if e["kind"] == "rollup_build_failed"]
     assert [(e["entry"], e["reason"]) for e in failed] == [
         ("k", "holder removed")]
-    controller.dispatch_pending()  # the orphaned message is dropped
-    assert controller.pending == [] and sent == []
+    controller.dispatch_pending()  # the removed worker's queue is gone
+    assert not any(controller.worker_out_messages.values()) and sent == []
 
 
 def test_rollup_without_holder_and_orphaned_reply(bare_controller):
@@ -723,7 +731,8 @@ def test_rollup_without_holder_and_orphaned_reply(bare_controller):
     controller.files_map.clear()
     controller._dispatch_rollup_build(entry)
     assert controller.serving.manager.entries == {}
-    assert controller.pending == [] and controller._rollup_waiters == {}
+    assert not any(controller.worker_out_messages.values())
+    assert controller._rollup_waiters == {}
     # a late reply of a retired build: recorded, never forwarded
     orphan = ErrorMessage({"token": "rollup_0123", "payload": "boom"})
     controller.process_worker_result(orphan)

@@ -14,3 +14,15 @@ def fresh_port_calibration():
 
     calibrate._reset_for_tests()
     yield
+
+
+@pytest.fixture(autouse=True)
+def disarmed_port_chaos():
+    """The port's fault injection disarmed and its counters zeroed around
+    each test: a plan armed by one test must not fire in another's
+    cluster."""
+    from bqueryd_tpu_torch import chaos
+
+    chaos._reset_for_tests()
+    yield
+    chaos._reset_for_tests()
