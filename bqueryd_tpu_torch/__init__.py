@@ -11,8 +11,9 @@ names follow ``bqueryd_tpu`` so each counterpart sits at the same path.
 
 The package imports torch, numpy and zmq, never jax and nothing of
 ``bqueryd_tpu``: storage, caches, the host merge, the wire protocol, the
-coordination store, the logical plan, the serving layer (``serve``) and
-the metrics registry and flight recorder (``obs``) are its own copies.  Importing it
+coordination store, the logical plan, the serving layer (``serve``), the
+metrics registry and flight recorder (``obs``), the distribution pipeline
+(``blob``, ``download``) and the bcolz v1 reader are its own copies.  Importing it
 is light (torch loads only when a device is resolved or an ``ops``
 module is imported).
 
@@ -54,9 +55,18 @@ def configure_logging(loglevel=logging.INFO):
 
 #: root of served shard directories
 DEFAULT_DATA_DIR = os.environ.get("BQUERYD_TPU_DATA_DIR", "/srv/bcolz/")
+#: staging area of in-flight downloads
+INCOMING = os.path.join(DEFAULT_DATA_DIR, "incoming")
 
 #: coordination-store set that holds the live controllers' addresses
 REDIS_SET_KEY = "bqueryd_controllers"
+#: download tickets (one hash each) and the TTL locks that claim their
+#: slots: the reference's key names, so that a node of either package
+#: claims and activates the other's tickets
+REDIS_TICKET_KEY_PREFIX = "bqueryd_download_ticket_"
+REDIS_DOWNLOAD_LOCK_PREFIX = "bqueryd_download_lock_"
+#: TTL of a download claim, seconds
+REDIS_DOWNLOAD_LOCK_DURATION = 60 * 30
 
 DEFAULT_COORDINATION_URL = os.environ.get(
     "BQUERYD_TPU_COORDINATION_URL", "redis://127.0.0.1:6379/0"
@@ -89,5 +99,7 @@ def resolve_device(device=None):
 
 __all__ = [
     "resolve_device", "configure_logging", "logger", "DEFAULT_DATA_DIR",
-    "REDIS_SET_KEY", "DEFAULT_COORDINATION_URL", "__version__",
+    "INCOMING", "REDIS_SET_KEY", "REDIS_TICKET_KEY_PREFIX",
+    "REDIS_DOWNLOAD_LOCK_PREFIX", "REDIS_DOWNLOAD_LOCK_DURATION",
+    "DEFAULT_COORDINATION_URL", "__version__",
 ]

@@ -1,8 +1,7 @@
 """ControllerNode: discovery, dispatch and the sink of queries and appends.
 
 The port's copy of the part of ``bqueryd_tpu/controller.py`` that answers
-``groupby``, ``query``, ``append``, ``ping``, ``info`` and ``loglevel``,
-with the reference's wire behaviour:
+every verb of ``CONTROLLER_VERBS``, with the reference's wire behaviour:
 
 * one ROUTER socket bound to a random port in 14300-14399, its identity
   ``tcp://ip:port`` registered in the coordination store;
@@ -78,9 +77,23 @@ with the reference's wire behaviour:
   worker removals and the serving layer's decisions and rollup lifecycle;
   ``rpc.debug_bundle()`` assembles it with each worker's heartbeat slice.
 
+* distribution: ``download`` registers a ticket in the store, one slot
+  per (placement node, file) (:mod:`download`, ``replica_factor`` holders
+  per file, every node at 0); a downloader's ``TicketDoneMessage``
+  answers the client waiting on it, with the ticket's error when one
+  failed.  ``get_info()["replication"]`` and the
+  ``bqueryd_tpu_replica_holders`` gauges count shards by live holders;
+* peers: every heartbeat the controller connects to the other
+  controllers in the store and sends each its info (``peer_info``, kept
+  in ``others``); an unreachable peer is removed from the store;
+* the admin verbs: ``sleep``, ``readfile`` and ``execute_code`` go to
+  one free calc worker and its reply is relayed as it comes; ``kill``
+  stops this controller, ``killworkers`` every worker, ``killall`` both,
+  relayed once to every peer.
+
 The controller imports neither torch nor pandas.  Not ported yet: the
-capacity model, peer gossip, traces, SLO accounting, the debug bundle's
-sections of those subsystems, downloads and the admin verbs.
+capacity model, traces, SLO accounting and the debug bundle's sections of
+those subsystems.
 
 Framing on the ROUTER socket:
 
@@ -111,7 +124,9 @@ from bqueryd_tpu_torch.messages import (
     DoneMessage,
     ErrorMessage,
     Message,
+    RPCMessage,
     StopMessage,
+    TicketDoneMessage,
     WorkerRegisterMessage,
     msg_factory,
 )
@@ -133,8 +148,18 @@ RETRY_BACKOFF_CAP_S = backoff.BACKOFF_CAP_S
 APPEND_TIMEOUT = 120.0
 RUNFILE_DIR = os.environ.get("BQUERYD_TPU_RUNFILE_DIR", "/srv")
 
-CONTROLLER_VERBS = ("ping", "loglevel", "info", "groupby", "query",
-                    "append", "metrics", "health", "debug_bundle")
+#: the reference's verbs in its order, but for ``trace``,
+#: ``slow_queries``, ``autopsy``, ``timeline`` and ``capacity``, whose
+#: subsystems the port does not have yet
+CONTROLLER_VERBS = (
+    "ping", "loglevel", "info", "kill", "killworkers", "killall",
+    "download", "readfile", "execute_code", "sleep", "groupby", "query",
+    "metrics", "health", "debug_bundle", "append",
+)
+
+#: verbs a worker answers for one client directly: no query segment, the
+#: reply relayed as it comes
+DIRECT_VERBS = ("sleep", "readfile", "execute_code")
 
 #: the controller's counters with their help texts (the reference's names
 #: and meanings): ``self.counters`` is a dict built from them
@@ -191,6 +216,20 @@ COUNTER_SPECS = {
 }
 
 
+#: worker roles that share a serving dir but serve none of its shards
+NON_SERVING_ROLES = ("download", "movebcolz")
+
+
+def _served_files(info):
+    """The shards a WRM makes its worker a holder of.  A downloader and a
+    mover list the data dir they stage into, but hold no shard: a rollup
+    build or an append pinned to one of them would fail, and the replica
+    counts would count them."""
+    if info.get("workertype") in NON_SERVING_ROLES:
+        return []
+    return info.get("data_files") or []
+
+
 class ControllerNode:
     def __init__(
         self,
@@ -244,6 +283,11 @@ class ControllerNode:
         # many milliseconds in flight a unit goes to a second holder too
         self.hedge_ms = (hedge_ms if hedge_ms is not None
                          else env_num("BQUERYD_TPU_HEDGE_MS", 0.0))
+        # replica placement of downloads: this many holders per shard (0,
+        # the default, is every node; download.setup_download), visible in
+        # get_info and the replica_holders gauges
+        self.replica_factor = max(
+            env_num("BQUERYD_TPU_REPLICA_FACTOR", 0, int), 0)
 
         self.context = zmq.Context.instance()
         self.socket = self.context.socket(zmq.ROUTER)
@@ -263,6 +307,9 @@ class ControllerNode:
         self.worker_map = {}          # worker_id -> WRM info (+ last_seen/busy)
         self._adoption_blocked = {}   # worker_id -> until-ts (hb-only cull)
         self.files_map = {}           # filename -> set(worker_id)
+        self._holder_counts_memo = None
+        self.others = {}              # peer controller address -> its info
+        self._ticket_files = {}       # download ticket -> its shard names
         # messages waiting for a worker, one queue per affinity: None for
         # unpinned work, a worker id for the messages pinned to it
         self.worker_out_messages = {None: []}
@@ -336,6 +383,16 @@ class ControllerNode:
             "(0 while BQUERYD_TPU_FAULT_PLAN is unarmed)",
             fn=chaos.injected_total,
         )
+        # replica visibility: shards by live holder count; a failover
+        # needs a second holder, so holders="1" is the pager signal
+        for bucket in ("1", "2", "3plus"):
+            self.metrics.gauge(
+                "bqueryd_tpu_replica_holders",
+                "advertised shards by live holder count (failover needs a "
+                "second holder; see BQUERYD_TPU_REPLICA_FACTOR)",
+                labels={"holders": bucket},
+                fn=(lambda b=bucket: self._holder_counts().get(b, 0)),
+            )
         self.metrics.gauge(
             "bqueryd_tpu_workers_degraded",
             "registered workers currently scored degraded or wedged",
@@ -464,6 +521,33 @@ class ControllerNode:
         # retention caps, dispatch delta refreshes of stale entries
         self.serving.tick()
         self.store.sadd(bqueryd_tpu_torch.REDIS_SET_KEY, self.address)
+        self._gossip()
+
+    def _gossip(self):
+        """Connect to the peer controllers in the store, forget those that
+        left it, and send each this controller's info (``peer_info``); a
+        peer that cannot be reached is removed from the store."""
+        current = self.store.smembers(bqueryd_tpu_torch.REDIS_SET_KEY)
+        for addr in current:
+            if addr == self.address or addr in self.others:
+                continue
+            self.logger.debug("connecting to peer %s", addr)
+            self.socket.connect(addr)
+            self.others[addr] = {"last_seen": 0.0}
+        for addr in list(self.others):
+            if addr not in current:
+                self.others.pop(addr, None)
+                continue
+            gossip = Message({"payload": "peer_info"})
+            gossip["from"] = self.address
+            gossip.add_as_binary("info", self.get_info(include_peers=False))
+            try:
+                self.socket.send_multipart(
+                    [addr.encode(), gossip.to_json().encode()])
+            except zmq.ZMQError:
+                self.logger.warning("peer %s unreachable, removing", addr)
+                self.store.srem(bqueryd_tpu_torch.REDIS_SET_KEY, addr)
+                self.others.pop(addr, None)
 
     def free_dead_workers(self):
         """Cull workers silent longer than ``dead_worker_timeout``, but
@@ -623,6 +707,25 @@ class ControllerNode:
         self.worker_out_messages.setdefault(msg.get("affinity"), []).append(
             msg)
 
+    def _holder_counts(self):
+        """Advertised shards bucketed by live holder count ("1", "2",
+        "3plus"): the replica_holders gauges and get_info's replication
+        view.  Memoized for 0.25 s, as one metrics scrape reads all three
+        buckets."""
+        now = time.time()
+        cached = self._holder_counts_memo
+        if cached is not None and now - cached[0] < 0.25:
+            return cached[1]
+        counts = {"1": 0, "2": 0, "3plus": 0}
+        for holders in list(self.files_map.values()):
+            n = len(holders)
+            if n >= 3:
+                counts["3plus"] += 1
+            elif n:
+                counts[str(n)] += 1
+        self._holder_counts_memo = (now, counts)
+        return counts
+
     # -- scheduling --------------------------------------------------------
     def find_free_worker(self, needs_local=False, filename=None, exclude=()):
         """A random free calc worker that advertises ``filename`` (one
@@ -694,6 +797,13 @@ class ControllerNode:
         not_before = msg.get("_not_before")
         if not_before is not None and not_before > time.time():
             return False  # backing off
+        if msg.get("payload") in DIRECT_VERBS:
+            # an admin verb for one client: any free calc worker
+            worker_id = self.find_free_worker()
+            if worker_id is None:
+                return False
+            self._send_to_worker(worker_id, msg)
+            return True
         pinned = msg.get("worker_id")
         if pinned is not None:
             # an append or a rollup build to one holder, while its fan-out
@@ -1086,6 +1196,15 @@ class ControllerNode:
             return
         if len(frames) == 3:
             msg["data"] = frames[2]
+        elif msg.get("payload") == "peer_info":
+            self.handle_peer(msg)
+            return
+        elif msg.get("_relayed") and msg.get("payload") in (
+                "killall", "kill", "loglevel"):
+            # a control verb a peer controller fanned out: run like an
+            # RPC, with no client to answer
+            getattr(self, f"rpc_{msg['payload']}")(msg)
+            return
         self.handle_worker(frames[0], msg)
 
     # -- worker messages ---------------------------------------------------
@@ -1113,6 +1232,10 @@ class ControllerNode:
             info["busy"] = False
         elif msg.isa(StopMessage):
             self.remove_worker(worker_id)
+        elif msg.isa(TicketDoneMessage):
+            if not msg.get("error"):
+                self._ticket_activated(msg.get("ticket"))
+            self.release_ticket_waiters(msg.get("ticket"), msg.get("error"))
         elif msg.get("token"):
             info["busy"] = False
             self._absorb_reply(worker_id, msg)
@@ -1247,7 +1370,7 @@ class ControllerNode:
             elif self._adoption_blocked.get(worker_id, 0) <= now:
                 info = dict(msg, last_seen=now, busy=True, hb_only=now)
                 self.worker_map[worker_id] = info
-                for filename in info.get("data_files") or []:
+                for filename in _served_files(info):
                     self.files_map.setdefault(filename, set()).add(worker_id)
                 self._absorb_worker_metrics(worker_id, info)
                 self._absorb_shard_stats(info)
@@ -1259,7 +1382,7 @@ class ControllerNode:
         # an hb-only adoption's busy=True was a placeholder
         info["busy"] = False if prev.get("hb_only") else prev.get("busy", False)
         self.worker_map[worker_id] = info
-        current = set(info.get("data_files") or [])
+        current = set(_served_files(info))
         for filename in current:
             self.files_map.setdefault(filename, set()).add(worker_id)
         for filename in list(self.files_map):
@@ -1388,6 +1511,14 @@ class ControllerNode:
                 self.counters["duplicate_replies"] += 1
             return
         subscribers = self._work_subscribers.get(token)
+        if msg.get("parent_token") is None and not subscribers:
+            # a verb answered for one client (sleep, readfile,
+            # execute_code): a data frame is folded into the reply
+            data = msg.pop("data", None)
+            if data is not None:
+                msg.add_as_binary("result", data)
+            self.reply_rpc_message(token, msg)
+            return
         self._drop_work(token)
         parents = (list(subscribers) if subscribers
                    else [msg.get("parent_token")])
@@ -1620,6 +1751,8 @@ class ControllerNode:
             self.logger.exception("could not reply to client %r", client_token)
 
     def reply_rpc_message(self, client_token, msg):
+        if client_token is None:
+            return  # a relayed verb: nobody to answer
         msg.pop("data", None)
         self.reply_rpc_raw(client_token, msg.to_json().encode())
 
@@ -1686,8 +1819,8 @@ class ControllerNode:
         slices come from absorbed heartbeats, so a wedged or dead worker
         cannot stall it).  Only the sections of ported subsystems are
         present: the reference's trace, autopsy, slow-query,
-        worker-histogram, runtime, compile-cache, replication, SLO,
-        timeline-ring and capacity sections are absent."""
+        worker-histogram, runtime, compile-cache, SLO, timeline-ring and
+        capacity sections are absent."""
         from bqueryd_tpu_torch import obs
 
         now = time.time()
@@ -1719,6 +1852,7 @@ class ControllerNode:
                 "injected_total": chaos.injected_total(),
                 "site_stats": chaos.site_stats(),
             },
+            "replication": self._replication_info(),
             "batch_window": self._batch_window_info(),
             "serving": self.serving.snapshot(),
         }
@@ -1755,8 +1889,10 @@ class ControllerNode:
                 max(time.time() - self._window_opened, 0.0), 3)
         return state
 
-    def get_info(self):
-        return {
+    def get_info(self, include_peers=True):
+        """The controller's state for ``rpc.info()``; ``others`` is the
+        peers' gossiped info, left out of the gossip itself."""
+        info = {
             "address": self.address,
             "node": self.node_name,
             "uptime": time.time() - self.start_time,
@@ -1777,27 +1913,189 @@ class ControllerNode:
                 "sample_cells": self.calibration.summary(max_cells=16),
                 "source_cells": self.calibration.source_cells(max_cells=16),
             },
-            "others": {},
+            # replica placement: the factor, shards by live holder count
+            # and those below it
+            "replication": self._replication_info(),
+        }
+        if include_peers:
+            info["others"] = self.others
+        return info
+
+    def _replication_info(self):
+        """Replica placement for get_info and the debug bundle: the
+        configured factor, shards bucketed by live holder count, and the
+        shards a failover cannot help yet (fewer holders than the factor,
+        or than 2 under factor 0)."""
+        return {
+            "replica_factor": self.replica_factor,
+            "shards_by_holders": self._holder_counts(),
+            "under_replicated": sorted(
+                f for f, holders in self.files_map.items()
+                if len(holders) < (self.replica_factor or 2)
+            )[:64],
         }
 
     def rpc_loglevel(self, msg):
         args, _ = msg.get_args_kwargs()
-        for worker_id in list(self.worker_map):
-            fan = msg.copy()
-            fan.pop("token", None)
-            try:
-                self.socket.send_multipart(
-                    [worker_id.encode(), fan.to_json().encode()]
-                )
-            except zmq.ZMQError:
-                pass
+        self._fan_out_to_workers(msg)
+        self._fan_out_to_peers(msg)
         level = {"debug": logging.DEBUG, "info": logging.INFO}.get(
             args[0] if args else "info", logging.INFO
         )
         bqueryd_tpu_torch.logger.setLevel(level)
         reply = msg.copy()
         reply["payload"] = "OK"
-        self.reply_rpc_message(msg["token"], reply)
+        self.reply_rpc_message(msg.get("token"), reply)
+
+    # -- peers and the admin verbs -------------------------------------------
+    def handle_peer(self, msg):
+        addr = msg.get("from")
+        if addr and addr != self.address:
+            info = msg.get_from_binary("info", {})
+            info["last_seen"] = time.time()
+            self.others[addr] = info
+
+    def _fan_out_to_workers(self, msg):
+        for worker_id in list(self.worker_map):
+            fan = msg.copy()
+            fan.pop("token", None)
+            try:
+                self.socket.send_multipart(
+                    [worker_id.encode(), fan.to_json().encode()])
+            except zmq.ZMQError:
+                pass
+
+    def _fan_out_to_peers(self, msg):
+        if msg.get("_relayed"):
+            return  # relayed once, never again
+        for addr in list(self.others):
+            fan = msg.copy()
+            fan.pop("token", None)
+            fan["_relayed"] = True
+            try:
+                self.socket.send_multipart(
+                    [addr.encode(), fan.to_json().encode()])
+            except zmq.ZMQError:
+                pass
+
+    def _reply_ok(self, msg):
+        reply = msg.copy()
+        reply["payload"] = "OK"
+        self.reply_rpc_message(msg.get("token"), reply)
+
+    def rpc_kill(self, msg):
+        """Stop this controller."""
+        self._reply_ok(msg)
+        self.running = False
+
+    def rpc_killworkers(self, msg):
+        """Stop every registered worker."""
+        self._fan_out_to_workers(Message({"payload": "kill"}))
+        self._reply_ok(msg)
+
+    def rpc_killall(self, msg):
+        """Stop every worker, every peer controller (relayed once) and this
+        controller."""
+        fan = msg.copy()
+        fan.pop("token", None)  # the client is answered below, once
+        self.rpc_killworkers(fan)
+        if not msg.get("_relayed"):
+            for addr in list(self.others):
+                relay = RPCMessage({"payload": "killall", "_relayed": True})
+                try:
+                    self.socket.send_multipart(
+                        [addr.encode(), relay.to_json().encode()])
+                except zmq.ZMQError:
+                    pass
+        self._reply_ok(msg)
+        self.running = False
+
+    def rpc_sleep(self, msg):
+        """``sleep(seconds)`` on one worker, answered when it wakes;
+        ``sleep([s1, s2, ...])`` scatters one sleep per entry and answers
+        at once."""
+        args, kwargs = msg.get_args_kwargs()
+        if args and isinstance(args[0], (list, tuple)):
+            for duration in args[0]:
+                scatter = CalcMessage({"payload": "sleep"})
+                scatter.set_args_kwargs([duration], {})
+                self.worker_out_messages[None].append(scatter)
+            self._reply_ok(msg)
+            return
+        calc = CalcMessage({"payload": "sleep", "token": msg["token"]})
+        calc.set_args_kwargs(args, kwargs)
+        self.worker_out_messages[None].append(calc)
+
+    def rpc_readfile(self, msg):
+        """The bytes of a file inside a worker's data_dir."""
+        calc = CalcMessage(dict(msg))
+        calc["payload"] = "readfile"
+        self.worker_out_messages[None].append(calc)
+
+    def rpc_execute_code(self, msg):
+        """Run ``function=module.fn`` on a worker (where the worker allows
+        it); answered with its result under ``wait=True``, else at once."""
+        args, kwargs = msg.get_args_kwargs()
+        if "function" not in kwargs and not msg.get("function"):
+            raise ValueError("execute_code requires function= kwarg")
+        wait = kwargs.pop("wait", False)
+        calc = CalcMessage(dict(msg))
+        calc["payload"] = "execute_code"
+        calc.set_args_kwargs(args, kwargs)
+        if not wait:
+            calc.pop("token", None)
+            self.worker_out_messages[None].append(calc)
+            self._reply_ok(msg)
+        else:
+            self.worker_out_messages[None].append(calc)
+
+    def rpc_download(self, msg):
+        """Register a download ticket (:func:`download.setup_download`)."""
+        from bqueryd_tpu_torch.download import setup_download
+
+        setup_download(self, msg)
+
+    #: download tickets whose shard names are remembered for invalidation
+    TICKET_MEMORY = 256
+
+    def note_ticket(self, ticket, shard_names):
+        """Remember the shards a download ticket activates."""
+        self._ticket_files[ticket] = list(shard_names)
+        while len(self._ticket_files) > self.TICKET_MEMORY:
+            self._ticket_files.pop(next(iter(self._ticket_files)))
+
+    def _ticket_activated(self, ticket):
+        """A mover swapped a ticket's shards into its serving dir: the
+        shards may hold other data under the same names, so their
+        advertised stats are dropped (no plan-time pruning on old bounds
+        until the workers advertise new ones) and every rollup over them
+        goes stale (rebuilt before it serves again).  A ticket this
+        controller did not register (a peer's) invalidates every shard.
+        Each mover of a ticket reports it, so each node's activation
+        invalidates again."""
+        names = self._ticket_files.get(ticket)
+        if names is None:
+            names = sorted(set(self.files_map) | set(self.shard_stats))
+        for name in names:
+            self.shard_stats.pop(name, None)
+            self.serving.note_append(name)
+        self.flight.record("ticket_activated", ticket=ticket,
+                           shards=len(names))
+
+    def release_ticket_waiters(self, ticket, error=None):
+        """Answer the client waiting on ``ticket`` (``wait=True``): "DONE",
+        or the ticket's error."""
+        segment = self.rpc_segments.pop(f"ticket_{ticket}", None)
+        if segment is None:
+            return
+        if error:
+            reply = ErrorMessage(segment["msg"])
+            reply["payload"] = f"download ticket {ticket} failed: {error}"
+        else:
+            reply = segment["msg"].copy()
+            reply["payload"] = "DONE"
+        reply["ticket"] = ticket
+        self.reply_rpc_message(segment["client_token"], reply)
 
     def rpc_groupby(self, msg):
         """Compile the query to a logical plan and queue one CalcMessage

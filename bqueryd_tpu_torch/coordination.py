@@ -1,8 +1,9 @@
-"""Coordination store: cluster membership.
+"""Coordination store: cluster membership, download tickets and locks.
 
-The port's copy of the part of ``bqueryd_tpu/coordination.py`` that the
-nodes use.  Controllers register their addresses in a string set; workers
-and clients read it to find them.  Three backends behind one small
+The port's copy of ``bqueryd_tpu/coordination.py``.  Controllers register
+their addresses in a string set; workers and clients read it to find
+them.  A download is a ticket, one string hash per ticket, its slots
+claimed by downloaders with TTL locks.  Three backends behind one small
 interface, chosen by URL:
 
 * ``redis://...`` — a Redis server through redis-py, imported only when
@@ -12,35 +13,85 @@ interface, chosen by URL:
   the port is not the reference package's store of the same name;
 * ``file:///path`` — one JSON file per key under a directory, every
   mutation under an ``fcntl`` lock: multi-process clusters on one host.
-  Both packages read and write the same files.
+  Both packages read and write the same files, so a ticket registered by
+  one package's controller is claimed by the other's downloader.
 
-Only what the nodes need: string sets and key scans.  The reference's
-hashes and TTL locks serve parts of its controller that are not ported.
+The operations: string sets, string hashes, key scans, deletes and TTL
+locks (:class:`StoreLock`, or redis-py's lock behind
+:class:`_RedisLockAdapter`).  All values are ``str``.
 
 :func:`chaos_store` wraps a store with the ``coordination.store`` fault
 site (:class:`ChaosStore`), so that a fault plan can partition one node
-from the store while its sockets stay up.
+from the store, its locks included, while its sockets stay up.
 """
 
 import fnmatch
 import json
 import os
 import threading
+import time
 
-__all__ = ["coordination_store", "CoordinationStore", "ChaosStore",
-           "StorePartitioned", "chaos_store"]
+__all__ = [
+    "coordination_store", "chaos_store", "CoordinationStore", "ChaosStore",
+    "StoreLock", "StorePartitioned",
+]
 
 
 class StorePartitioned(OSError):
-    """The store is unreachable from this node: a ``partition`` fault of
-    the ``coordination.store`` site (:class:`ChaosStore`)."""
+    """The coordination store is unreachable (injected by the chaos
+    ``coordination.store`` site's ``partition`` action — the shape a real
+    Redis ConnectionError takes).  Callers already treat store access as
+    fallible: heartbeat ticks skip, loops log and continue."""
+
+
+class StoreLock:
+    """A named lock with a TTL, mirroring redis-py's ``Lock`` surface
+    (``acquire(blocking=False)`` / ``release()``) used at reference
+    bqueryd/worker.py:400-416.  Expired locks are claimable by others."""
+
+    def __init__(self, store, name, ttl):
+        self.store = store
+        self.name = name
+        self.ttl = ttl
+        self.token = os.urandom(8).hex()
+
+    def acquire(self, blocking=True, timeout=None):
+        deadline = None if timeout is None else time.time() + timeout
+        while True:
+            if self.store._lock_acquire(self.name, self.token, self.ttl):
+                return True
+            if not blocking:
+                return False
+            if deadline is not None and time.time() > deadline:
+                return False
+            time.sleep(0.05)
+
+    def release(self):
+        self.store._lock_release(self.name, self.token)
+
+    def extend(self, additional_time):
+        """Push the expiry ``additional_time`` seconds past now; long-running
+        holders (a blob fetch outlasting the claim TTL) call this from their
+        progress path so the claim can't expire mid-download and be re-claimed
+        into a duplicate concurrent fetch."""
+        return self.store._lock_acquire(
+            self.name, self.token, additional_time
+        )
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
 
 
 class CoordinationStore:
-    """Abstract store; see the module docstring for the operation set."""
+    """Abstract store; see module docstring for the operation set."""
 
     url = None
 
+    # sets
     def sadd(self, key, member):
         raise NotImplementedError
 
@@ -50,7 +101,37 @@ class CoordinationStore:
     def smembers(self, key):
         raise NotImplementedError
 
+    # hashes
+    def hset(self, key, field, value):
+        raise NotImplementedError
+
+    def hget(self, key, field):
+        raise NotImplementedError
+
+    def hgetall(self, key):
+        raise NotImplementedError
+
+    def hdel(self, key, *fields):
+        raise NotImplementedError
+
+    # keys
     def keys(self, pattern="*"):
+        raise NotImplementedError
+
+    def delete(self, *keys):
+        raise NotImplementedError
+
+    def flushdb(self):
+        raise NotImplementedError
+
+    # locks
+    def lock(self, name, ttl):
+        return StoreLock(self, name, ttl)
+
+    def _lock_acquire(self, name, token, ttl):
+        raise NotImplementedError
+
+    def _lock_release(self, name, token):
         raise NotImplementedError
 
 
@@ -62,6 +143,8 @@ class _MemState:
     def __init__(self):
         self.lock = threading.RLock()
         self.sets = {}
+        self.hashes = {}
+        self.locks = {}  # name -> (token, expiry)
 
 
 _MEM_REGISTRY = {}
@@ -86,10 +169,62 @@ class MemoryStore(CoordinationStore):
         with self._state.lock:
             return set(self._state.sets.get(key, set()))
 
-    def keys(self, pattern="*"):
+    def hset(self, key, field, value):
         with self._state.lock:
-            return [k for k in self._state.sets
-                    if fnmatch.fnmatchcase(k, pattern)]
+            self._state.hashes.setdefault(key, {})[str(field)] = str(value)
+
+    def hget(self, key, field):
+        with self._state.lock:
+            return self._state.hashes.get(key, {}).get(str(field))
+
+    def hgetall(self, key):
+        with self._state.lock:
+            return dict(self._state.hashes.get(key, {}))
+
+    def hdel(self, key, *fields):
+        with self._state.lock:
+            h = self._state.hashes.get(key, {})
+            for f in fields:
+                h.pop(str(f), None)
+            if not h:
+                self._state.hashes.pop(key, None)
+
+    def keys(self, pattern="*"):
+        now = time.time()
+        with self._state.lock:
+            live_locks = {
+                k for k, (_tok, exp) in self._state.locks.items() if exp > now
+            }
+            names = set(self._state.sets) | set(self._state.hashes) | live_locks
+            return [k for k in names if fnmatch.fnmatchcase(k, pattern)]
+
+    def delete(self, *keys):
+        with self._state.lock:
+            for k in keys:
+                self._state.sets.pop(k, None)
+                self._state.hashes.pop(k, None)
+                self._state.locks.pop(k, None)
+
+    def flushdb(self):
+        with self._state.lock:
+            self._state.sets.clear()
+            self._state.hashes.clear()
+            self._state.locks.clear()
+
+    def _lock_acquire(self, name, token, ttl):
+        now = time.time()
+        with self._state.lock:
+            held = self._state.locks.get(name)
+            if held is not None and held[1] > now and held[0] != token:
+                return False
+            self._state.locks[name] = (token, now + ttl)
+            return True
+
+    def _lock_release(self, name, token):
+        with self._state.lock:
+            held = self._state.locks.get(name)
+            if held is not None and held[0] == token:
+                self._state.locks.pop(name, None)
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +232,8 @@ class MemoryStore(CoordinationStore):
 # ---------------------------------------------------------------------------
 
 class FileStore(CoordinationStore):
-    """One JSON file per key under the root dir; every mutation runs under
-    an ``fcntl`` flock on ``<root>/.store.lock`` so concurrent processes
+    """One JSON file per key under the root dir; every mutation runs under an
+    ``fcntl`` flock on ``<root>/.store.lock`` so concurrent processes
     serialize.  Key names are encoded to stay filesystem-safe."""
 
     def __init__(self, url):
@@ -150,6 +285,11 @@ class FileStore(CoordinationStore):
             json.dump(obj, f)
         os.replace(tmp, path)
 
+    def _remove(self, key):
+        path = os.path.join(self.root, self._enc(key))
+        if os.path.exists(path):
+            os.remove(path)
+
     def sadd(self, key, member):
         with self._guard():
             obj = self._load(key) or {"type": "set", "v": []}
@@ -169,6 +309,34 @@ class FileStore(CoordinationStore):
             obj = self._load(key)
             return set(obj["v"]) if obj else set()
 
+    def hset(self, key, field, value):
+        with self._guard():
+            obj = self._load(key) or {"type": "hash", "v": {}}
+            obj["v"][str(field)] = str(value)
+            self._save(key, obj)
+
+    def hget(self, key, field):
+        with self._guard():
+            obj = self._load(key)
+            return obj["v"].get(str(field)) if obj else None
+
+    def hgetall(self, key):
+        with self._guard():
+            obj = self._load(key)
+            return dict(obj["v"]) if obj else {}
+
+    def hdel(self, key, *fields):
+        with self._guard():
+            obj = self._load(key)
+            if not obj:
+                return
+            for f in fields:
+                obj["v"].pop(str(f), None)
+            if obj["v"]:
+                self._save(key, obj)
+            else:
+                self._remove(key)
+
     def keys(self, pattern="*"):
         with self._guard():
             names = [
@@ -178,14 +346,47 @@ class FileStore(CoordinationStore):
             ]
             return [k for k in names if fnmatch.fnmatchcase(k, pattern)]
 
+    def delete(self, *keys):
+        with self._guard():
+            for k in keys:
+                self._remove(k)
+
+    def flushdb(self):
+        with self._guard():
+            for f in os.listdir(self.root):
+                if f.endswith(".json"):
+                    os.remove(os.path.join(self.root, f))
+
+    def _lock_acquire(self, name, token, ttl):
+        # Locks are ordinary keys (visible to keys(), clearable with delete()),
+        # matching how they would appear on a real Redis deployment.
+        now = time.time()
+        with self._guard():
+            obj = self._load(name)
+            if (
+                obj
+                and obj.get("type") == "lock"
+                and obj["v"].get("expiry", 0) > now
+                and obj["v"].get("token") != token
+            ):
+                return False
+            self._save(name, {"type": "lock", "v": {"token": token, "expiry": now + ttl}})
+            return True
+
+    def _lock_release(self, name, token):
+        with self._guard():
+            obj = self._load(name)
+            if obj and obj.get("type") == "lock" and obj["v"].get("token") == token:
+                self._remove(name)
+
 
 # ---------------------------------------------------------------------------
-# redis:// — a Redis server (redis-py imported on use)
+# redis:// — real Redis (gated on redis-py being installed)
 # ---------------------------------------------------------------------------
 
 class RedisStore(CoordinationStore):
     def __init__(self, url):
-        import redis
+        import redis  # gated import: optional dependency
 
         self.url = url
         self._r = redis.from_url(url, decode_responses=True)
@@ -199,13 +400,83 @@ class RedisStore(CoordinationStore):
     def smembers(self, key):
         return set(self._r.smembers(key))
 
+    def hset(self, key, field, value):
+        self._r.hset(key, field, value)
+
+    def hget(self, key, field):
+        return self._r.hget(key, field)
+
+    def hgetall(self, key):
+        return self._r.hgetall(key)
+
+    def hdel(self, key, *fields):
+        if fields:
+            self._r.hdel(key, *fields)
+
     def keys(self, pattern="*"):
         return list(self._r.keys(pattern))
 
+    def delete(self, *keys):
+        if keys:
+            self._r.delete(*keys)
+
+    def flushdb(self):
+        self._r.flushdb()
+
+    def lock(self, name, ttl):
+        # thread_local=False: the claim is acquired on the event-loop thread
+        # but released (and extended) by the download-pool thread; redis-py's
+        # default thread-local token would make that cross-thread release
+        # silently fail and pin the lock for its full TTL
+        return _RedisLockAdapter(
+            self._r.lock(name, timeout=ttl, thread_local=False)
+        )
+
+
+class _RedisLockAdapter:
+    """Presents redis-py's Lock with the StoreLock surface so code written
+    against mem:///file:// behaves identically on redis://: ``acquire``'s
+    ``timeout`` means overall blocking time (redis-py calls it
+    ``blocking_timeout``), and releasing an expired lock is a silent no-op
+    (redis-py raises LockError; the reference had to catch it explicitly at
+    reference bqueryd/worker.py:407-411)."""
+
+    def __init__(self, redis_lock):
+        self._lock = redis_lock
+
+    def acquire(self, blocking=True, timeout=None):
+        return self._lock.acquire(blocking=blocking, blocking_timeout=timeout)
+
+    def release(self):
+        import redis.exceptions
+
+        try:
+            self._lock.release()
+        except redis.exceptions.LockError:
+            pass
+
+    def extend(self, additional_time):
+        import redis.exceptions
+
+        try:
+            # replace_ttl: expiry becomes now+additional_time (StoreLock
+            # semantics), not a cumulative add
+            return self._lock.extend(additional_time, replace_ttl=True)
+        except redis.exceptions.LockError:
+            return False
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
 
 def coordination_store(url):
-    """The backend for ``url``; a store instance passes through unchanged
-    (tests inject doubles)."""
+    """Construct the right backend for ``url``.  Accepts an existing store
+    instance unchanged so tests can inject doubles (the reference's
+    subclass-level seam strategy, SURVEY.md §4)."""
     if isinstance(url, (CoordinationStore, ChaosStore)):
         return url
     if url.startswith("mem://"):
@@ -218,22 +489,25 @@ def coordination_store(url):
 
 
 # ---------------------------------------------------------------------------
-# chaos seam — the coordination.store fault site
+# chaos seam — coordination.store injection site
 # ---------------------------------------------------------------------------
 
 class ChaosStore:
-    """A delegating wrapper that fires the ``coordination.store`` fault
-    site before every operation, tagged with this node's id, so that a
-    fault plan can partition ONE node from the store while its zmq sockets
-    stay up.  The ``partition`` action raises :class:`StorePartitioned`;
-    disarmed, each operation pays one None check in ``chaos.fire``.
+    """Delegating wrapper that fires the ``coordination.store`` chaos site
+    before every operation, tagged with this node's id so a fault plan can
+    partition ONE worker from the store while its zmq sockets stay up (the
+    Redis-partition scenario).  The ``partition`` action raises
+    :class:`StorePartitioned`; disarmed, each op pays one None check in
+    ``chaos.fire``.
 
-    Not a :class:`CoordinationStore` subclass: the base class defines every
-    operation as a stub, which would shadow the ``__getattr__``
-    delegation.  The port's stores have no locks, so there is no lock
-    proxy."""
+    Deliberately NOT a :class:`CoordinationStore` subclass: the base class
+    defines every operation (as ``NotImplementedError`` stubs), which would
+    shadow the ``__getattr__`` delegation below."""
 
-    _OPS = ("sadd", "srem", "smembers", "keys")
+    _OPS = (
+        "sadd", "srem", "smembers", "hset", "hget", "hgetall", "hdel",
+        "keys", "delete", "flushdb", "lock",
+    )
 
     def __init__(self, inner, node_id=None):
         self._inner = inner
@@ -245,7 +519,9 @@ class ChaosStore:
 
         if not chaos.enabled():
             return
-        fault = chaos.fire("coordination.store", op=op, node=self._node_id)
+        fault = chaos.fire(
+            "coordination.store", op=op, node=self._node_id
+        )
         if fault is not None and fault.action == "partition":
             raise StorePartitioned(
                 f"chaos: coordination store partitioned from "
@@ -253,23 +529,64 @@ class ChaosStore:
             )
 
     def __getattr__(self, name):
-        # only store operations are guarded; anything else passes through
+        # only store OPERATIONS are guarded; anything else (url, private
+        # helpers a backend exposes) passes straight through
         attr = getattr(self._inner, name)
         if name not in self._OPS:
             return attr
 
         def guarded(*args, **kwargs):
             self._guarded(name)
-            return attr(*args, **kwargs)
+            result = attr(*args, **kwargs)
+            if name == "lock":
+                # the factory hands back a StoreLock bound to the INNER
+                # store — wrap it so acquire/extend/release fail during a
+                # partition window too (a real Redis partition kills the
+                # lock operations, not just the factory call)
+                result = _ChaosLock(result, self._guarded)
+            return result
 
         guarded.__name__ = name
         return guarded
 
 
+class _ChaosLock:
+    """StoreLock proxy handed out by :class:`ChaosStore`: every lock
+    operation re-fires the ``coordination.store`` site (op ``lock``) so a
+    partitioned node loses its in-flight locks the way a real partition
+    takes them — mid-acquire, mid-extend, mid-release."""
+
+    def __init__(self, inner, guard):
+        self._inner = inner
+        self._guard = guard
+
+    def acquire(self, *args, **kwargs):
+        self._guard("lock")
+        return self._inner.acquire(*args, **kwargs)
+
+    def release(self):
+        self._guard("lock")
+        return self._inner.release()
+
+    def extend(self, additional_time):
+        self._guard("lock")
+        return self._inner.extend(additional_time)
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
 def chaos_store(store, node_id=None):
-    """``store`` wrapped with the ``coordination.store`` fault site.  Nodes
-    wrap unconditionally: disarmed, the cost is one None check per store
-    operation, and those run at heartbeat cadence."""
+    """Wrap ``store`` with the ``coordination.store`` injection seam.
+    Nodes wrap unconditionally — the disarmed cost is one None check per
+    store op, and store ops run at heartbeat cadence, not query cadence."""
     if isinstance(store, ChaosStore):
         return store
     return ChaosStore(store, node_id=node_id)

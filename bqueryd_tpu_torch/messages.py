@@ -155,6 +155,14 @@ class StopMessage(Message):
     msg_type = "stop"
 
 
+class TicketDoneMessage(Message):
+    """A downloader's word that a download ticket finished (``ticket``),
+    or failed (``error``): the controller answers the clients waiting on
+    it."""
+
+    msg_type = "ticketdone"
+
+
 MSG_MAPPING = {
     "calc": CalcMessage,
     "rpc": RPCMessage,
@@ -162,6 +170,7 @@ MSG_MAPPING = {
     "worker_register": WorkerRegisterMessage,
     "busy": BusyMessage,
     "done": DoneMessage,
+    "ticketdone": TicketDoneMessage,
     "stop": StopMessage,
     None: Message,
 }

@@ -20,7 +20,12 @@ attempt, raises :class:`RPCBusyError`.  ``last_call_answer_source`` and
 ``last_call_subsumed_from`` say how the controller produced the last
 answer; ``rpc.metrics()`` returns its Prometheus text and
 ``rpc.debug_bundle()`` its debug bundle, ``rpc.health()`` the controller's
-per-worker health statuses.  A failed query raises :class:`RPCError`; a
+per-worker health statuses.  ``rpc.download(filenames=[...], bucket=...,
+scheme=..., wait=True)`` distributes shards; ``downloads()``,
+``download_progress()``, ``get_download_data()`` and
+``delete_download(ticket)`` read and cancel tickets straight from the
+store.  ``legacy_merge=True`` restores the reference's sum-of-shard-means
+for ``groupby``.  A failed query raises :class:`RPCError`; a
 structured failure carries ``error_class`` (``"DispatchExhausted"`` when
 every dispatch attempt of a shard failed) and ``attempts``, the worker and
 reason of each failed attempt.
@@ -37,6 +42,7 @@ import pickle
 import random
 import time
 
+import numpy as np
 import zmq
 
 import bqueryd_tpu_torch
@@ -121,6 +127,7 @@ class RPC:
         loglevel=logging.INFO,
         retries=3,
         client_id=None,
+        legacy_merge=False,
     ):
         bqueryd_tpu_torch.configure_logging(loglevel)
         self.logger = bqueryd_tpu_torch.logger.getChild("rpc")
@@ -131,6 +138,9 @@ class RPC:
         #: the controller's per-client quota; unset, each socket identity
         #: is its own bucket
         self.client_id = client_id
+        #: the reference's sum-of-shard-means quirk: each shard finalized
+        #: alone, then every measure re-merged with "sum"
+        self.legacy_merge = legacy_merge
         self.last_call_duration = None
         #: attempts the most recent call consumed (1 = first try answered)
         self.last_call_attempts = None
@@ -212,6 +222,9 @@ class RPC:
 
     def _rpc(self, name, args, kwargs):
         started = time.perf_counter()
+        if name == "groupby" and self.legacy_merge:
+            # the quirk needs per-shard payloads: no batched dispatch
+            kwargs.setdefault("batch", False)
         # deadline, priority and client_id ride the envelope, not the
         # call params: the worker must never see them as query arguments
         deadline = kwargs.pop("deadline", None)
@@ -353,6 +366,88 @@ class RPC:
         self.last_call_merge_modes = envelope.get("merge_modes")
         self.last_call_answer_source = envelope.get("answer_source")
         self.last_call_subsumed_from = envelope.get("subsumed_from")
-        result = hostmerge.finalize_table(hostmerge.merge_payloads(payloads))
+        if self.legacy_merge:
+            result = self._legacy_merge_tables(payloads)
+        else:
+            result = hostmerge.finalize_table(
+                hostmerge.merge_payloads(payloads))
         self.last_call_client_merge_s = time.perf_counter() - merge_clock
         return result
+
+    @staticmethod
+    def _legacy_merge_tables(payloads):
+        """The reference's quirk mode without pandas: each shard's payload
+        finalized alone, the tables stacked, then every measure summed per
+        key (so a mean is the sum of the shards' means), keys in ascending
+        order.  Returns ``(order, {column: np.ndarray})``."""
+        tables = []
+        key_cols = None
+        for payload in payloads:
+            if payload.get("kind") == "empty":
+                continue
+            key_cols = payload.get("key_cols", key_cols)
+            tables.append(hostmerge.finalize_table(
+                hostmerge.merge_payloads([payload])))
+        if not tables:
+            return [], {}
+        order = tables[0][0]
+        stacked = {c: np.concatenate([t[1][c] for t in tables])
+                   for c in order}
+        if key_cols is None:
+            return order, stacked
+        codes = np.stack([np.unique(stacked[c], return_inverse=True)[1]
+                          .reshape(-1) for c in key_cols], axis=1)
+        groups, first, group_of = np.unique(
+            codes, axis=0, return_index=True, return_inverse=True)
+        group_of = group_of.reshape(-1)
+        out = {c: stacked[c][first] for c in key_cols}
+        for c in order:
+            if c in key_cols:
+                continue
+            values = stacked[c]
+            acc = np.zeros(len(groups), dtype=np.result_type(values.dtype,
+                                                             np.int64))
+            np.add.at(acc, group_of, values)
+            out[c] = acc
+        return order, out
+
+    # -- download helpers (client-local, straight to the store) ------------
+    def get_download_data(self):
+        """Raw ticket hashes keyed by their full store key."""
+        data = {}
+        prefix = bqueryd_tpu_torch.REDIS_TICKET_KEY_PREFIX
+        for key in self.store.keys(prefix + "*"):
+            data[key] = self.store.hgetall(key)
+        return data
+
+    def downloads(self):
+        """In-flight download tickets as ``(ticket, "done/total")``
+        tuples; per-slot detail: :meth:`download_progress`."""
+        out = []
+        prefix = bqueryd_tpu_torch.REDIS_TICKET_KEY_PREFIX
+        for key, entries in self.get_download_data().items():
+            done = sum(1 for v in entries.values() if v.endswith("_DONE"))
+            out.append((key[len(prefix):], f"{done}/{len(entries)}"))
+        return out
+
+    def download_progress(self):
+        """Per-slot download states: ``[(ticket, {(node, fileurl):
+        state})]``; ERROR states are visible here."""
+        out = []
+        prefix = bqueryd_tpu_torch.REDIS_TICKET_KEY_PREFIX
+        for key, entries in self.get_download_data().items():
+            progress = {}
+            for slot, value in entries.items():
+                node, _, fileurl = slot.partition("_")
+                _, _, state = value.rpartition("_")
+                progress[(node, fileurl)] = state
+            out.append((key[len(prefix):], progress))
+        return out
+
+    def delete_download(self, ticket):
+        """Cancel a ticket by deleting its slots: a downloader aborts its
+        fetch at the next chunk.  True when the ticket existed."""
+        key = bqueryd_tpu_torch.REDIS_TICKET_KEY_PREFIX + ticket
+        existed = bool(self.store.hgetall(key))
+        self.store.delete(key)
+        return existed

@@ -1,5 +1,6 @@
 """Chunk codec front-end: native fast path with pure-Python fallbacks (a
-copy of ``bqueryd_tpu/storage/codec.py`` without the legacy bcolz filters).
+copy of ``bqueryd_tpu/storage/codec.py``; of the legacy bcolz filters only
+the inverses the bcolz v1 reader needs).
 
 Codec ids are part of the on-disk format: 0=raw, 1=shuffle+LZ4, 2=shuffle+zlib.
 The fallback implements raw and zlib natively and can *decode* (not encode) LZ4
@@ -38,6 +39,25 @@ def _unshuffle(payload: bytes, elem_size: int) -> bytes:
     body = np.frombuffer(payload, dtype=np.uint8, count=nelems * elem_size)
     out = body.reshape(elem_size, nelems).T.tobytes()
     return out + payload[nelems * elem_size:]
+
+
+def _bitunshuffle(payload: bytes, elem_size: int) -> bytes:
+    """Undo c-blosc's bit-shuffle filter: the element count is truncated
+    to a multiple of 8, each byte-of-element's 8 bit-planes are packed
+    across those elements, and the trailing bytes are copied through."""
+    if elem_size <= 0:
+        return payload
+    nelems = (len(payload) // elem_size) & ~7
+    cut = nelems * elem_size
+    if nelems == 0:
+        return payload
+    planes = np.unpackbits(
+        np.frombuffer(payload, dtype=np.uint8, count=cut),
+        bitorder="little",
+    ).reshape(elem_size, 8, nelems)
+    bits = planes.transpose(2, 0, 1)  # (element, byte-of-elem, bit)
+    out = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    return out + payload[cut:]
 
 
 def _lz4_decompress_py(src: bytes, usize: int) -> bytes:

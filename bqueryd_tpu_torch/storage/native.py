@@ -1,9 +1,10 @@
 """ctypes bindings for libtpucolz (native codec + column decoder).
 
 A copy of ``bqueryd_tpu/storage/native.py`` reduced to what the port
-calls: chunk encode/decode, the int64 factorizer and the striped host
+calls: chunk encode/decode, the int64 factorizer, the striped host
 groupby kernels of the host route (:func:`groupby_i64`,
-:func:`groupby_f64`, :func:`groupby_minmax`).  The library is built from the repository's ``native/`` sources into
+:func:`groupby_f64`, :func:`groupby_minmax`) and the Blosc v1 chunk
+decoder of the bcolz v1 import (:func:`blosc_decode`).  The library is built from the repository's ``native/`` sources into
 ``native/build/libtpucolz.so`` on first use and stays optional: every entry
 point has a pure NumPy/zlib fallback in :mod:`bqueryd_tpu_torch.storage.codec`.
 """
@@ -21,6 +22,7 @@ _lib = None
 _searched = False
 _has_groupby = False
 _has_groupby_minmax = False
+_has_blosc = False
 
 
 def _candidate_paths():
@@ -102,6 +104,7 @@ def get_lib():
             ctypes.c_size_t,
         ]
         _bind_groupby(lib)
+        _bind_blosc(lib)
         _lib = lib
         break
     return _lib
@@ -148,8 +151,63 @@ def _bind_groupby(lib):
         _has_groupby = False
 
 
+def _bind_blosc(lib):
+    """Declare the Blosc v1 chunk decoder (legacy bcolz ``.blp`` files),
+    probed on its own: an older library lacks it, and the bcolz v1 reader
+    then takes its Python decoder."""
+    global _has_blosc
+    try:
+        lib.tpc_blosc_info.restype = ctypes.c_int32
+        lib.tpc_blosc_info.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.tpc_blosc_decode.restype = ctypes.c_size_t
+        lib.tpc_blosc_decode.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.c_void_p,
+            ctypes.c_size_t,
+        ]
+        _has_blosc = True
+    except AttributeError:
+        _has_blosc = False
+
+
 def available():
     return get_lib() is not None
+
+
+def blosc_available():
+    """True when the loaded library carries the Blosc v1 decoder."""
+    return get_lib() is not None and _has_blosc
+
+
+def blosc_info(buf: bytes):
+    """Parse a Blosc v1 chunk header: ``(nbytes, typesize, flags)``."""
+    lib = get_lib()
+    nbytes = ctypes.c_int64()
+    typesize = ctypes.c_int32()
+    flags = ctypes.c_int32()
+    if not lib.tpc_blosc_info(
+        buf, len(buf),
+        ctypes.byref(nbytes), ctypes.byref(typesize), ctypes.byref(flags),
+    ):
+        raise ValueError("not a Blosc v1 chunk")
+    return nbytes.value, typesize.value, flags.value
+
+
+def blosc_decode(buf: bytes, usize: int) -> bytes:
+    """Decode one Blosc v1 chunk of ``usize`` bytes."""
+    lib = get_lib()
+    dst = ctypes.create_string_buffer(usize)
+    got = lib.tpc_blosc_decode(buf, len(buf), dst, usize)
+    if got != usize:
+        raise ValueError("Blosc chunk decode failed (corrupt or unsupported)")
+    return dst.raw
 
 
 def encode(payload: bytes, elem_size: int, codec: int) -> bytes:

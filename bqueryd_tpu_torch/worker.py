@@ -54,6 +54,13 @@ the health signals the controller's scorer reads: ``work_errors`` and the
 snapshot of the ``bqueryd_tpu_worker_groupby_seconds`` histogram
 (``metrics``), observed once per groupby CalcMessage.
 
+Every role answers ``sleep`` and ``readfile`` (a file inside its data
+dir); the calc worker also answers ``execute_code`` when
+``BQUERYD_TPU_ENABLE_EXECUTE_CODE=1``.  :class:`DownloaderNode` and
+:class:`MoveBcolzNode` are the distribution pipeline's roles
+(:mod:`bqueryd_tpu_torch.download`): they fetch a ticket's blobs on a
+thread pool and activate them, and resolve no device.
+
 Resilience (:mod:`bqueryd_tpu_torch.chaos`): a work item that raises a
 :class:`~bqueryd_tpu_torch.chaos.TransientError` replies an ErrorMessage
 flagged ``transient``, which the controller fails over to another holder.
@@ -68,6 +75,7 @@ when that was not enough.
 """
 
 import contextlib
+import importlib
 import logging
 import os
 import signal
@@ -86,6 +94,7 @@ from bqueryd_tpu_torch.messages import (
     DoneMessage,
     ErrorMessage,
     StopMessage,
+    TicketDoneMessage,
     WorkerRegisterMessage,
     msg_factory,
 )
@@ -98,6 +107,7 @@ from bqueryd_tpu_torch.utils.tracing import PhaseTimer
 DEFAULT_HEARTBEAT_INTERVAL = 20.0   # WRM re-broadcast / rescan period
 DEFAULT_POLL_TIMEOUT = 1.0          # seconds per zmq poll tick
 DEFAULT_MEMORY_LIMIT_MB = 2048      # RSS past which the watchdog acts
+DOWNLOAD_DELAY = 5.0                # downloader ticket poll period
 SHARD_EXTENSIONS = (".bcolz", ".bcolzs")
 
 
@@ -808,7 +818,30 @@ class WorkerBase:
             return None
 
     def handle_work(self, msg):
+        """The verbs every role answers: ``readfile`` and ``sleep``."""
+        if msg.isa("readfile"):
+            return self._readfile(msg)
+        if msg.isa("sleep"):
+            args, _ = msg.get_args_kwargs()
+            duration = float(args[0]) if args else 0.0
+            time.sleep(min(duration, 60.0))
+            reply = msg.copy()
+            reply.add_as_binary("result", f"slept {duration} {self.worker_id}")
+            return reply
         raise ValueError(f"unhandled message payload {msg.get('payload')!r}")
+
+    def _readfile(self, msg):
+        """The bytes of a file strictly inside ``data_dir``: a path that
+        resolves outside it raises."""
+        args, _ = msg.get_args_kwargs()
+        filename = args[0]
+        path = os.path.realpath(os.path.join(self.data_dir, filename))
+        if not path.startswith(os.path.realpath(self.data_dir) + os.sep):
+            raise ValueError(f"path {filename!r} escapes data_dir")
+        with open(path, "rb") as f:
+            reply = msg.copy()
+            reply["data"] = f.read()
+            return reply
 
 
 class WorkerNode(WorkerBase):
@@ -1286,6 +1319,8 @@ class WorkerNode(WorkerBase):
         return dag.plain_groupby_query(), dag, strategy
 
     def handle_work(self, msg):
+        if msg.isa("execute_code"):
+            return self.execute_code(msg)
         if msg.isa("append"):
             return self._append_rows(msg)
         if msg.isa("rollup"):
@@ -1539,3 +1574,169 @@ class WorkerNode(WorkerBase):
                                                 strategy=strategy)
         finally:
             self.executor.timer = None
+
+    def execute_code(self, msg):
+        """Import a dotted function path and call it: remote execution for
+        trusted clusters, off unless ``BQUERYD_TPU_ENABLE_EXECUTE_CODE=1``.
+        The function's arguments travel as the call's ``args=[...]`` and
+        ``kwargs={...}``, or as its other keywords."""
+        if os.environ.get("BQUERYD_TPU_ENABLE_EXECUTE_CODE") != "1":
+            raise PermissionError(
+                "execute_code disabled; set BQUERYD_TPU_ENABLE_EXECUTE_CODE=1"
+            )
+        args, kwargs = msg.get_args_kwargs()
+        function = msg.get("function") or kwargs.pop("function", None)
+        if not function:
+            raise ValueError("execute_code needs a function=module.path.fn")
+        call_args = kwargs.pop("args", None) or list(args)
+        call_kwargs = kwargs.pop("kwargs", None) or {}
+        # any other keywords are the function's own (direct-kwarg convention)
+        call_kwargs = {**kwargs, **call_kwargs}
+        module_name, _, fn_name = function.rpartition(".")
+        fn = getattr(importlib.import_module(module_name), fn_name)
+        result = fn(*call_args, **call_kwargs)
+        reply = msg.copy()
+        reply.add_as_binary("result", result)
+        return reply
+
+
+class DownloaderNode(WorkerBase):
+    """The ticket-driven blob downloader (the pipeline itself is
+    :mod:`bqueryd_tpu_torch.download`).
+
+    Fetches run on a small thread pool (``BQUERYD_TPU_DOWNLOAD_THREADS``,
+    3) so that a slow or hung blob stream never blocks the loop: ticket
+    polling, WRM heartbeats and cancellation stay live during long
+    downloads.  Pool threads never touch the zmq socket: the controller's
+    TicketDoneMessages go through a thread-safe outbox that the loop
+    drains.  The role resolves no device and loads no kernel."""
+
+    workertype = "download"
+
+    def __init__(self, *args, **kw):
+        download_threads = kw.pop("download_threads", None)
+        kw.setdefault("heartbeat_interval", DEFAULT_HEARTBEAT_INTERVAL)
+        super().__init__(*args, **kw)
+        self.download_interval = DOWNLOAD_DELAY
+        self._last_download_check = 0.0
+        if download_threads is None:
+            download_threads = int(
+                os.environ.get("BQUERYD_TPU_DOWNLOAD_THREADS", "3")
+            )
+        self.download_threads = max(1, download_threads)
+        self._download_pool = None
+        self.downloads_done = self.metrics.counter(
+            "bqueryd_tpu_downloads_total",
+            "download tickets completed by this node",
+        )
+        self.downloads_failed = self.metrics.counter(
+            "bqueryd_tpu_download_failures_total",
+            "download tickets failed terminally by this node",
+        )
+        import queue
+
+        self._outbox = queue.Queue()
+
+    @property
+    def download_pool(self):
+        if self._download_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._download_pool = ThreadPoolExecutor(
+                max_workers=self.download_threads,
+                thread_name_prefix=f"dl-{self.worker_id[:6]}",
+            )
+        return self._download_pool
+
+    def heartbeat(self):
+        super().heartbeat()
+        self._drain_outbox()
+        now = time.time()
+        if now - self._last_download_check >= self.download_interval:
+            self._last_download_check = now
+            try:
+                self.check_downloads()
+            except Exception:
+                self.logger.exception("error checking downloads")
+
+    def _drain_outbox(self):
+        """Send controller notifications queued by pool threads (zmq sockets
+        are single-thread-only, so only the event loop may send)."""
+        import queue
+
+        while True:
+            try:
+                msg = self._outbox.get_nowait()
+            except queue.Empty:
+                return
+            self.send_to_all(msg)
+
+    def stop(self):
+        if self._request_stop_only():
+            return  # outbox/socket teardown belongs to the loop thread
+        if self._download_pool is not None:
+            self._download_pool.shutdown(wait=False, cancel_futures=True)
+        self._drain_outbox()
+        super().stop()
+
+    def check_downloads(self):
+        from bqueryd_tpu_torch.download import check_downloads
+
+        check_downloads(self)
+
+    def run_download(self, ticket, fileurl, lock):
+        """Run one claimed download on the pool; the claim lock is held for
+        the download's lifetime and released by the pool thread."""
+
+        def job():
+            try:
+                self.download_file(ticket, fileurl, lock=lock)
+            except Exception as exc:
+                self.logger.exception("download %s failed", fileurl)
+                self.fail_ticket(ticket, fileurl, str(exc))
+            finally:
+                lock.release()
+
+        self.download_pool.submit(job)
+
+    def download_file(self, ticket, fileurl, lock=None):
+        from bqueryd_tpu_torch.download import download_file
+
+        download_file(self, ticket, fileurl, lock=lock)
+
+    def file_downloader_progress(self, ticket, fileurl, progress):
+        from bqueryd_tpu_torch.download import set_progress
+
+        set_progress(self.store, self.node_name, ticket, fileurl, progress)
+
+    def remove_ticket(self, ticket):
+        from bqueryd_tpu_torch.download import remove_ticket
+
+        remove_ticket(self, ticket)
+        self.downloads_done.inc()
+        self._outbox.put(TicketDoneMessage({"ticket": ticket}))
+
+    def fail_ticket(self, ticket, fileurl, error):
+        """Terminal download failure: poison the ticket (ERROR slot blocks
+        activation on every node) and tell controllers so waiting clients get
+        the error instead of the reference's false DONE."""
+        from bqueryd_tpu_torch.download import fail_ticket
+
+        fail_ticket(self, ticket, fileurl, error)
+        self.downloads_failed.inc()
+        self._outbox.put(
+            TicketDoneMessage({"ticket": ticket, "error": str(error)})
+        )
+
+
+class MoveBcolzNode(DownloaderNode):
+    """The second phase of the two-phase distribution commit: moves the
+    downloaded shards of a ticket into the serving dir only when every
+    slot on every node is DONE."""
+
+    workertype = "movebcolz"
+
+    def check_downloads(self):
+        from bqueryd_tpu_torch.download import check_moves
+
+        check_moves(self)

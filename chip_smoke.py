@@ -136,33 +136,52 @@
    and a third joining, a wedge), each under a fault plan, exact, with
    the launches each scenario implies per worker; one ``resilience`` line
    per scenario;
-13. runs the CLI: ``python -m bqueryd_tpu_torch.node controller`` and
-   ``... worker --device=cuda`` as processes, one checked query per config
-   (but the unpruned leg, whose environment the worker process does not
-   have), dag_join through ``RPC.query`` and an append to a small shard
-   of its own (the repeat query a delta refresh), both stopped by SIGTERM
-   and exiting 0;
-14. drives the per-shard engine path (``QueryEngine.execute_local`` per
+13. drives dataset distribution on a cluster of its own
+   (``run_distribution_path``): the reference's per-box layout (a
+   controller, a calc worker on cuda on an empty serving dir, a
+   downloader with three threads and a mover) and a LocalFS blob store
+   under ``build/``; the ten shards zipped and put, one ``download(
+   wait=True)`` ticket activating all ten (walls, bytes, ``downloads()``
+   seen, each shard's ``bqueryd.metadata``), sharded and zones over them
+   (1 cold + 3 warm, exact, one launch each, inputs captured for the
+   kernel rows), taxi_0 distributed again with data of another seed and
+   answered fresh, a missing blob's ticket raised with nothing activated,
+   taxi_0 written as a bcolz v1 ctable and imported by ``python -m
+   bqueryd_tpu_torch.node import`` (the native Blosc decoder, which the
+   library must carry) and single's query over it exact, then ``sleep``,
+   ``readfile``, ``info`` and ``killall``, every loop ending within 5 s;
+   one ``distribution`` line before the ``kernels`` line;
+14. runs the CLI: ``python -m bqueryd_tpu_torch.node controller``,
+   ``... worker --device=cuda``, ``... downloader`` and ``... movebcolz``
+   as processes, one checked query per config (but the unpruned leg,
+   whose environment the worker process does not have), dag_join through
+   ``RPC.query``, an append to a small shard of its own (the repeat query
+   a delta refresh) and the download of a zipped shard from a
+   ``BQUERYD_TPU_BLOB_DIR`` store, which the worker then answers; all
+   four stopped by SIGTERM and exiting 0;
+15. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
    (executor, cluster, DAG, append, concurrency, routing, calibration,
-   serving, resilience, engine) and read just after, and every
+   serving, resilience, distribution, engine) and read just after, and every
    kernel of each path must have launched there;
-15. breaks queries down into host phases and pipeline stage busy time
+16. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-16. holds every branch of each kernel against its plain PyTorch version at
+17. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
    the engine path's per-shard shapes, the DAG configs' per-shard shapes
    and the append leg's (the executor's and a delta refresh's tail view)
    and the first member of a swarm, zones and highcard bundle (its mask
-   folded into its codes), captured from their own runs, plus one shape
+   folded into its codes), the distribution leg's sharded and zones over
+   the downloaded shards and single over the imported one, captured from
+   their own runs, plus one shape
    per other branch (base "table" at G = 8192, hicard "global" past the
    cluster table),
    with ints bit-exact, float rows within rtol=2e-5, atol=1e-6*max, and
@@ -171,13 +190,13 @@
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-17. sweeps the base kernel's two branches over G (the crossover behind
+18. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``), beside ``index_add_``, at n = 1M and at
     the executor's n = 10,223,616, and the hicard cluster count C;
-18. times the fast path's torch bodies at the shapes its programs ran
+19. times the fast path's torch bodies at the shapes its programs ran
     (each top-k emission, checked against the sort route, each sketch
     grid, the whole program with its fetch);
-19. prints the sweeps, the fast path's program times, the device-health
+20. prints the sweeps, the fast path's program times, the device-health
     snapshot (the latch must have flipped only where the wedge leg forced
     it, no probe written off), the ``kernels`` JSON line, then the device
     JSON line last.
@@ -460,7 +479,7 @@ def log(msg):
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
-def make_dataset(data_dir, rows=ROWS, shards=SHARDS):
+def make_dataset(data_dir, rows=ROWS, shards=SHARDS, seed=SEED):
     """bench.py's generator (same RandomState stream, column order and
     ranges) written with the port's ctable from plain arrays.  pickup_ts
     comes from the same draws, sorted within each shard, so that its
@@ -468,7 +487,7 @@ def make_dataset(data_dir, rows=ROWS, shards=SHARDS):
     names, per-shard {column: array})."""
     from bqueryd_tpu_torch.storage.ctable import ctable
 
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     per = rows // shards
     names, parts = [], []
     for i in range(shards):
@@ -789,18 +808,18 @@ def run_executor_path(rpc, names, parts, data_dir, warm=3):
     return report
 
 
-def _wait(predicate, timeout, what):
+def _wait(predicate, timeout, what, interval=0.1):
     deadline = time.time() + timeout
     while not predicate():
         if time.time() > deadline:
             raise AssertionError(f"timed out after {timeout}s: {what}")
-        time.sleep(0.1)
+        time.sleep(interval)
 
 
 def _served(rpc, names):
-    """True once the cluster behind ``rpc`` advertises every shard."""
+    """True once the calc workers behind ``rpc`` advertise every shard."""
     workers = rpc.info()["workers"].values()
-    return set(names) <= {f for w in workers
+    return set(names) <= {f for w in workers if w.get("workertype") == "calc"
                           for f in w.get("data_files") or []}
 
 
@@ -2997,9 +3016,12 @@ class _Resilience:
         thread = threading.Thread(target=run, daemon=True)
         thread.start()
         try:
+            # polled every millisecond: a fault that fails at once is
+            # retried after a backoff of 50 ms or more, which must find
+            # the other holders free again, or it lands on ``label`` anew
             _wait(lambda: _flight_since(self.controller, seq, "dispatch",
                                         worker=target), 60,
-                  f"the dispatch to {label}")
+                  f"the dispatch to {label}", interval=0.001)
         finally:
             for wid in others:
                 info = self.controller.worker_map.get(wid)
@@ -3348,28 +3370,467 @@ def run_resilience_path(names, parts, data_dir, store_dir):
     return report
 
 
+#: the distribution leg: three download threads as the reference's
+#: supervisor layout runs three downloaders a box, a ticket poll of 0.5 s
+#: (the default is 5 s) so that the walls measure the pipeline, and the
+#: seed of taxi_0's replacement data
+DIST_THREADS = 3
+DIST_POLL_S = 0.5
+DIST_CONFIGS = ("sharded", "zones")
+DIST_KERNELS = (("onehot_rows_dot", "mma"), ("onehot_rows_dot", "table"))
+DIST_RESEED = 4242
+DIST_BUCKET = "bcolz"
+#: rows per block of the bcolz v1 writer's Blosc chunks
+V1_BLOCK = 1 << 16
+V1_CHUNKLEN = 1 << 16
+
+
+def _v1_blosclz(plane):
+    """A blosclz stream of one split stream (uint8 array) built with
+    numpy: a constant plane as one literal byte and one distance-1 match
+    (the format's run-length form), any other as literal runs of at most
+    32 bytes."""
+    n = len(plane)
+    if n >= 10 and (plane == plane[0]).all():
+        rest = n - 10  # the match copies n - 1 bytes: 3 + 6 + rest
+        return bytes([0, int(plane[0]), 7 << 5]) + b"\xff" * (rest // 255) \
+            + bytes([rest % 255, 0])
+    full = n // 32 * 32
+    runs = np.concatenate([np.full((full // 32, 1), 31, np.uint8),
+                           plane[:full].reshape(-1, 32)], axis=1).reshape(-1)
+    if n > full:
+        runs = np.concatenate([runs, [n - full - 1], plane[full:]])
+    return runs.astype(np.uint8).tobytes()
+
+
+def _v1_chunk(data, typesize, memcpy=False):
+    """One Blosc v1 chunk of ``data`` (bytes): memcpyed, or byte-shuffled
+    per block with each full block's ``typesize`` split streams (one for
+    the leftover block) blosclz-coded, each framed by its int32 size."""
+    import struct
+
+    nbytes = len(data)
+    if memcpy:
+        return struct.pack("<BBBBiii", 2, 1, 0x2, typesize, nbytes, nbytes,
+                           16 + nbytes) + data
+    raw = np.frombuffer(data, np.uint8)
+    blocksize = min(V1_BLOCK, nbytes)
+    nblocks = -(-nbytes // blocksize)
+    streams = []
+    for b in range(nblocks):
+        block = raw[b * blocksize:(b + 1) * blocksize]
+        full = len(block) == blocksize
+        nsplits = typesize if (full and 1 < typesize <= 16
+                               and len(block) // typesize >= 128) else 1
+        if typesize > 1:
+            nel = len(block) // typesize
+            block = np.concatenate([
+                block[:nel * typesize].reshape(nel, typesize).T.reshape(-1),
+                block[nel * typesize:]])
+        neblock = len(block) // nsplits
+        parts = []
+        for s in range(nsplits):
+            piece = block[s * neblock:(s + 1) * neblock]
+            comp = _v1_blosclz(piece)
+            parts.append(struct.pack("<i", len(comp)) + comp)
+        streams.append(b"".join(parts))
+    starts, pos = [], 16 + 4 * nblocks
+    for s in streams:
+        starts.append(pos)
+        pos += len(s)
+    flags = 0x1 if typesize > 1 else 0
+    header = struct.pack("<BBBBiii", 2, 1, flags, typesize, nbytes,
+                         blocksize, pos)
+    return (header + b"".join(struct.pack("<i", p) for p in starts)
+            + b"".join(streams))
+
+
+def write_v1_ctable(rootdir, cols, memcpy_col):
+    """``cols`` as a bcolz v1 ctable rootdir (``__attrs__``, ``__cols__``,
+    one carray per column with ``meta/sizes``, ``meta/storage`` and one
+    Blosc chunk per ``V1_CHUNKLEN`` rows, the last one a leftover);
+    ``memcpy_col`` is written memcpyed.  Returns the bytes written."""
+    os.makedirs(rootdir)
+    with open(os.path.join(rootdir, "__attrs__"), "w") as f:
+        json.dump({"origin": "chip_smoke"}, f)
+    with open(os.path.join(rootdir, "__cols__"), "w") as f:
+        json.dump({"names": list(cols)}, f)
+    written = 0
+    for name, values in cols.items():
+        values = np.ascontiguousarray(values)
+        root = os.path.join(rootdir, name)
+        os.makedirs(os.path.join(root, "meta"))
+        os.makedirs(os.path.join(root, "data"))
+        with open(os.path.join(root, "meta", "sizes"), "w") as f:
+            json.dump({"shape": [len(values)], "nbytes": values.nbytes,
+                       "cbytes": -1}, f)
+        with open(os.path.join(root, "meta", "storage"), "w") as f:
+            json.dump({"dtype": values.dtype.str, "chunklen": V1_CHUNKLEN,
+                       "cparams": {"clevel": 5, "shuffle": 1,
+                                   "cname": "blosclz"},
+                       "dflt": 0, "expectedlen": len(values)}, f)
+        nfull = len(values) // V1_CHUNKLEN
+        for i in range(nfull + 1):
+            piece = values[i * V1_CHUNKLEN:(i + 1) * V1_CHUNKLEN]
+            if not len(piece):
+                break
+            fname = f"__{i}.blp" if i < nfull else "__leftover.blp"
+            chunk = _v1_chunk(piece.tobytes(), values.dtype.itemsize,
+                              memcpy=name == memcpy_col)
+            with open(os.path.join(root, "data", fname), "wb") as f:
+                f.write(chunk)
+            written += len(chunk)
+    return written
+
+
+class _Distribution:
+    """The distribution leg's nodes: one controller, one calc worker on
+    cuda on an empty serving dir, one downloader (``DIST_THREADS``) and
+    one mover on that dir, as threads of this process."""
+
+    def __init__(self, store_dir, serving):
+        import logging
+
+        from bqueryd_tpu_torch.controller import ControllerNode
+        from bqueryd_tpu_torch.rpc import RPC
+        from bqueryd_tpu_torch.worker import (
+            DownloaderNode,
+            MoveBcolzNode,
+            WorkerNode,
+        )
+
+        quiet = logging.WARNING
+        self.url = f"file://{store_dir}"
+        common = dict(coordination_url=self.url, data_dir=serving,
+                      loglevel=quiet, heartbeat_interval=0.5,
+                      poll_timeout=0.1)
+        self.controller = ControllerNode(
+            coordination_url=self.url, loglevel=quiet, runfile_dir=store_dir,
+            heartbeat_interval=0.5)
+        self.calc = WorkerNode(**common)  # cuda
+        self.downloader = DownloaderNode(download_threads=DIST_THREADS,
+                                         **common)
+        self.mover = MoveBcolzNode(**common)
+        for node in (self.downloader, self.mover):
+            node.download_interval = DIST_POLL_S
+        self.nodes = (self.controller, self.calc, self.downloader,
+                      self.mover)
+        self.threads = [threading.Thread(target=n.go, name=n.__class__
+                                         .__name__, daemon=True)
+                        for n in self.nodes]
+        for t in self.threads:
+            t.start()
+        _wait(lambda: len(self.controller.worker_map) == 3, 120,
+              "the distribution nodes' registration")
+        self.rpc = RPC(coordination_url=self.url, timeout=600, retries=1,
+                       loglevel=quiet)
+
+    def stop(self):
+        self.rpc._close_socket()
+        for node in self.nodes:
+            node.running = False
+        for t in self.threads:
+            t.join(timeout=20)
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("a distribution node did not stop")
+
+
+def _dist_download(cluster, blobs):
+    """``rpc.download(wait=True)`` of ``blobs`` while another client polls
+    ``rpc.downloads()``; returns (reply, wall, the distinct snapshots)."""
+    import logging
+
+    from bqueryd_tpu_torch.rpc import RPC
+
+    watcher = RPC(coordination_url=cluster.url, timeout=60, retries=1,
+                  loglevel=logging.WARNING)
+    seen, done = [], threading.Event()
+
+    def watch():
+        while not done.is_set():
+            snap = sorted(watcher.downloads())
+            if snap and (not seen or seen[-1] != snap):
+                seen.append(snap)
+            done.wait(0.05)
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        reply = cluster.rpc.download(filenames=blobs, bucket=DIST_BUCKET,
+                                     scheme="localfs", wait=True)
+    finally:
+        wall = time.perf_counter() - t0
+        done.set()
+        thread.join(timeout=10)
+        watcher._close_socket()
+    return reply, wall, seen
+
+
+def run_distribution_path(names, parts, data_dir, scratch, captured):
+    """Dataset distribution and the bcolz v1 import on a cluster of its
+    own, the reference's per-box layout (controller, calc worker on cuda,
+    downloader with three threads, mover) over an empty serving dir, the
+    object store a ``LocalFSBackend`` under ``build/``
+    (``BQUERYD_TPU_BLOB_DIR``), the result cache off and the heuristic
+    hints alone:
+
+    1. each of the ten taxi shards zipped with ``zip_to_file`` and put
+       into the blob store (zip time and bytes, outside the walls);
+    2. one ``download(wait=True)`` ticket of the ten: "DONE", its wall,
+       the wall until all ten are advertised, the bytes fetched,
+       ``downloads()`` seen meanwhile, each shard's ``bqueryd.metadata``;
+    3. sharded and zones, 1 cold + 3 warm each, exact, one ``mma`` or
+       ``table`` launch each at the executor's shape; the first warm
+       query's inputs captured for the kernel rows;
+    4. taxi_0 distributed again under its name with data of another seed:
+       sharded's next answer is the new data's, with one launch;
+    5. a download of a blob the store lacks: the RPC raises the ticket's
+       error and nothing is activated;
+    6. taxi_0 written as a bcolz v1 ctable (shuffled blosclz streams,
+       trip_distance memcpyed), imported into the serving dir by
+       ``python -m bqueryd_tpu_torch.node import`` as a process (the
+       native Blosc decoder, which the library must carry); single's
+       query over it exact, one ``mma`` launch at one shard's shape;
+    7. ``sleep``, ``readfile`` of a shard's meta.json, ``info`` with its
+       ``replication`` and ``others``, then ``killall``: every node's loop
+       ends within 5 s.
+
+    Returns the ``distribution`` report."""
+    from bqueryd_tpu_torch import download as dl
+    from bqueryd_tpu_torch.blob import LocalFSBackend
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.rpc import RPCError
+    from bqueryd_tpu_torch.storage import native
+    from bqueryd_tpu_torch.utils.net import zip_to_file
+
+    if not native.blosc_available():
+        raise AssertionError("the native library lacks the Blosc decoder")
+    root = tempfile.mkdtemp(prefix="dist_", dir=scratch)
+    blob_root = os.path.join(root, "blobs")
+    serving = os.path.join(root, "serving")
+    store_dir = os.path.join(root, "store")
+    zips = os.path.join(root, "zips")
+    for d in (serving, store_dir, zips):
+        os.makedirs(d)
+    backend = LocalFSBackend(root=blob_root)
+    report = {}
+    captured_here = {}
+
+    def put(shard_dir, name):
+        path, _crc = zip_to_file(shard_dir, zips)
+        size = os.path.getsize(path)
+        backend.put(DIST_BUCKET, f"{name}.zip", path)
+        os.remove(path)
+        return size
+
+    t0 = time.perf_counter()
+    zip_bytes = {n: put(os.path.join(data_dir, n), n) for n in names}
+    report["zip"] = {"s": time.perf_counter() - t0,
+                     "bytes": sum(zip_bytes.values()),
+                     "shards": len(zip_bytes)}
+    cluster = None
+    try:
+        with _env_set({"BQUERYD_TPU_BLOB_DIR": blob_root}):
+            cluster = _Distribution(store_dir, serving)
+            ctl, rpc = cluster.controller, cluster.rpc
+            reply, wall, seen = _dist_download(
+                cluster, [f"{n}.zip" for n in names])
+            t_reply = time.perf_counter()
+            if reply != "DONE":
+                raise AssertionError(f"download replied {reply!r}")
+            _wait(lambda: all(n in ctl.files_map for n in names), 120,
+                  "the ten activated shards advertised")
+            activated = time.perf_counter() - t_reply
+            metas = [json.load(open(os.path.join(serving, n,
+                                                 dl.METADATA_FILENAME)))
+                     for n in names]
+            if len({m["ticket"] for m in metas}) != 1:
+                raise AssertionError(f"activation metadata {metas}")
+            report["download"] = {
+                "reply": reply, "wall_s": wall,
+                "reply_to_advertised_s": activated,
+                "bytes_fetched": sum(zip_bytes.values()),
+                "downloads_seen": seen,
+                "activations": cluster.mover.downloads_done.value,
+                "ticket": metas[0]["ticket"],
+            }
+            log(f"distribution download: {json.dumps(report['download'])}")
+
+            # 3. the configs over the downloaded shards
+            queries = {}
+            for config in DIST_CONFIGS:
+                want = reference(config, parts)
+                one = expected_launches(config, parts)
+                walls = []
+                for i in range(4):
+                    before = dict(onehot.LAUNCHES)
+                    # the first warm query's inputs: a row of their own,
+                    # though an earlier leg ran the same shape
+                    with (capturing(captured_here,
+                                    f"distribution {config}") if i == 1
+                          else contextlib.nullcontext()):
+                        (order, columns), w = _timed(
+                            lambda: _query(rpc, names, config))
+                    check_result(config, order, columns, want)
+                    got = _launch_delta(before)
+                    if got != one:
+                        raise AssertionError(
+                            f"distribution {config}: launches {got}, "
+                            f"want {one}")
+                    walls.append(w)
+                queries[config] = {"cold_s": walls[0], "warm_s": walls[1:],
+                                   "launches": one}
+            report["queries"] = queries
+
+            # 4. taxi_0 distributed again, other data under its name
+            build = os.path.join(root, "reseeded")
+            os.makedirs(build)
+            _names, (fresh,) = make_dataset(
+                build, len(parts[0]["fare_amount"]), 1, seed=DIST_RESEED)
+            new_parts = [fresh] + list(parts[1:])
+            put(os.path.join(build, names[0]), names[0])
+            shutil.rmtree(build)
+            reply, wall, _seen = _dist_download(cluster,
+                                                [f"{names[0]}.zip"])
+            # two of the worker's rescans, so that a scan that fell in the
+            # swap (the old dir removed, the new not yet moved in) is
+            # superseded before the query
+            time.sleep(1.2)
+            _wait(lambda: all(n in ctl.files_map for n in names), 60,
+                  "the re-activated shard")
+            before = dict(onehot.LAUNCHES)
+            (order, columns), w = _timed(
+                lambda: _query(rpc, names, "sharded"))
+            check_result("sharded", order, columns,
+                         reference("sharded", new_parts))
+            got = _launch_delta(before)
+            if got != expected_launches("sharded", new_parts):
+                raise AssertionError(f"re-distribution launches {got}")
+            report["redistribute"] = {"reply": reply, "wall_s": wall,
+                                      "query_s": w, "launches": got}
+
+            # 5. a blob the store does not hold
+            shards_before = sorted(os.listdir(serving))
+            failed_before = cluster.downloader.downloads_failed.value
+            t0 = time.perf_counter()
+            try:
+                rpc.download(filenames=["absent.bcolzs.zip"],
+                             bucket=DIST_BUCKET, scheme="localfs", wait=True)
+            except RPCError as exc:
+                error = str(exc)
+            else:
+                raise AssertionError("a missing blob's download succeeded")
+            if ("failed" not in error
+                    or sorted(os.listdir(serving)) != shards_before
+                    or cluster.downloader.downloads_failed.value
+                    != failed_before + 1):
+                raise AssertionError(f"the failed ticket: {error}")
+            report["missing_blob"] = {"error": error[:200],
+                                      "wall_s": time.perf_counter() - t0}
+
+            # 6. the bcolz v1 import, as a process
+            legacy = os.path.join(root, "legacy_0.bcolz")
+            t0 = time.perf_counter()
+            v1_bytes = write_v1_ctable(legacy, parts[0], "trip_distance")
+            write_s = time.perf_counter() - t0
+            imported = "imported_0.bcolzs"
+            env = dict(os.environ,
+                       PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "bqueryd_tpu_torch.node", "import",
+                 legacy, os.path.join(serving, imported)],
+                env=env, capture_output=True, text=True, timeout=600)
+            import_s = time.perf_counter() - t0
+            if out.returncode:
+                raise AssertionError(f"import exited {out.returncode}: "
+                                     f"{out.stderr[-2000:]}")
+            _wait(lambda: imported in ctl.files_map, 60,
+                  "the imported shard advertised")
+            before = dict(onehot.LAUNCHES)
+            with capturing(captured_here, "distribution import"):
+                (order, columns), w = _timed(
+                    lambda: _query(rpc, [imported], "single"))
+            check_result("single", order, columns,
+                         reference("single", parts))
+            got = _launch_delta(before)
+            if got != expected_launches("single", parts):
+                raise AssertionError(f"import query launches {got}")
+            report["import"] = {
+                "v1_write_s": write_s, "v1_bytes": v1_bytes,
+                "import_s": import_s, "decoder": "native",
+                "stdout": out.stdout.strip()[-200:], "query_s": w,
+                "launches": got,
+            }
+            log(f"distribution import: {json.dumps(report['import'])}")
+
+            # 7. the admin verbs, then killall
+            slept = rpc.sleep(0.1)
+            meta = rpc.readfile(f"{names[1]}/meta.json")
+            with open(os.path.join(serving, names[1], "meta.json"),
+                      "rb") as f:
+                if meta != f.read() or "slept 0.1" not in slept:
+                    raise AssertionError("sleep or readfile answered wrong")
+            info = rpc.info()
+            if (info["others"] != {}
+                    or info["replication"]["shards_by_holders"]["1"]
+                    != len(names) + 1):
+                raise AssertionError(f"info: {info['replication']}")
+            t0 = time.perf_counter()
+            if rpc.killall() != "OK":
+                raise AssertionError("killall")
+            for t in cluster.threads:
+                t.join(timeout=5)
+            alive = [t.name for t in cluster.threads if t.is_alive()]
+            if alive:
+                raise AssertionError(f"killall left {alive} running")
+            report["admin"] = {"sleep": slept, "readfile_bytes": len(meta),
+                               "replication": info["replication"],
+                               "others": info["others"],
+                               "killall_s": time.perf_counter() - t0}
+    finally:
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    captured.update(captured_here)
+    return report
+
+
 def controller_url(store_dir):
     """The coordination URL of a cluster started on ``store_dir``."""
     return f"file://{store_dir}"
 
 
 def run_cli_check(names, parts, data_dir, store_dir):
-    """The CLI on the card: ``python -m bqueryd_tpu_torch.node controller``
-    and ``... worker --device=cuda`` as processes of their own, found
-    through a file:// store, one checked query per config from the port
-    client, then dag_join through ``RPC.query`` and an ``RPC.append`` to a
-    small ingest shard written beside the taxi shards for the check (the
-    repeat query after it a delta refresh); SIGTERM stops both, which must
-    exit 0.  The worker process runs with its result cache off and loads
-    the kernel library this process built."""
+    """The CLI on the card: ``python -m bqueryd_tpu_torch.node controller``,
+    ``... worker --device=cuda``, ``... downloader`` and ``... movebcolz``
+    as processes of their own, found through a file:// store, one checked
+    query per config from the port client, then dag_join through
+    ``RPC.query``, an ``RPC.append`` to a small ingest shard written beside
+    the taxi shards for the check (the repeat query after it a delta
+    refresh), and the download of a zipped copy of taxi_1 from a
+    ``BQUERYD_TPU_BLOB_DIR`` blob store, which the downloader fetches, the
+    mover activates and the worker answers (single's query); SIGTERM stops
+    all four, which must exit 0.  The worker process runs with its result
+    cache off and loads the kernel library this process built."""
     import logging
 
+    from bqueryd_tpu_torch.blob import LocalFSBackend
     from bqueryd_tpu_torch.rpc import RPC
+    from bqueryd_tpu_torch.utils.net import zip_to_file
 
     root = os.path.dirname(os.path.abspath(__file__))
     url = f"file://{store_dir}"
+    # the object store of the download: a zipped copy of taxi_1
+    blob_dir = tempfile.mkdtemp(prefix="cli_blobs_", dir=store_dir)
+    dl_shard = "cli_dl.bcolzs"
+    zipped, _crc = zip_to_file(os.path.join(data_dir, names[1]), store_dir)
+    LocalFSBackend(root=blob_dir).put(DIST_BUCKET, f"{dl_shard}.zip", zipped)
+    os.remove(zipped)
     env = dict(os.environ, BQUERYD_TPU_RUNFILE_DIR=store_dir,
-               PYTHONPATH=root, BQUERYD_TPU_RESULT_CACHE_BYTES="0")
+               PYTHONPATH=root, BQUERYD_TPU_RESULT_CACHE_BYTES="0",
+               BQUERYD_TPU_BLOB_DIR=blob_dir)
     # a shard of its own for the append: the taxi shards stay as written
     ingest_dir = tempfile.mkdtemp(prefix="cli_ingest_", dir=store_dir)
     frames, _chunklen, rng = write_ingest(ingest_dir, 96_000, 1)
@@ -3382,6 +3843,10 @@ def run_cli_check(names, parts, data_dir, store_dir):
         "controller": node + ["controller", f"--coordination={url}"],
         "worker": node + ["worker", f"--coordination={url}",
                           f"--data_dir={data_dir}", "--device=cuda"],
+        "downloader": node + ["downloader", f"--coordination={url}",
+                              f"--data_dir={data_dir}"],
+        "movebcolz": node + ["movebcolz", f"--coordination={url}",
+                             f"--data_dir={data_dir}"],
     }
     logs = {role: open(os.path.join(store_dir, f"{role}.log"), "w+")
             for role in roles}
@@ -3436,6 +3901,20 @@ def run_cli_check(names, parts, data_dir, store_dir):
         if res["appended"] != 4_000 or routes != ["delta"]:
             raise AssertionError(f"CLI append: {res}, then routes {routes}")
         report["append"] = {"append_wall_s": wall, "routes": routes}
+        # the download roles: one zipped shard fetched and activated
+        reply, wall = _timed(lambda: rpc.download(
+            filenames=[f"{dl_shard}.zip"], bucket=DIST_BUCKET,
+            scheme="localfs", wait=True))
+        if reply != "DONE":
+            raise AssertionError(f"CLI download replied {reply!r}")
+        _wait(lambda: _served(rpc, [dl_shard]), 60,
+              "the CLI worker serving the downloaded shard")
+        (order, columns), qwall = _timed(
+            lambda: _query(rpc, [dl_shard], "single"))
+        check_result("single", order, columns,
+                     reference("single", [parts[1]]))
+        report["download"] = {"download_wall_s": wall,
+                              "first_query_wall_s": qwall}
         rpc._close_socket()
     except BaseException:
         for role, f in logs.items():
@@ -3454,7 +3933,9 @@ def run_cli_check(names, parts, data_dir, store_dir):
                 p.wait(timeout=10)
         for f in logs.values():
             f.close()
-        shutil.rmtree(os.path.join(data_dir, cli_shard), ignore_errors=True)
+        for leftover in (cli_shard, dl_shard, "incoming"):
+            shutil.rmtree(os.path.join(data_dir, leftover),
+                          ignore_errors=True)
     codes = {role: p.returncode for role, p in procs.items()}
     if any(codes.values()):
         raise AssertionError(f"CLI nodes exited with {codes}")
@@ -4316,6 +4797,16 @@ def main():
                 tempfile.mkdtemp(prefix="res_store_", dir=data_dir))
         resilience_launches = path_launches("resilience", RES_KERNELS)
         log(f"resilience path: {time.perf_counter() - t0:.1f}s")
+        # distribution: the ten shards downloaded by one ticket, served,
+        # one re-distributed, a failed ticket, a bcolz v1 import, killall
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        with _env_set({"BQUERYD_TPU_RESULT_CACHE_BYTES": "0",
+                       "BQUERYD_TPU_CALIB": "0"}):
+            distribution = run_distribution_path(names, parts, data_dir,
+                                                 scratch, captured)
+        distribution_launches = path_launches("distribution", DIST_KERNELS)
+        log(f"distribution path: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
@@ -4335,6 +4826,7 @@ def main():
                           "calibration": calibration,
                           "serving": serving,
                           "resilience": resilience,
+                          "distribution": distribution,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
@@ -4346,6 +4838,7 @@ def main():
                                        "calibration": calib_launches,
                                        "serving": serving_launches,
                                        "resilience": resilience_launches,
+                                       "distribution": distribution_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -4379,7 +4872,8 @@ def main():
         for path, counted in (("routing", routing_launches),
                               ("calibration", calib_launches),
                               ("serving", serving_launches),
-                              ("resilience", resilience_launches)):
+                              ("resilience", resilience_launches),
+                              ("distribution", distribution_launches)):
             for label, e in inputs.items():
                 key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
                 if counted.get(key) and not label.startswith("bundle "):
@@ -4413,6 +4907,7 @@ def main():
         raise AssertionError(f"the device latched outside the forced "
                              f"flips: {health}")
     print(json.dumps({"profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
+    print(json.dumps({"distribution": distribution}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 """The port's fault injection and health scoring against the reference's.
 
 ``tests/test_chaos.py``'s cases run on ``bqueryd_tpu_torch.chaos`` (its
-module globals swapped for the port's), but the lock-partition case: the
-port's stores have no locks yet.  The health cases of
+module globals swapped for the port's), the lock-partition case on the
+port's store and its lock proxy.  The health cases of
 ``tests/test_obs_forensics.py`` run on ``bqueryd_tpu_torch.obs`` the same
 way.  Then the two packages side by side: for plans drawn from those
 cases, the same seed and the same sequence of ``fire`` calls inject the
@@ -31,7 +31,7 @@ from tests.torch_fixtures import disarmed_port_chaos  # noqa: F401
 
 #: the cases of tests/test_chaos.py that reach chaos through its module
 #: globals; the store and client cases follow below on the port's own
-#: classes, and the lock case waits for the store's locks
+#: classes
 PLAN_CASES = [
     "test_disarmed_fire_is_none_and_free",
     "test_arm_from_dict_inline_json_and_path",
@@ -128,6 +128,22 @@ def test_chaos_store_partitions_one_node():
     port_chaos.disarm()
     assert victim.smembers("k") == {"1"}
     assert issubclass(StorePartitioned, OSError)
+
+
+def test_reference_lock_partition_case_on_port(monkeypatch):
+    """``test_chaos_store_partitions_inflight_locks`` on the port's store:
+    a lock taken before the partition window loses extend and release in
+    it (the ``_ChaosLock`` proxy), and a new lock cannot be acquired."""
+    import bqueryd_tpu.coordination as jax_coordination
+    from bqueryd_tpu_torch import coordination as port_coordination
+
+    monkeypatch.setattr(ref_chaos_cases, "chaos", port_chaos)
+    for name in ("StorePartitioned", "chaos_store", "coordination_store"):
+        monkeypatch.setattr(jax_coordination, name,
+                            getattr(port_coordination, name))
+    ref_chaos_cases.test_chaos_store_partitions_inflight_locks(
+        f"mem://torch-chaos-lock-{os.urandom(4).hex()}")
+    assert port_chaos.site_stats() == {"coordination.store": 3}
 
 
 def test_worker_heartbeat_survives_a_partitioned_store(tmp_path):

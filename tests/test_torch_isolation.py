@@ -71,7 +71,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.chaos.plan",
                    "bqueryd_tpu_torch.serve",
                    "bqueryd_tpu_torch.serve.subsume",
-                   "bqueryd_tpu_torch.serve.rollup"):
+                   "bqueryd_tpu_torch.serve.rollup",
+                   "bqueryd_tpu_torch.blob",
+                   "bqueryd_tpu_torch.download",
+                   "bqueryd_tpu_torch.storage.bcolz_v1"):
         assert module in result["imported"]
 
 
@@ -82,6 +85,9 @@ import bqueryd_tpu_torch.serve
 import bqueryd_tpu_torch.obs
 import bqueryd_tpu_torch.chaos
 import bqueryd_tpu_torch.coordination
+import bqueryd_tpu_torch.blob
+import bqueryd_tpu_torch.download
+import bqueryd_tpu_torch.storage.bcolz_v1
 from bqueryd_tpu_torch.models.query import ResultPayload
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("torch", "pandas", "jax", "jaxlib",
@@ -91,8 +97,9 @@ print(json.dumps(heavy))
 
 
 def test_control_plane_imports_no_torch_and_no_pandas():
-    """The controller, the serving layer, obs, chaos and the store (and
-    the payload codec the controller decodes rollup replies with) load
+    """The controller, the serving layer, obs, chaos, the store, the blob
+    backends, the download pipeline and the bcolz v1 reader (and the
+    payload codec the controller decodes rollup replies with) load
     without torch."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -157,3 +164,46 @@ def test_relational_operators_need_an_explicit_cpu_request(no_cuda):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call(None)
         call("cpu")
+
+
+_DOWNLOAD_ROLES = """
+import json, os, sys
+from bqueryd_tpu_torch.worker import DownloaderNode, MoveBcolzNode
+nodes = [cls(coordination_url=sys.argv[1], data_dir=sys.argv[2])
+         for cls in (DownloaderNode, MoveBcolzNode)]
+for n in nodes:
+    n.stop()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("torch", "pandas"))))
+"""
+
+
+def test_download_roles_load_no_torch(tmp_path):
+    """The downloader and mover processes need neither torch nor pandas."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _DOWNLOAD_ROLES,
+         f"file://{tmp_path / 'store'}", str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, check=True,
+    ).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def test_download_roles_never_touch_cuda(no_cuda, monkeypatch, tmp_path):
+    """Without a card the download roles build and stop, and no CUDA call
+    is made (their heartbeat and ticket poll included)."""
+    from bqueryd_tpu_torch.worker import DownloaderNode, MoveBcolzNode
+
+    def touched(*args, **kwargs):
+        raise AssertionError("a download role touched CUDA")
+
+    for name in ("_lazy_init", "init", "current_device", "synchronize",
+                 "device_count"):
+        monkeypatch.setattr(torch.cuda, name, touched)
+    store = f"mem://isolation-dl-{os.urandom(4).hex()}"
+    for cls in (DownloaderNode, MoveBcolzNode):
+        node_ = cls(coordination_url=store, data_dir=str(tmp_path))
+        assert not hasattr(node_, "device")
+        node_.heartbeat()
+        node_.check_downloads()
+        node_.stop()

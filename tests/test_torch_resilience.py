@@ -29,6 +29,7 @@ worker, ``rpc.health()`` and the debug bundle's sections, and the WRM's
 health signals.  Every wait is a bounded poll.
 """
 
+import inspect
 import logging
 import os
 import threading
@@ -49,69 +50,14 @@ from bqueryd_tpu_torch import rpc as port_rpc
 from bqueryd_tpu_torch import worker as port_worker
 from tests.conftest import wait_until
 from tests.torch_fixtures import (  # noqa: F401
+    CPUWorkerNode,
+    FrameRPC,
     disarmed_port_chaos,
     fresh_port_calibration,
+    on_port,
 )
 
 QUIET = logging.WARNING
-
-
-class CPUWorkerNode(port_worker.WorkerNode):
-    """The port's calc worker on the CPU, with the reference's
-    ``delta_refreshes_total`` counter read from its ``delta_refreshes``."""
-
-    def __init__(self, *args, **kwargs):
-        kwargs.setdefault("device", "cpu")
-        super().__init__(*args, **kwargs)
-
-    @property
-    def delta_refreshes_total(self):
-        return types.SimpleNamespace(value=self.delta_refreshes)
-
-
-class FrameRPC:
-    """The port's ``RPC`` with its ``(order, columns)`` answers as the
-    DataFrames the reference's cases read."""
-
-    def __init__(self, *args, **kwargs):
-        self._rpc = port_rpc.RPC(*args, **kwargs)
-
-    @staticmethod
-    def _frame(result):
-        order, cols = result
-        return pd.DataFrame({c: list(cols[c]) if cols[c].dtype == object
-                             else cols[c] for c in order}, columns=order)
-
-    def groupby(self, *args, **kwargs):
-        return self._frame(self._rpc.groupby(*args, **kwargs))
-
-    def query(self, *args, **kwargs):
-        return self._frame(self._rpc.query(*args, **kwargs))
-
-    def __getattr__(self, name):
-        return getattr(self._rpc, name)
-
-
-@pytest.fixture
-def on_port(monkeypatch):
-    """The JAX package's names that the reference's cases import point at
-    the port's for the test's duration; nodes advertise 127.0.0.1."""
-    monkeypatch.setenv("BQUERYD_TPU_IP", "127.0.0.1")
-    import bqueryd_tpu.controller as jax_controller
-    import bqueryd_tpu.messages as jax_messages
-    import bqueryd_tpu.rpc as jax_rpc
-    import bqueryd_tpu.worker as jax_worker
-
-    monkeypatch.setattr(jax_controller, "ControllerNode",
-                        port_controller.ControllerNode)
-    monkeypatch.setattr(jax_controller, "MAX_DISPATCH_RETRIES",
-                        port_controller.MAX_DISPATCH_RETRIES)
-    for name in ("CalcMessage", "ErrorMessage", "WorkerRegisterMessage"):
-        monkeypatch.setattr(jax_messages, name, getattr(port_messages, name))
-    monkeypatch.setattr(jax_worker, "WorkerNode", CPUWorkerNode)
-    monkeypatch.setattr(jax_rpc, "RPC", FrameRPC)
-    monkeypatch.setattr(jax_rpc, "RPCError", port_rpc.RPCError)
-    monkeypatch.setattr(bqueryd_tpu, "chaos", port_chaos)
 
 
 CONTROLLER_CASES = [
@@ -144,6 +90,17 @@ CLUSTER_CASES = [
     "test_dead_worker_culled_and_rejoins",
     "test_busy_worker_outliving_dead_timeout_not_culled",
     "test_shard_retry_lands_on_replacement_worker",
+    "test_controller_peering_and_killall",
+    "test_two_controllers_both_get_heartbeats_during_long_work",
+    "test_stop_is_a_shutdown_request_and_deregisters",
+    "test_groupby_through_either_controller",
+    "test_concurrent_clients_survive_worker_churn",
+]
+
+EXECUTE_CODE_CASES = [
+    "test_execute_code_roundtrip",
+    "test_execute_code_direct_kwargs",
+    "test_execute_code_disabled_by_default",
 ]
 
 WATCHDOG_CASES = [
@@ -166,10 +123,32 @@ def test_reference_controller_case_on_port(case, on_port):
 def test_reference_cluster_case_on_port(case, on_port, tmp_path,
                                         monkeypatch):
     fn = getattr(ref, case)
-    if case == "test_bundle_shared_scan_fails_over_as_one_unit":
+    if case == "test_concurrent_clients_survive_worker_churn":
+        # the case's churn starts 0.6 s into the query stream, which the
+        # port's CPU workers finish sooner: each groupby is held 0.1 s so
+        # that both kills land while the clients still query
+        port_chaos.arm({"seed": 1, "faults": [{
+            "site": "worker.execute", "action": "delay",
+            "match": {"verb": "groupby"}, "args": {"seconds": 0.1},
+        }]})
+    if "monkeypatch" in inspect.signature(fn).parameters:
         fn(tmp_path, _store_url(), monkeypatch)
     else:
         fn(tmp_path, _store_url())
+
+
+@pytest.mark.parametrize("case", EXECUTE_CODE_CASES)
+def test_reference_execute_code_case_on_port(case, on_port, tmp_path,
+                                             monkeypatch):
+    """The reference's ``small_cluster`` (one controller, one calc worker)
+    built of port nodes, each ``execute_code`` case run on it."""
+    cluster = ref.small_cluster.__wrapped__(tmp_path, _store_url())
+    nodes = next(cluster)
+    try:
+        assert type(nodes["worker"]) is CPUWorkerNode
+        getattr(ref, case)(nodes, monkeypatch)
+    finally:
+        next(cluster, None)
 
 
 @pytest.mark.parametrize("case", WATCHDOG_CASES)

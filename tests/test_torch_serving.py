@@ -567,12 +567,12 @@ def test_served_answer_dispatches_nothing_and_records_its_path(
     section = bundle["controller"]
     for absent in ("trace", "autopsy", "slow_queries",
                    "worker_histograms", "runtime", "compile_cache",
-                   "replication", "slo", "timeline_ring", "capacity"):
+                   "slo", "timeline_ring", "capacity"):
         assert absent not in section
     assert {"address", "node", "uptime_s", "flight", "flight_evictions",
             "counters", "admission", "workers_known", "inflight", "metrics",
             "calibration", "batch_window", "serving", "health",
-            "chaos"} <= set(section)
+            "chaos", "replication"} <= set(section)
     assert section["counters"]["rollup_builds"] == 1
     kinds = [e["kind"] for e in section["flight"]]
     assert "dispatch" in kinds and "rollup_dispatch" in kinds
