@@ -12,7 +12,8 @@ names follow ``bqueryd_tpu`` so each counterpart sits at the same path.
 The package imports torch, numpy and zmq, never jax and nothing of
 ``bqueryd_tpu``: storage, caches, the host merge, the wire protocol, the
 coordination store, the logical plan, the serving layer (``serve``), the
-metrics registry and flight recorder (``obs``), the distribution pipeline
+observability stack (``obs``: metrics, tracing, logs, profiling, flight
+recorder, SLO and capacity accounting), the distribution pipeline
 (``blob``, ``download``) and the bcolz v1 reader are its own copies.  Importing it
 is light (torch loads only when a device is resolved or an ``ops``
 module is imported).
@@ -35,16 +36,24 @@ def configure_logging(loglevel=logging.INFO):
     """Attach a stream handler to the package logger and set its level.
 
     Called by the node constructors, the RPC client and the CLI, never at
-    import time, so embedding applications keep their logging config."""
+    import time, so embedding applications keep their logging config.
+    ``BQUERYD_TPU_LOG_JSON=1`` makes the handler write one JSON object per
+    record, with the ``trace_id``/``query_id`` correlation fields
+    (:mod:`bqueryd_tpu_torch.obs.logs`), so that a fleet's logs join the
+    RPC trace waterfall."""
     if not any(
         isinstance(h, logging.StreamHandler)
         and not isinstance(h, logging.NullHandler)
         for h in logger.handlers
     ):
         handler = logging.StreamHandler()
-        handler.setFormatter(
-            logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s")
-        )
+        if os.environ.get("BQUERYD_TPU_LOG_JSON") == "1":
+            from bqueryd_tpu_torch.obs.logs import JsonLogFormatter
+
+            handler.setFormatter(JsonLogFormatter())
+        else:
+            handler.setFormatter(logging.Formatter(
+                "%(asctime)s %(name)s %(levelname)s %(message)s"))
         logger.addHandler(handler)
     logger.setLevel(loglevel)
 

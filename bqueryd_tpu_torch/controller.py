@@ -91,9 +91,20 @@ every verb of ``CONTROLLER_VERBS``, with the reference's wire behaviour:
   stops this controller, ``killworkers`` every worker, ``killall`` both,
   relayed once to every peer.
 
-The controller imports neither torch nor pandas.  Not ported yet: the
-capacity model, traces, SLO accounting and the debug bundle's sections of
-those subsystems.
+* tracing and accounting (:mod:`obs`): a query adopts the client's trace
+  context (``trace``) and its spans (``groupby``, ``admission``,
+  ``plan``, ``dispatch``, ``demux`` here; ``calc`` and its phases from the
+  workers' replies) are assembled when it finishes into a timeline in
+  ``trace_store`` (``rpc.trace``) with its critical-path attribution
+  (``rpc.autopsy``); the query lands in its SLO class (``slo``), in the
+  ``query_seconds`` histogram and, past ``BQUERYD_TPU_SLOW_QUERY_MS``, in
+  ``slow_queries`` (``rpc.slow_queries``); every heartbeat evaluates the
+  capacity model (``capacity``, ``rpc.capacity``) and snapshots the
+  controller into ``timeline_ring`` (``rpc.timeline``).  An answer served
+  by the serving layer is accounted as a dispatched one is.
+  ``BQUERYD_TPU_METRICS_PORT`` serves ``/metrics``.
+
+The controller imports neither torch nor pandas.
 
 Framing on the ROUTER socket:
 
@@ -148,13 +159,12 @@ RETRY_BACKOFF_CAP_S = backoff.BACKOFF_CAP_S
 APPEND_TIMEOUT = 120.0
 RUNFILE_DIR = os.environ.get("BQUERYD_TPU_RUNFILE_DIR", "/srv")
 
-#: the reference's verbs in its order, but for ``trace``,
-#: ``slow_queries``, ``autopsy``, ``timeline`` and ``capacity``, whose
-#: subsystems the port does not have yet
+#: the reference's verbs, in its order
 CONTROLLER_VERBS = (
     "ping", "loglevel", "info", "kill", "killworkers", "killall",
     "download", "readfile", "execute_code", "sleep", "groupby", "query",
-    "metrics", "health", "debug_bundle", "append",
+    "trace", "metrics", "slow_queries", "health", "debug_bundle",
+    "autopsy", "timeline", "capacity", "append",
 )
 
 #: verbs a worker answers for one client directly: no query segment, the
@@ -188,8 +198,13 @@ COUNTER_SPECS = {
     "admission_superseded": "abandoned queries retired early on resend",
     "deadline_expired": "work expired by its deadline before running",
     "dispatched_shards": "groupby CalcMessages sent to workers",
+    "queries_completed": "groupby parents finished (reply sent or aborted)",
+    "slow_queries": "finished queries past BQUERYD_TPU_SLOW_QUERY_MS",
     "health_avoided_dispatches":
         "dispatch decisions that routed around a degraded/wedged worker",
+    "reply_payload_bytes":
+        "cumulative result-payload bytes received in worker calc replies "
+        "(the controller-side twin of the worker's reply_bytes histogram)",
     "failover_dispatches":
         "shards re-queued after a worker loss, timeout, or transient fault "
         "(the retry excludes the failed holder)",
@@ -204,6 +219,14 @@ COUNTER_SPECS = {
         "worker replies deduplicated by query token (hedge losers, "
         "late retries, chaos-duplicated envelopes) — counted, never "
         "double-merged",
+    "capacity_scale_up_advised":
+        "shadow-advisor scale_up recommendations emitted (advisory only — "
+        "logged to the flight ring, never acted on)",
+    "capacity_scale_down_advised":
+        "shadow-advisor scale_down recommendations emitted (advisory only)",
+    "capacity_rebalance_advised":
+        "shadow-advisor shard-rebalance recommendations emitted (advisory "
+        "only)",
     "rollup_builds":
         "materialized-rollup shard builds completed (serve.rollup full "
         "rebuilds; delta refreshes count separately)",
@@ -338,6 +361,8 @@ class ControllerNode:
         self.calibration = calibrate.CalibrationStore()
         self._worker_wedged = {}      # worker_id -> last advertised latch
         self._worker_metrics = {}     # worker_id -> last histogram snapshot
+        self._worker_metrics_rev = 0  # bumped on absorb/remove (memo key)
+        self._worker_hist_cache = (-1, None)  # (rev, merged aggregate)
         # rolling latency and error baselines from the WRMs, which
         # find_free_worker's candidate order acts on
         self.health = obs.HealthScorer()
@@ -399,6 +424,66 @@ class ControllerNode:
             fn=lambda: sum(1 for st in self.health.statuses().values()
                            if st.get("status") != obs.STATUS_OK),
         )
+        self.query_seconds = self.metrics.histogram(
+            "bqueryd_tpu_groupby_seconds",
+            "end-to-end groupby wall at the controller (admission to reply)",
+        )
+        self.admission_wait_seconds = self.metrics.histogram(
+            "bqueryd_tpu_admission_wait_seconds",
+            "time queued in admission before launch",
+        )
+        self.admission.wait_observer = self._observe_admission_wait
+        # the finished queries' timelines (rpc.trace, rpc.autopsy), the
+        # slow ones (rpc.slow_queries), the SLO classes' accounting and
+        # the periodic snapshot ring (rpc.timeline)
+        self.trace_store = obs.TraceStore()
+        self.slow_queries = obs.SlowQueryLog()
+        self.slo = obs.slo.SLOTracker(self.metrics)
+        self.timeline_ring = obs.slo.SnapshotTimeline()
+        # the fleet capacity model: per-worker service rates from the WRM
+        # histograms, arrival rates from the admission tap, evaluated each
+        # heartbeat (rpc.capacity)
+        self.capacity = obs.capacity.CapacityModel(
+            on_advice=self._record_capacity_advice)
+        self.admission.arrival_observer = self._observe_arrival
+        for name, help_text, key in (
+            ("bqueryd_tpu_capacity_fleet_utilization",
+             "fleet utilization estimate ρ (dispatch rate over aggregate "
+             "service rate, tempered by measured busy fractions)",
+             "utilization"),
+            ("bqueryd_tpu_capacity_fleet_state",
+             "fleet saturation state code (0=ok 1=warm 2=saturated "
+             "3=overloaded, hysteresis applied)", "state"),
+            ("bqueryd_tpu_capacity_headroom_qps",
+             "estimated additional query arrival rate the fleet can absorb "
+             "before utilization crosses BQUERYD_TPU_CAPACITY_TARGET_RHO",
+             "headroom_qps"),
+            ("bqueryd_tpu_capacity_model_drift",
+             "model-vs-measured queue-delay drift: (predicted - measured) / "
+             "max(both) — near 0 means the M/G/1 prediction tracks reality",
+             "model_drift"),
+        ):
+            self.metrics.gauge(
+                name, help_text,
+                fn=(lambda k=key: self.capacity.fleet_gauge(k)))
+        self.metrics.gauge(
+            "bqueryd_tpu_capacity_worker_resets",
+            "WRM counter restarts the capacity model detected and rebased "
+            "(worker processes restarting under the same node id)",
+            fn=self.capacity.worker_resets,
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_trace_buffer_evictions",
+            "trace timelines evicted by the ring's entry/byte bounds "
+            "(monotonic)",
+            fn=lambda: self.trace_store.evictions,
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_slow_query_evictions",
+            "slow-query entries evicted by the ring's entry/byte bounds "
+            "(monotonic)",
+            fn=lambda: self.slow_queries.evictions,
+        )
         # the flight ring behind rpc.debug_bundle(), and each worker's
         # heartbeat slice, kept after the worker is removed (its last words
         # are what a bundle is for), bounded to the newest entries
@@ -412,6 +497,10 @@ class ControllerNode:
         self._worker_debug_cap = 64
         self._append_segments = {}    # append fan-out key -> its state
         self._append_waiters = {}     # append dispatch token -> fan-out key
+        from bqueryd_tpu_torch.obs import http as obs_http
+
+        self._metrics_server = obs_http.maybe_start(self.metrics,
+                                                    self.logger)
         self.msg_count_in = 0
         self.start_time = time.time()
         self.running = False
@@ -502,6 +591,9 @@ class ControllerNode:
         if (loop is not None and loop.is_alive()
                 and threading.current_thread() is not loop):
             return
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         try:
             self.store.srem(bqueryd_tpu_torch.REDIS_SET_KEY, self.address)
         except Exception:
@@ -517,6 +609,13 @@ class ControllerNode:
         if now - self.last_heartbeat < self.heartbeat_interval:
             return
         self.last_heartbeat = now
+        # the capacity model's evaluation (states with hysteresis, shadow
+        # advice; a no-op under BQUERYD_TPU_CAPACITY=0), before the
+        # timeline snapshot, so that each ring entry carries this beat's
+        self.capacity.evaluate(now=now)
+        # one snapshot per BQUERYD_TPU_TIMELINE_INTERVAL_S (the ring paces
+        # itself; <= 0 disables)
+        self.timeline_ring.maybe_snapshot(self._timeline_snapshot, now=now)
         # serving housekeeping: abandon wedged rollup builds, hold the
         # retention caps, dispatch delta refreshes of stale entries
         self.serving.tick()
@@ -592,8 +691,10 @@ class ControllerNode:
             self.flight.record("worker_removed", worker=worker_id)
         self.worker_map.pop(worker_id, None)
         self.health.remove(worker_id)
+        self.capacity.remove_worker(worker_id)
         self._worker_wedged.pop(worker_id, None)
-        self._worker_metrics.pop(worker_id, None)
+        if self._worker_metrics.pop(worker_id, None) is not None:
+            self._worker_metrics_rev += 1
         for filename in list(self.files_map):
             self.files_map[filename].discard(worker_id)
             if not self.files_map[filename]:
@@ -671,6 +772,22 @@ class ControllerNode:
         if msg.get("worker_id") is not None:
             self._fail_pinned(msg, reason)
             return
+        from bqueryd_tpu_torch import obs
+
+        # the failed attempt's in-flight window as a dispatch span tagged
+        # with the failure: a unit that sat on a lost worker autopsies as
+        # dispatch time on that worker
+        sent_at = entry.get("sent_at")
+        wire = msg.get_trace()
+        if sent_at is not None and wire and obs.enabled():
+            self._append_spans(msg, [obs.make_span(
+                wire["trace_id"], "dispatch", sent_at,
+                max(time.time() - float(sent_at), 0.0),
+                parent_span_id=wire.get("parent_span_id"),
+                node=self.address,
+                tags={"worker": failed_worker, "retries": retries,
+                      "failed": reason[:120]},
+            )])
         # the per-attempt history rides the message (bounded by the retry
         # budget); the exhaustion envelope hands it to the client
         history = list(msg.get("_attempt_history") or [])
@@ -702,6 +819,12 @@ class ControllerNode:
         backoff_s = self._retry_backoff(msg, retries)
         msg["_not_before"] = time.time() + backoff_s
         msg["_backoff_s"] = round(backoff_s, 6)
+        # each attempt is a trace hop of its own: a fresh span id and
+        # queue clock
+        wire = msg.get_trace()
+        if wire:
+            msg.set_trace(dict(wire, span_id=os.urandom(8).hex()))
+            msg["_dispatch_queued_ts"] = time.time()
         if msg.get("token"):
             self._requeued_tokens.add(msg.get("token"))
         self.worker_out_messages.setdefault(msg.get("affinity"), []).append(
@@ -872,6 +995,12 @@ class ControllerNode:
             child.set_args_kwargs([filename] + list(args[1:]), kwargs)
             child["token"] = os.urandom(8).hex()
             child["filename"] = filename
+            # each child is a dispatch attempt of its own: a fresh trace
+            # hop and queue clock
+            wire = child.get_trace()
+            if wire:
+                child.set_trace(dict(wire, span_id=os.urandom(8).hex()))
+                child["_dispatch_queued_ts"] = time.time()
             children.append(child)
         return children
 
@@ -966,6 +1095,9 @@ class ControllerNode:
             return
         if msg.isa("groupby"):
             self.counters["dispatched_shards"] += 1
+            # the capacity model's per-worker dispatch rate and per-shard
+            # heat map
+            self.capacity.observe_dispatch(worker_id, msg.get("filename"))
         from bqueryd_tpu_torch import obs
 
         # every work envelope handed to a worker (hot path: under the
@@ -979,7 +1111,9 @@ class ControllerNode:
                 token=msg.get("token"),
                 filename=(str(filename)[:200] if filename is not None
                           else None),
+                trace_id=(msg.get_trace() or {}).get("trace_id"),
             )
+        self._record_dispatch_span(msg, worker_id)
         info = self.worker_map.get(worker_id)
         if info is not None:
             info["busy"] = True
@@ -993,6 +1127,85 @@ class ControllerNode:
                 "parent": msg.get("parent_token"),
                 "retries": msg.get("_retries", 0),
             }
+
+    def _append_spans(self, msg, spans):
+        """Add spans to the timeline of every query subscribed to the work
+        unit ``msg``."""
+        for parent in self._work_parents(msg):
+            segment = self.rpc_segments.get(parent)
+            if segment is not None and segment.get("obs"):
+                segment["obs"]["spans"].extend(spans)
+
+    def _record_dispatch_span(self, msg, worker_id, hedge=False):
+        """One ``dispatch`` span per send: queue entry -> send, its span id
+        the message's trace hop (the worker's calc span is its child), on
+        the timeline of every query subscribed to the unit.  Its tags carry
+        the attempt (worker, retries, the charged backoff that attribution
+        carves out as ``retry_backoff``, the failover exclusions); a hedge
+        is a zero-length marker tagged ``hedge``."""
+        from bqueryd_tpu_torch import obs
+
+        wire = msg.get_trace()
+        queued_ts = msg.get("_dispatch_queued_ts")
+        if not wire or queued_ts is None or not obs.enabled():
+            return
+        if hedge:
+            # the original attempt's tags must not read as the hedge's
+            tags = {"worker": worker_id, "hedge": True}
+        else:
+            tags = {
+                "worker": worker_id,
+                "filename": str(msg.get("filename")),
+                "retries": msg.get("_retries", 0),
+            }
+            if msg.get("_backoff_s"):
+                tags["backoff_s"] = msg.get("_backoff_s")
+            if msg.get("_excluded_workers"):
+                tags["excluded"] = list(msg.get("_excluded_workers"))
+        now = time.time()
+        self._append_spans(msg, [obs.make_span(
+            wire["trace_id"], "dispatch",
+            now if hedge else queued_ts,
+            0.0 if hedge else max(now - float(queued_ts), 0.0),
+            # a hedge duplicates the attempt's hop: its span gets an id of
+            # its own
+            span_id=None if hedge else wire["span_id"],
+            parent_span_id=wire.get("parent_span_id"),
+            node=self.address,
+            tags=tags,
+        )])
+
+    def _record_inflight_span(self, msg, entry):
+        """The send -> reply window of an attempt as a ``dispatch`` span
+        tagged ``wait`` (the worker's spans carve its execution out at
+        higher priority, so what is left is the wire and the loops' own
+        time), and a hedged attempt's racing window tagged ``hedge``."""
+        from bqueryd_tpu_torch import obs
+
+        wire = msg.get_trace()
+        sent_at = (entry or {}).get("sent_at")
+        if not wire or sent_at is None or not obs.enabled():
+            return
+        now = time.time()
+        spans = [obs.make_span(
+            wire["trace_id"], "dispatch", sent_at,
+            max(now - float(sent_at), 0.0),
+            parent_span_id=wire.get("parent_span_id"),
+            node=self.address,
+            tags={"worker": entry.get("worker"),
+                  "retries": entry.get("retries", 0), "wait": True},
+        )]
+        hedged_at = entry.get("hedged_at")
+        if entry.get("hedged") and hedged_at is not None:
+            spans.append(obs.make_span(
+                wire["trace_id"], "dispatch", hedged_at,
+                max(now - float(hedged_at), 0.0),
+                parent_span_id=wire.get("parent_span_id"),
+                node=self.address,
+                tags={"worker": entry.get("hedged"), "hedge": True,
+                      "wait": True},
+            ))
+        self._append_spans(msg, spans)
 
     # -- stale dispatches and hedging ----------------------------------------
     def retry_stale_dispatches(self):
@@ -1170,6 +1383,8 @@ class ControllerNode:
             entry["hedged"] = target
             entry["hedged_at"] = now
             self._mark_hedged(token, now)
+            # the duplicate attempt on the timeline, beside the original
+            self._record_dispatch_span(msg, target, hedge=True)
             if target in self.worker_map:
                 self.worker_map[target]["busy"] = True
                 self.worker_map[target]["last_seen"] = now
@@ -1402,9 +1617,20 @@ class ControllerNode:
         :meth:`_absorb_worker_debug`).  The snapshot is popped from
         ``info``, so that ``worker_map`` stays lean."""
         snap = info.pop("metrics", None)
-        if isinstance(snap, dict):
-            self._worker_metrics[worker_id] = snap
         wedged = bool(info.get("backend_wedged"))
+        # the capacity model's service rate from the histogram deltas and
+        # its bottleneck stage from the stage clocks, of calc workers only,
+        # every heartbeat (its deltas need each cumulative total)
+        pipeline_busy = info.pop("pipeline_busy", None)
+        if info.get("workertype") == "calc" and isinstance(snap, dict):
+            self.capacity.absorb_worker(
+                worker_id, snap, pipeline_busy=pipeline_busy,
+                wedged=wedged, pid=info.get("pid"),
+            )
+        if isinstance(snap, dict) and snap != self._worker_metrics.get(
+                worker_id):
+            self._worker_metrics[worker_id] = snap
+            self._worker_metrics_rev += 1
         prev = self._worker_wedged.get(worker_id)
         self._worker_wedged[worker_id] = wedged
         if wedged and not prev:
@@ -1492,6 +1718,10 @@ class ControllerNode:
             # (matched by prefix: an ErrorMessage's payload is a traceback)
             self.flight.record("rollup_reply_orphaned", token=token)
             return
+        if entry is not None and not (msg.isa(ErrorMessage)
+                                      and msg.get("transient")):
+            # a transient fault's failover records its own (failed) span
+            self._record_inflight_span(msg, entry)
         if msg.isa(ErrorMessage) and msg.get("transient"):
             # a retryable fault: fail over instead of killing the query;
             # _requeue excludes the faulted worker and aborts with the
@@ -1547,6 +1777,10 @@ class ControllerNode:
         # a batched group's reply covers all its files with one merged
         # payload: completion counts covered files, not replies
         key = tuple(filename) if isinstance(filename, list) else (filename,)
+        data = msg.get("data") or b""
+        # once per reply, not per subscriber
+        self.counters["reply_payload_bytes"] += len(data)
+        spans = [s for s in msg.get("spans") or () if isinstance(s, dict)]
         delivered = counted = False
         for parent in parents:
             segment = self.rpc_segments.get(parent)
@@ -1554,8 +1788,11 @@ class ControllerNode:
                 continue  # that subscriber aborted earlier
             delivered = True
             counted = self._count_duplicate(segment, key, counted)
-            self._record_result(segment, key, msg, msg.get("data") or b"",
+            self._record_result(segment, key, msg, data,
                                 msg.get("phase_timings"))
+            # the worker's spans join every subscriber's timeline
+            if spans and segment.get("obs"):
+                segment["obs"]["spans"].extend(spans)
             self._maybe_complete_segment(parent)
         if not delivered:
             self.logger.debug("orphaned result for token %s dropped", token)
@@ -1602,10 +1839,18 @@ class ControllerNode:
         member_shares = msg.get("member_shares")
         if not isinstance(member_shares, dict):
             member_shares = {}
+        from bqueryd_tpu_torch import obs
+
         filename = msg.get("filename")
         key = tuple(filename) if isinstance(filename, list) else (filename,)
+        spans = [s for s in msg.get("spans") or () if isinstance(s, dict)]
         counted = False
         for member_id, parent in bundle_parents.items():
+            # this member's own demux clock: an earlier member's completion
+            # (its merge and reply run in _maybe_complete_segment) must not
+            # land in this member's demux span
+            member_start_ts = time.time()
+            member_clock = time.perf_counter()
             segment = self.rpc_segments.get(parent)
             if segment is None:
                 continue  # that member aborted earlier
@@ -1631,6 +1876,22 @@ class ControllerNode:
                 # underscore-named like _total: never a phase name
                 timings["_member_share"] = round(share, 6)
             self._record_result(segment, key, msg, buf, timings)
+            obs_state = segment.get("obs")
+            if spans and obs_state:
+                # true-wall copies tagged with the member's share, which
+                # the autopsy reports beside them
+                obs_state["spans"].extend(
+                    dict(s, tags={**(s.get("tags") or {}),
+                                  "bundle_share": round(share, 6)})
+                    if share is not None else s
+                    for s in spans
+                )
+                obs_state["spans"].append(obs.make_span(
+                    obs_state["trace_id"], "demux", member_start_ts,
+                    time.perf_counter() - member_clock,
+                    parent_span_id=obs_state["qspan_id"],
+                    node=self.address,
+                ))
             self._maybe_complete_segment(parent)
 
     def _maybe_complete_segment(self, parent):
@@ -1639,6 +1900,7 @@ class ControllerNode:
         segment = self.rpc_segments.get(parent)
         if segment is None:
             return
+        reply_started = time.time()
         # greedy disjoint cover, largest keys first: a re-split batch may
         # leave both a late group payload and its per-shard payloads, and
         # no shard may merge twice
@@ -1684,14 +1946,32 @@ class ControllerNode:
             },
             protocol=messages.PICKLE_PROTOCOL,
         )
-        self._finish_segment(segment, reply)
+        self._finish_segment(segment, reply, parent=parent,
+                             reply_started=reply_started)
 
-    def _finish_segment(self, segment, reply_bytes=None):
+    def _finish_segment(self, segment, reply_bytes=None, parent=None,
+                        error=None, reply_started=None):
         """A query's last act: its reply (none for a retired run, whose
-        client moved on) and the release of its admission ticket, which
-        may launch a queued plan."""
+        client moved on), then its accounting
+        (:meth:`_finalize_query_obs`; a verb a client sends after the
+        reply is served after it, on this loop), and the release of its
+        admission ticket, which may launch a queued plan.  The answer's
+        assembly from ``reply_started`` through its send is the query's
+        ``reply_serialization`` span at the controller."""
         if reply_bytes is not None:
             self.reply_rpc_raw(segment["client_token"], reply_bytes)
+        obs_state = segment.get("obs")
+        if reply_started is not None and obs_state:
+            from bqueryd_tpu_torch import obs
+
+            if obs.enabled():
+                obs_state["spans"].append(obs.make_span(
+                    obs_state["trace_id"], "reply_serialization",
+                    reply_started, max(time.time() - reply_started, 0.0),
+                    parent_span_id=obs_state["qspan_id"],
+                    node=self.address,
+                ))
+        self._finalize_query_obs(parent, segment, error=error)
         ticket = segment.get("admission_ticket")
         if ticket is not None:
             self.admission.release(ticket)
@@ -1704,8 +1984,214 @@ class ControllerNode:
         labelled by its first file and the count of the others."""
         return {
             (k[0] if len(k) == 1 else f"{k[0]}+{len(k) - 1}more"): v
-            for k, v in timings.items()
+            for k, v in (timings or {}).items()
         }
+
+    # -- query accounting ----------------------------------------------------
+    @staticmethod
+    def _new_obs_state(ctx):
+        """A query's trace state: the client's context, the id of the
+        controller's ``groupby`` span every query span is a child of, the
+        spans its timeline is assembled from, and the submit time the
+        admission span starts at."""
+        from bqueryd_tpu_torch import obs
+
+        return {
+            "trace_id": ctx.trace_id,
+            "root_span_id": ctx.span_id,
+            "qspan_id": obs.new_id(),
+            "spans": [],
+            "submitted_ts": time.time(),
+            # the monotonic twin, for the wall of an answer served before
+            # any segment opens
+            "submitted_clock": time.perf_counter(),
+        }
+
+    def _adopt_trace(self, msg):
+        """The query's trace state from the client's context (one minted
+        for a client that sent none), kept on ``msg``."""
+        from bqueryd_tpu_torch import obs
+
+        ctx = obs.TraceContext.from_wire(msg.get_trace())
+        if ctx is None:
+            ctx = obs.TraceContext.new_root()
+        obs_state = self._new_obs_state(ctx)
+        msg["_obs"] = obs_state
+        return obs_state
+
+    def _plan_span(self, obs_state, start_ts, clock):
+        """The ``plan`` span: the plan's compile, from ``start_ts``."""
+        from bqueryd_tpu_torch import obs
+
+        if obs.enabled():
+            obs_state["spans"].append(obs.make_span(
+                obs_state["trace_id"], "plan", start_ts,
+                time.perf_counter() - clock,
+                parent_span_id=obs_state["qspan_id"], node=self.address,
+            ))
+
+    def _observe_admission_wait(self, wait_s):
+        """Admission's wait hook: the queued time before launch, also the
+        capacity model's measured wait (under its own switch)."""
+        from bqueryd_tpu_torch import obs
+
+        if obs.enabled():
+            self.admission_wait_seconds.observe(wait_s)
+        self.capacity.observe_queue_wait(wait_s, source="admission")
+
+    def _observe_arrival(self, decision, payload):
+        """Admission's arrival tap: every offered query (ADMIT, QUEUED
+        and BUSY alike) in the capacity model's per-class arrival rate."""
+        del decision  # offered load counts every outcome alike
+        msg = payload[0] if payload else None
+        slo_class = (self.slo.resolve(msg.get("slo_class"))
+                     if msg is not None else "default")
+        self.capacity.observe_arrival(slo_class)
+
+    def _record_capacity_advice(self, rec):
+        """The shadow advisor's sink: each new recommendation is a flight
+        event and a counter; nothing acts on it."""
+        action = rec.get("action")
+        counter_key = f"capacity_{action}_advised"
+        if counter_key in self.counters:
+            self.counters[counter_key] += 1
+        self.flight.record(
+            "capacity_advice",
+            action=action,
+            n=rec.get("n"),
+            shard=rec.get("shard"),
+            to_worker=rec.get("to_worker"),
+            reason=str(rec.get("reason"))[:200],
+        )
+
+    def _timeline_snapshot(self):
+        """One ``rpc.timeline()`` entry: counters, queue and in-flight
+        depths, fleet size, groupby latency quantiles, the SLO classes'
+        state and the capacity slice."""
+        from bqueryd_tpu_torch import obs
+
+        snap = self.query_seconds.snapshot()
+        admission = self.admission.stats()
+        return {
+            "counters": dict(self.counters),
+            "inflight": len(self.inflight),
+            "workers": len(self.worker_map),
+            "admission_active": admission["active"],
+            "admission_queued": admission["queued"],
+            "groupby_count": sum(snap.get("counts", ())),
+            "groupby_p50_s": obs.quantile_from_snapshot(snap, 0.5),
+            "groupby_p99_s": obs.quantile_from_snapshot(snap, 0.99),
+            "slo": self.slo.snapshot(),
+            "capacity": self._capacity_timeline_fields(),
+        }
+
+    def _capacity_timeline_fields(self):
+        """The compact capacity slice of each timeline entry."""
+        fleet = self.capacity.snapshot().get("fleet") or {}
+        return {
+            key: fleet.get(key)
+            for key in ("utilization", "state", "arrival_qps", "knee_qps",
+                        "headroom_qps", "model_drift")
+        }
+
+    def _finalize_query_obs(self, parent, segment, error=None):
+        """Every finished query (answered, aborted or retired) lands here
+        once: the ``queries_completed`` counter, and while the hot path is
+        on the ``query_seconds`` observation, its SLO class's record, its
+        timeline with its attribution in ``trace_store``, the capacity
+        model's measured wait and, past the threshold, the slow-query
+        ring."""
+        from bqueryd_tpu_torch import obs
+
+        wall = time.perf_counter() - segment.get(
+            "created_clock", time.perf_counter())
+        self.counters["queries_completed"] += 1
+        obs_state = segment.get("obs")
+        trace_id = (obs_state or {}).get("trace_id")
+        if error is not None:
+            # forensic event, never gated
+            self.flight.record("query_failed", parent=parent,
+                               trace_id=trace_id, wall_s=round(wall, 6),
+                               error=str(error)[:300])
+        if not obs.enabled():
+            return
+        if error is None:
+            self.flight.record("query_done", parent=parent,
+                               trace_id=trace_id, wall_s=round(wall, 6),
+                               shards=len(segment.get("filenames", ())))
+        self.query_seconds.observe(wall)
+        # an absolute client deadline wins over the class target
+        msg = segment.get("msg") or {}
+        deadline = msg.get("deadline")
+        margin_s = (float(deadline) - time.time()
+                    if deadline is not None else None)
+        self.slo.record(msg.get("slo_class"), wall, margin_s=margin_s,
+                        ok=error is None)
+        if not obs_state:
+            return
+        # the root span opens at submit, so that its admission child never
+        # starts before it, and closes now
+        submitted = obs_state.get("submitted_ts", segment["created"])
+        spans = [obs.make_span(
+            trace_id, "groupby", submitted,
+            wall + max(segment["created"] - submitted, 0.0),
+            span_id=obs_state["qspan_id"],
+            parent_span_id=obs_state["root_span_id"],
+            node=self.address,
+            tags={"parent_token": parent},
+        )]
+        # a shared unit's worker spans carry the trace of the query that
+        # created it: retagged, so that each timeline is self-consistent
+        spans.extend(dict(span, trace_id=trace_id)
+                     for span in obs_state["spans"])
+        spans.sort(key=lambda s: s.get("start_ts", 0.0))
+        timeline = {
+            "trace_id": trace_id,
+            "ok": error is None,
+            "wall_s": round(wall, 6),
+            "created_ts": segment["created"],
+            "filenames": list(segment["filenames"]),
+            "pruned": list(segment.get("pruned", ())),
+            "spans": spans,
+        }
+        if segment.get("answer_source") is not None:
+            timeline["answer_source"] = segment["answer_source"]
+        if error is not None:
+            timeline["error"] = str(error)[:500]
+        # the attribution rides the stored timeline; a malformed span set
+        # never breaks a query's completion
+        try:
+            timeline["attribution"] = obs.slo.attribute(timeline)
+        except Exception:
+            self.logger.exception("attribution failed for %s", trace_id)
+        # the measured pre-worker wait (admission and dispatch segments)
+        # against the capacity model's prediction
+        attribution = timeline.get("attribution")
+        if isinstance(attribution, dict) and error is None:
+            segments = attribution.get("segments") or {}
+            self.capacity.observe_queue_wait(
+                segments.get("admission_wait", 0.0)
+                + segments.get("dispatch", 0.0),
+                source="autopsy",
+            )
+        self.trace_store.put(trace_id, timeline)
+        recorded = self.slow_queries.maybe_record(wall, {
+            "trace_id": trace_id,
+            "ok": error is None,
+            **({"error": str(error)[:200]} if error is not None else {}),
+            "filenames": len(segment["filenames"]),
+            "pruned_shards": len(segment.get("pruned", ())),
+            "plan_signature": segment.get("plan_sig"),
+            "slo_class": self.slo.resolve(msg.get("slo_class")),
+            "strategy_hints": dict(segment.get("strategies", {})),
+            "effective_strategies": self._compact_timings(
+                segment.get("effective")),
+            "phase_timings": self._compact_timings(segment.get("timings")),
+            # the compact critical path (the full record: rpc.autopsy)
+            "attribution": obs.slo.summarize(timeline.get("attribution")),
+        })
+        if recorded:
+            self.counters["slow_queries"] += 1
 
     def abort_parent(self, parent, error_text, reply=True, error_class=None,
                      attempts=None):
@@ -1741,6 +2227,8 @@ class ControllerNode:
                  "attempts": list(attempts or [])},
                 protocol=messages.PICKLE_PROTOCOL,
             ) if reply else None,
+            parent=parent,
+            error=error_text,
         )
 
     def reply_rpc_raw(self, client_token, payload_bytes):
@@ -1795,6 +2283,67 @@ class ControllerNode:
         reply.add_as_binary("result", self.metrics.render())
         self.reply_rpc_message(msg["token"], reply)
 
+    def rpc_trace(self, msg):
+        """The assembled timeline of one trace id (None once it left the
+        ring): ``rpc.trace(rpc.last_trace_id)``."""
+        args, _ = msg.get_args_kwargs()
+        reply = msg.copy()
+        reply.add_as_binary("result",
+                            self.trace_store.get(args[0] if args else None))
+        self.reply_rpc_message(msg["token"], reply)
+
+    def rpc_slow_queries(self, msg):
+        """The slow-query ring (``BQUERYD_TPU_SLOW_QUERY_MS``), newest
+        last."""
+        reply = msg.copy()
+        reply.add_as_binary("result", self.slow_queries.entries())
+        self.reply_rpc_message(msg["token"], reply)
+
+    def rpc_autopsy(self, msg):
+        """``rpc.autopsy(trace_id=None)``: the attributed critical path of
+        one query (or of the newest), with its slow-query entry when it
+        has one; None once its timeline left the ring."""
+        args, kwargs = msg.get_args_kwargs()
+        trace_id = args[0] if args else kwargs.get("trace_id")
+        reply = msg.copy()
+        reply.add_as_binary("result", self.build_autopsy(trace_id))
+        self.reply_rpc_message(msg["token"], reply)
+
+    def build_autopsy(self, trace_id=None):
+        from bqueryd_tpu_torch import obs
+
+        timeline = (self.trace_store.get(trace_id) if trace_id
+                    else self.trace_store.latest())
+        if timeline is None:
+            return None
+        record = timeline.get("attribution")
+        if not isinstance(record, dict):
+            # its attribution failed when it was stored: attribute now
+            record = obs.slo.attribute(timeline)
+        record = dict(record)
+        slow = self.slow_queries.entry_for(record.get("trace_id"))
+        if slow is not None:
+            record["slow_query"] = slow
+        return record
+
+    def rpc_timeline(self, msg):
+        """``rpc.timeline()``: the controller's snapshot ring, oldest
+        first (one entry per ``BQUERYD_TPU_TIMELINE_INTERVAL_S``)."""
+        reply = msg.copy()
+        reply.add_as_binary("result", self.timeline_ring.entries())
+        self.reply_rpc_message(msg["token"], reply)
+
+    def rpc_capacity(self, msg):
+        """``rpc.capacity()``: the fleet capacity model, evaluated now."""
+        reply = msg.copy()
+        reply.add_as_binary("result", self._capacity_bundle_section())
+        self.reply_rpc_message(msg["token"], reply)
+
+    def _capacity_bundle_section(self):
+        """A fresh evaluation of the capacity model and its snapshot."""
+        self.capacity.evaluate()
+        return self.capacity.snapshot()
+
     def rpc_health(self, msg):
         """``rpc.health()``: each worker's health status (ok, degraded,
         wedged) from the rolling baselines, the view dispatch acts on."""
@@ -1808,21 +2357,30 @@ class ControllerNode:
         self.reply_rpc_message(msg["token"], reply)
 
     def rpc_debug_bundle(self, msg):
-        """``rpc.debug_bundle()``: the cross-node forensic artifact (schema
-        ``bqueryd_tpu.debug_bundle/4``), one JSON-safe dict."""
+        """``rpc.debug_bundle(trace_id=None)``: the cross-node forensic
+        artifact (schema ``bqueryd_tpu.debug_bundle/4``), one JSON-safe
+        dict."""
+        args, kwargs = msg.get_args_kwargs()
+        trace_id = args[0] if args else kwargs.get("trace_id")
         reply = msg.copy()
-        reply.add_as_binary("result", self.build_debug_bundle())
+        reply.add_as_binary("result", self.build_debug_bundle(trace_id))
         self.reply_rpc_message(msg["token"], reply)
 
-    def build_debug_bundle(self):
+    def build_debug_bundle(self, trace_id=None):
         """The debug artifact from state the controller holds (the worker
         slices come from absorbed heartbeats, so a wedged or dead worker
-        cannot stall it).  Only the sections of ported subsystems are
-        present: the reference's trace, autopsy, slow-query,
-        worker-histogram, runtime, compile-cache, SLO, timeline-ring and
-        capacity sections are absent."""
+        cannot stall it): the reference's sections, among them the
+        requested (or newest) trace and its autopsy, the slow-query ring,
+        the workers' merged histograms, the runtime versions and the
+        kernel build directory, the SLO classes, the newest timeline
+        entries and a fresh capacity evaluation.  Each worker's slice
+        holds its ``compile`` registry, ``runtime``, ``compile_cache`` and
+        ``device_memory``."""
         from bqueryd_tpu_torch import obs
+        from bqueryd_tpu_torch.obs import profile as obs_profile
 
+        timeline = (self.trace_store.get(trace_id) if trace_id
+                    else self.trace_store.latest())
         now = time.time()
         controller_section = {
             "address": self.address,
@@ -1842,7 +2400,14 @@ class ControllerNode:
                 for token, e in self.inflight.items()
             },
             "health": self.health.statuses(),
+            "trace": timeline,
+            # the attributed critical path of that trace
+            "autopsy": (timeline or {}).get("attribution"),
+            "slow_queries": self.slow_queries.entries(),
             "metrics": self.metrics.histogram_snapshot(),
+            "worker_histograms": self._aggregate_worker_histograms(),
+            "runtime": obs_profile.runtime_versions(),
+            "compile_cache": obs_profile.compile_cache_info(),
             "calibration": {
                 **self.calibration.stats(),
                 "sample_cells": self.calibration.summary(max_cells=16),
@@ -1854,6 +2419,9 @@ class ControllerNode:
             },
             "replication": self._replication_info(),
             "batch_window": self._batch_window_info(),
+            "slo": self.slo.snapshot(),
+            "timeline_ring": self.timeline_ring.entries()[-16:],
+            "capacity": self._capacity_bundle_section(),
             "serving": self.serving.snapshot(),
         }
         snapshots = {}
@@ -1864,14 +2432,20 @@ class ControllerNode:
                 "ts": absorbed["ts"] if absorbed else None,
                 "registered": worker_id in self.worker_map,
             }
-        # the data dirs and the runfile dir are operational facts; any
-        # other path is reduced to <redacted>/basename
+        # the data dirs, the runfile dir and the kernel build directory
+        # are operational facts; any other path is reduced to
+        # <redacted>/basename
         allowed = {self.runfile_dir}
         allowed.update(
             info.get("data_dir") for info in self.worker_map.values()
         )
+        allowed.add(controller_section["compile_cache"].get("path"))
+        for absorbed in self._worker_debug.values():
+            cache = (absorbed.get("data") or {}).get("compile_cache") or {}
+            allowed.add(cache.get("path"))
         return obs.build_bundle(
             controller_section, snapshots,
+            trace_id=trace_id or (timeline or {}).get("trace_id"),
             allowed_path_prefixes=[p for p in allowed if p],
         )
 
@@ -1889,9 +2463,24 @@ class ControllerNode:
                 max(time.time() - self._window_opened, 0.0), 3)
         return state
 
+    def _aggregate_worker_histograms(self):
+        """Every worker's histograms merged by bucket-vector addition,
+        memoized on the snapshots' revision (get_info runs once per peer
+        per gossip tick)."""
+        from bqueryd_tpu_torch import obs
+
+        rev, cached = self._worker_hist_cache
+        if rev == self._worker_metrics_rev:
+            return cached
+        merged = obs.merge_histogram_snapshots(self._worker_metrics.values())
+        self._worker_hist_cache = (self._worker_metrics_rev, merged)
+        return merged
+
     def get_info(self, include_peers=True):
         """The controller's state for ``rpc.info()``; ``others`` is the
         peers' gossiped info, left out of the gossip itself."""
+        from bqueryd_tpu_torch.obs import profile as obs_profile
+
         info = {
             "address": self.address,
             "node": self.node_name,
@@ -1916,6 +2505,20 @@ class ControllerNode:
             # replica placement: the factor, shards by live holder count
             # and those below it
             "replication": self._replication_info(),
+            # every worker's histograms, merged (the buckets are fixed)
+            "worker_histograms": self._aggregate_worker_histograms(),
+            "trace_buffer": len(self.trace_store),
+            "slow_queries": len(self.slow_queries),
+            # this process's versions and kernel build directory, and each
+            # worker's versions from its debug slice
+            "runtime": obs_profile.runtime_versions(),
+            "compile_cache": obs_profile.compile_cache_info(),
+            "worker_runtime": {
+                worker_id: (absorbed.get("data") or {}).get("runtime")
+                for worker_id, absorbed in self._worker_debug.items()
+                if worker_id in self.worker_map
+            },
+            "health": self.health.statuses(),
         }
         if include_peers:
             info["others"] = self.others
@@ -2133,11 +2736,17 @@ class ControllerNode:
                 ),
             )
             return
+        # the client's trace context is adopted (one is minted for a
+        # client that sent none): the query's "groupby" span is a child of
+        # the client's root span and the parent of every query span
+        obs_state = self._adopt_trace(msg)
+        plan_start, plan_clock = time.time(), time.perf_counter()
         plan = plan_groupby(
             filenames, groupby_cols, agg_list, where_terms,
             aggregate=kwargs.get("aggregate", True),
             expand_filter_column=kwargs.get("expand_filter_column"),
         )
+        self._plan_span(obs_state, plan_start, plan_clock)
         self._admit_plan(msg, plan, kwargs)
 
     def rpc_query(self, msg):
@@ -2153,6 +2762,8 @@ class ControllerNode:
         args, kwargs = msg.get_args_kwargs()
         if len(args) != 1 or not isinstance(args[0], dict):
             raise ValueError("query needs one spec dict argument")
+        obs_state = self._adopt_trace(msg)
+        plan_start, plan_clock = time.time(), time.perf_counter()
         try:
             dag = dagmod.compile_query(args[0])
             plan, dag_kwargs = dagmod.groupby_equivalent(dag)
@@ -2166,6 +2777,7 @@ class ControllerNode:
                 ),
             )
             return
+        self._plan_span(obs_state, plan_start, plan_clock)
         self._admit_plan(msg, plan, dict(kwargs, **dag_kwargs))
 
     # -- admission, the micro-batch window and launch -----------------------
@@ -2295,13 +2907,24 @@ class ControllerNode:
         """Launch now (window 0: the path without a window) or stage into
         the micro-batch window, so that concurrent compatible queries can
         fuse into one shared-scan dispatch."""
+        from bqueryd_tpu_torch import obs
         from bqueryd_tpu_torch.plan import bundle as bundlemod
 
-        if bundlemod.batch_window_ms() <= 0:
+        window_ms = bundlemod.batch_window_ms()
+        if window_ms <= 0:
             self._launch_plan(msg, plan, kwargs)
             return
         if not self._pending_window:
             self._window_opened = time.time()
+            # a staging decision, on the timeline a slow query is read
+            # from (hot path: under the kill switch)
+            if obs.enabled():
+                self.flight.record("window_open", window_ms=window_ms)
+        # the batch_window span (staged -> flush) is carved out of the
+        # admission wait in _open_query_segment
+        obs_state = msg.get("_obs")
+        if isinstance(obs_state, dict):
+            obs_state["staged_ts"] = time.time()
         self._pending_window.append((msg, plan, kwargs))
         if len(self._pending_window) >= bundlemod.batch_max():
             self._flush_window(force=True)
@@ -2333,11 +2956,25 @@ class ControllerNode:
                 # one malformed plan must not poison the window: it goes
                 # alone, and its own launch answers the error
                 self.logger.exception("window compatibility probe failed")
+                # forensic event, never gated
+                self.flight.record("window_degrade_solo",
+                                   token=str(msg.get("token"))[:12])
                 keep, pruned, key = list(plan.filenames), [], None
             if key is None:
                 key = ("solo", id(msg))
             groups.setdefault(key, []).append(
                 (msg, plan, kwargs, keep, pruned))
+        from bqueryd_tpu_torch import obs
+
+        if obs.enabled():
+            self.flight.record(
+                "window_flush",
+                staged=len(pending),
+                groups=len(groups),
+                fused=sum(1 for g in groups.values() if len(g) > 1),
+                held_ms=round(
+                    max(time.time() - self._window_opened, 0.0) * 1000.0, 1),
+            )
         for entries in groups.values():
             try:
                 if len(entries) == 1:
@@ -2374,19 +3011,78 @@ class ControllerNode:
         bundle member has one of its own.  A pruned shard's (provably
         empty) payload slot is pre-filled, so that the client's merge is
         unchanged."""
+        from bqueryd_tpu_torch import obs
+
         parent_token = os.urandom(8).hex()
-        self.rpc_segments[parent_token] = {
+        # the trace state rpc_groupby adopted (a caller that launches a
+        # plan directly gets a fresh one)
+        obs_state = msg.get("_obs")
+        if not isinstance(obs_state, dict):
+            obs_state = self._new_obs_state(obs.TraceContext.new_root())
+        # the admission span covers submit -> launch, and the time staged
+        # in the micro-batch window is a batch_window span of its own
+        if obs.enabled():
+            now = time.time()
+            staged_ts = obs_state.get("staged_ts")
+            admitted_until = (min(staged_ts, now) if staged_ts is not None
+                              else now)
+            obs_state["spans"].append(obs.make_span(
+                obs_state["trace_id"], "admission",
+                obs_state["submitted_ts"],
+                max(admitted_until - obs_state["submitted_ts"], 0.0),
+                parent_span_id=obs_state["qspan_id"], node=self.address,
+            ))
+            if staged_ts is not None:
+                obs_state["spans"].append(obs.make_span(
+                    obs_state["trace_id"], "batch_window", staged_ts,
+                    max(now - staged_ts, 0.0),
+                    parent_span_id=obs_state["qspan_id"],
+                    node=self.address,
+                ))
+        # one launched query: the capacity model's shards-per-query
+        # denominator
+        self.capacity.observe_launch()
+        self.rpc_segments[parent_token] = self._new_segment(
+            msg, plan.filenames, pruned, obs_state,
+            plan_sig=str(plan.signature()))
+        return parent_token
+
+    @staticmethod
+    def _new_segment(msg, filenames, pruned, obs_state, plan_sig=None):
+        """A query's result segment: a pruned shard's (provably empty)
+        payload slot is pre-filled."""
+        return {
             "client_token": msg["token"],
             "admission_ticket": msg["token"],
-            "filenames": list(plan.filenames),
+            "msg": msg,
+            "filenames": list(filenames),
             "pruned": list(pruned),
             "results": {(f,): b"" for f in pruned},  # group key -> payload
             "timings": {},            # shard-group key -> phase_timings
             "strategies": {},         # hint -> dispatched shards
             "effective": {},          # shard-group key -> executed route
             "merge": {},              # shard-group key -> merge_mode
+            "created": time.time(),
+            # the monotonic anchor of the reported wall
+            "created_clock": time.perf_counter(),
+            "obs": obs_state,
+            "plan_sig": plan_sig,
         }
-        return parent_token
+
+    def _trace_hop(self, shard, parent, queued_ts):
+        """A dispatch's trace hop: a child context of the query's groupby
+        span (the worker's calc span is its child) and the queue clock the
+        dispatch span starts at: ``queued_ts``, when the plan's dispatch
+        began (its units' strategy selection and build are dispatch
+        work)."""
+        obs_state = self.rpc_segments.get(parent, {}).get("obs")
+        if obs_state:
+            shard.set_trace({
+                "trace_id": obs_state["trace_id"],
+                "span_id": os.urandom(8).hex(),
+                "parent_span_id": obs_state["qspan_id"],
+            })
+            shard["_dispatch_queued_ts"] = queued_ts
 
     def _launch_plan(self, msg, plan, kwargs, preplanned=None):
         """Prune, open the segment and queue the plan's dispatch; with
@@ -2417,6 +3113,7 @@ class ControllerNode:
         worker's rare member-by-member path."""
         from bqueryd_tpu_torch.plan import bundle as bundlemod
 
+        dispatch_started = time.time()
         _msg0, plan0, kwargs0, keep, _pruned0 = entries[0]
         member_parents = {}   # member_id -> parent token
         members = []          # (member_id, plan, deadline)
@@ -2463,6 +3160,7 @@ class ControllerNode:
                 shard["parent_token"] = parents[0]
                 shard["filename"] = target
                 shard["affinity"] = affinity
+                self._trace_hop(shard, parents[0], dispatch_started)
                 if bundle_deadline is not None:
                     shard["deadline"] = bundle_deadline
                 shard.add_as_binary("bundle", bundlemod.bundle_fragment(
@@ -2494,6 +3192,7 @@ class ControllerNode:
         from bqueryd_tpu_torch import plan as planmod
         from bqueryd_tpu_torch.plan import fragment_for
 
+        dispatch_started = time.time()
         affinity = kwargs.get("affinity")
         planner_on = planmod.planner_enabled()
         dag_blob = None
@@ -2557,6 +3256,7 @@ class ControllerNode:
             shard["parent_token"] = parent_token
             shard["filename"] = target
             shard["affinity"] = affinity
+            self._trace_hop(shard, parent_token, dispatch_started)
             if msg.get("deadline") is not None:
                 shard["deadline"] = msg["deadline"]
             shard.add_as_binary("plan", fragment_for(
@@ -2714,6 +3414,18 @@ class ControllerNode:
             },
             protocol=messages.PICKLE_PROTOCOL,
         ))
+        # a served answer is accounted as a dispatched one: its SLO
+        # outcome, its query_seconds observation and a timeline of its
+        # groupby span (the reference's served answers skip all of it)
+        obs_state = msg.get("_obs")
+        if isinstance(obs_state, dict):
+            segment = self._new_segment(msg, [], [], obs_state)
+            segment["created"] = obs_state["submitted_ts"]
+            segment["created_clock"] = obs_state.get(
+                "submitted_clock", segment["created_clock"])
+            segment["answer_source"] = source
+            segment["subsumed_from"] = subsumed_from
+            self._finalize_query_obs(None, segment)
 
     def _count_answer(self, source):
         """The answer counter by provenance; every groupby-shaped reply

@@ -11,7 +11,10 @@ Envelope keys the port's nodes read and write:
 
 * client -> controller: ``payload`` (the verb), ``params``, ``deadline``
   (absolute unix time), ``token`` (the client socket, set by the
-  controller);
+  controller), ``trace`` (the tracing context ``{"trace_id", "span_id"[,
+  "parent_span_id"]}``, :meth:`Message.set_trace`; the controller stamps a
+  child context on every CalcMessage) and ``slo_class`` (the client's SLO
+  class, ``RPC(slo_class=...)``, :mod:`obs.slo`);
 * controller -> worker (``CalcMessage``): ``token`` (the work unit),
   ``parent_token`` (the client query), ``filename`` (one shard or a list
   for a batched shard group), ``sole_shard``, ``plan`` (the pickled plan
@@ -22,6 +25,7 @@ Envelope keys the port's nodes read and write:
   ``_attempt_history`` ride along;
 * worker -> controller: ``data`` (the result payload bytes, sent as a
   frame of its own), ``phase_timings`` (``{phase: s, "_total": s}``),
+  ``spans`` (the worker's trace spans, ``obs.trace.SpanRecorder.export``),
   ``effective_strategy``, ``merge_mode``, ``strategy``,
   ``deadline_remaining``, ``transient`` (on an ErrorMessage: a retryable
   fault the controller fails over); ``WorkerRegisterMessage`` carries
@@ -32,8 +36,12 @@ Envelope keys the port's nodes read and write:
   measured-cost strategy cells, ``plan.calibrate.summary_for_wire``,
   absorbed controller-side per worker; None while calibration is off or
   nothing is measured), ``work_errors`` and ``metrics`` (the error
-  counter and the histogram snapshot the health scorer reads), ``debug``
-  and, from the liveness thread, ``liveness_only``.
+  counter and the histogram snapshot the health scorer reads), ``debug``,
+  ``pipeline_busy`` (the stage clocks the capacity model reads) and, from
+  the liveness thread, ``liveness_only``.
+
+:data:`SPAN_SCHEMA` declares every span name a query's trace timeline
+can hold.
 
 Pickled payloads assume a trusted network, as the reference does;
 :meth:`Message.get_from_binary` is the one place that unpickles.
@@ -45,6 +53,55 @@ import pickle
 import time
 
 PICKLE_PROTOCOL = 4
+
+#: every span name a query's trace timeline can hold, with its meaning;
+#: the reference's table.  Raw entries are worker PhaseTimer phase names,
+#: which reach the wire under their public name
+#: (``obs.trace.PHASE_SPAN_NAMES``); each public name has an attribution
+#: segment in ``obs.slo.SPAN_CATEGORIES``
+SPAN_SCHEMA = {
+    # controller-side spans
+    "groupby": "the query's controller root span: submit -> final reply",
+    "admission": "admission-queue wait: submit -> launch (or -> staging)",
+    "batch_window": "micro-batch staging wait: window stage -> flush "
+                    "(BQUERYD_TPU_BATCH_WINDOW_MS)",
+    "plan": "logical-plan compilation + rewrites inside rpc_groupby",
+    "dispatch": "one dispatch ATTEMPT: queue entry -> worker send; tags "
+                "carry worker/retries/backoff_s/hedge so the attribution "
+                "layer can split out retry_backoff and hedge duplicates",
+    "demux": "shared-scan bundle reply demultiplex at the controller",
+    # worker-side spans (public names)
+    "calc": "the worker's root span for one CalcMessage",
+    "storage_decode": "raw phase 'open': shard open + column decode",
+    "prune": "raw phase: chunk-level predicate pruning",
+    "filter": "raw phase 'mask': where-term mask evaluation",
+    "factorize": "raw phase: key factorization (engine path)",
+    "join_probe": "raw phase 'join': broadcast hash-join key factorize + "
+                  "dimension probe gather (operator-DAG executor)",
+    "window_rollup": "raw phase 'rollup': datetime-bucket derived group "
+                     "key computation (operator-DAG executor)",
+    "align": "raw phase: cross-shard key alignment / global key space",
+    "h2d_transfer": "raw phase 'layout': host->device uploads",
+    "kernel": "raw phase 'aggregate': the kernel launches (their device "
+              "time lands in the fetch that waits for them; tag device_s "
+              "holds the CUDA-event time)",
+    "d2h_fetch": "raw phase 'fetch': device->host fetch of the merged "
+                 "result buffer",
+    "merge": "raw phases 'collect'/'hostmerge': materialization / host "
+             "value-keyed merge of partials",
+    "reply_serialization": "raw phase 'serialize': result payload encoding",
+    # raw PhaseTimer names (surface via obs.trace.PHASE_SPAN_NAMES)
+    "open": "raw name of storage_decode",
+    "mask": "raw name of filter",
+    "join": "raw name of join_probe",
+    "rollup": "raw name of window_rollup",
+    "layout": "raw name of h2d_transfer",
+    "aggregate": "raw name of kernel",
+    "fetch": "raw name of d2h_fetch",
+    "collect": "raw name of merge (device-path materialization)",
+    "hostmerge": "raw name of merge (host value-keyed merge)",
+    "serialize": "raw name of reply_serialization",
+}
 
 
 class MalformedMessage(Exception):
@@ -111,6 +168,24 @@ class Message(dict):
     def deadline_expired(self, now=None):
         remaining = self.deadline_remaining(now)
         return remaining is not None and remaining <= 0
+
+    # -- tracing -----------------------------------------------------------
+    # The context is a plain dict, parsed by obs.trace.TraceContext.from_wire
+    # at the hops that record spans.
+    def set_trace(self, wire):
+        """Attach a wire context dict (or a TraceContext, through its
+        ``to_wire``); None clears."""
+        if wire is None:
+            self.pop("trace", None)
+            return
+        if hasattr(wire, "to_wire"):
+            wire = wire.to_wire()
+        self["trace"] = dict(wire)
+
+    def get_trace(self):
+        """The wire context dict, or None."""
+        wire = self.get("trace")
+        return wire if isinstance(wire, dict) else None
 
     # -- call params -------------------------------------------------------
     def set_args_kwargs(self, args, kwargs):

@@ -13,6 +13,10 @@ unless ``--device=cpu`` is given, and fails at start without a card; the
 downloader and movebcolz roles and ``import`` are host work and touch no
 device.  With no role an interactive shell opens with an ``rpc`` client
 (IPython when it is installed, else ``code.interact``).
+``--metrics_port=<port>`` serves the node's Prometheus ``/metrics`` and
+``/healthz`` on that port (0 picks a free one, logged at start);
+``--log_json`` writes one JSON object per log line, with the query's
+``trace_id``.
 
 The coordination URL comes from ``--coordination``, else
 ``BQUERYD_TPU_COORDINATION_URL``, else ``coordination_url`` (or
@@ -77,8 +81,24 @@ def main(argv=None):
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="the calc worker's torch device",
     )
+    parser.add_argument(
+        "--metrics_port", default=None, type=int,
+        help=("serve Prometheus /metrics (and /healthz) on this port (0 "
+              "picks a free one; off by default; BQUERYD_TPU_METRICS_PORT)"),
+    )
+    parser.add_argument(
+        "--log_json", action="store_true",
+        help=("JSON log lines with trace_id/query_id correlation "
+              "(BQUERYD_TPU_LOG_JSON=1)"),
+    )
     parser.add_argument("-v", action="count", default=0, help="debug logging")
     args = parser.parse_args(argv)
+    # the flags set the environment knobs the node constructors read, so
+    # that a supervisor's environment and the CLI configure alike
+    if args.metrics_port is not None:
+        os.environ["BQUERYD_TPU_METRICS_PORT"] = str(args.metrics_port)
+    if args.log_json:
+        os.environ["BQUERYD_TPU_LOG_JSON"] = "1"
 
     config = read_config()
     coordination_url = (

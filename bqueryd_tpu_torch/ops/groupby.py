@@ -38,6 +38,7 @@ from bqueryd_tpu_torch.models.query import (  # noqa: F401
     MERGEABLE_OPS,
     extremum_fill,
 )
+from bqueryd_tpu_torch.obs import profile as _profile
 from bqueryd_tpu_torch.ops import onehot
 
 #: kernel routes partial_tables accepts as a planner hint (None == "auto").
@@ -47,6 +48,23 @@ KERNEL_STRATEGIES = ("auto", "matmul", "scatter", "sort", "matmul!")
 
 #: rows per contraction block (the base kernel's output block)
 _MATMUL_BLOCK = onehot.BLOCK_K
+
+
+def _kernel_call(name):
+    """``onehot.<name>``, looked up at each call (a stubbed wrapper
+    applies), under :func:`obs.profile.instrument`'s call accounting: one
+    multiply-add per element of the stacked rows."""
+    def call(codes, rows, n_rows, n_groups):
+        return getattr(onehot, name)(codes, rows, n_rows, n_groups)
+
+    return _profile.instrument(
+        f"ops.{name}", call,
+        cost=lambda args, _kwargs: 2 * int(args[2]) * int(args[0].shape[0]),
+    )
+
+
+_rows_dot = _kernel_call("onehot_rows_dot")
+_rows_dot_hicard = _kernel_call("onehot_rows_dot_hicard")
 
 #: group ceiling of the base contraction route
 _MATMUL_GROUPS_LIMIT = 8192
@@ -328,6 +346,11 @@ def partial_tables(codes, measures, ops, n_groups, mask=None,
     )
 
 
+#: call accounting of the device entry point (obs.profile): per name and
+#: shape signature, in the worker's debug slice
+partial_tables = _profile.instrument("ops.partial_tables", partial_tables)
+
+
 def bundle_partial_tables(codes, masks, measures, member_specs, n_groups,
                           null_sentinels=None, strategy=None, device=None):
     """Per-member partial tables of a shared-scan bundle over ONE codes
@@ -543,12 +566,12 @@ def _partial_tables_mm(codes, ms, ops, n_groups, mask, sentinels, hicard):
                           dtype=torch.bfloat16, device=dev)[:, :n]
     torch.stack(rows, 0, out=stacked)
     if hicard:
-        out = onehot.onehot_rows_dot_hicard(folded, stacked, n_rows, n_groups)
+        out = _rows_dot_hicard(folded, stacked, n_rows, n_groups)
         # zero-extend the uint32 totals: one block of int64 sums
         tot = out.view(torch.int32)[:n_rows, :n_groups].to(torch.int64)
         tot_u = (tot & 0xFFFFFFFF)[int_rows]
     else:
-        out = onehot.onehot_rows_dot(folded, stacked, n_rows, n_groups)
+        out = _rows_dot(folded, stacked, n_rows, n_groups)
         out = out[:, :n_rows, :n_groups]
         tot_u = out[:, int_rows].to(torch.int64).sum(0)
         if float_rows:
@@ -886,7 +909,17 @@ def host_partial_tables(codes, measures, ops, n_groups, mask=None,
     bincount while every partial stays below 2^53, else four 16-bit limbs,
     or the native striped kernels (``storage.native``), which sum in
     uint64.  Returns ``{"rows": int64[n_groups], "aggs": tuple of partial
-    dicts}`` of NumPy arrays."""
+    dicts}`` of NumPy arrays.  Under ``BQUERYD_TPU_PROFILE=1`` it is a
+    profiler range (``host_kernel``) like the device phases."""
+    from bqueryd_tpu_torch.utils.tracing import trace_span
+
+    with trace_span("host_kernel"):
+        return _host_partial_tables(codes, measures, ops, n_groups,
+                                    mask=mask, null_sentinels=null_sentinels)
+
+
+def _host_partial_tables(codes, measures, ops, n_groups, mask=None,
+                         null_sentinels=None):
     import numpy as np
 
     codes = np.asarray(codes)

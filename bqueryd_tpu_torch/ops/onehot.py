@@ -43,6 +43,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -120,7 +121,6 @@ HicardPlan = collections.namedtuple(
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "onehot_groupby.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -142,28 +142,52 @@ def _nvcc():
 
 
 def build():
-    """Compile ``csrc/onehot_groupby.cu`` for sm_90a into
-    ``build/kernels/`` (once per source content) and return the library
-    path.  Needs ``nvcc``; never runs at import time."""
+    """Compile ``csrc/onehot_groupby.cu`` for sm_90a into the kernel build
+    directory (``build/kernels/``, :func:`obs.profile.kernel_build_dir`),
+    once per source content, and return the library path.  Needs
+    ``nvcc``; never runs at import time.  Each call is accounted in
+    :func:`obs.profile.profiler`: a library on disk as a hit, an nvcc run
+    as a miss with its seconds and the compiler's release, kept beside the
+    library (``.nvcc``) for the processes that load it later."""
+    from bqueryd_tpu_torch.obs import profile
+
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"libonehot_groupby_{digest}.so")
+    build_dir = profile.kernel_build_dir()
+    path = os.path.join(build_dir, f"libonehot_groupby_{digest}.so")
+    release_path = f"{path}.nvcc"
     if os.path.exists(path):
+        release = None
+        if os.path.exists(release_path):
+            with open(release_path) as f:
+                release = f.read().strip() or None
+        profile.profiler().record_build(hit=True, nvcc_release=release)
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
         "-o", tmp, SOURCE,
     ]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True)
+    release = profile.nvcc_release(version.stdout)
+    with open(f"{release_path}.{os.getpid()}.tmp", "w") as f:
+        f.write(release or "")
+    os.replace(f"{release_path}.{os.getpid()}.tmp", release_path)
     os.replace(tmp, path)
     build.ptxas_report = proc.stderr
+    profile.profiler().record_build(hit=False, seconds=seconds,
+                                    nvcc_release=release)
     return path
 
 
@@ -193,6 +217,9 @@ def _library():
                 fn.argtypes = argtypes
             _lib = lib
             _LOADS[0] += 1
+            from bqueryd_tpu_torch.obs import profile
+
+            profile.profiler().record_load()
         return _lib
 
 

@@ -73,11 +73,12 @@ def evict_watermark():
 
 
 def memory_sample(device):
-    """``{"bytes_in_use", "bytes_limit"}`` of a CUDA device, or None for
-    the CPU.  In use is ``torch.cuda.memory_stats``'s
+    """``{"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}`` of a CUDA
+    device, or None for the CPU.  In use is ``torch.cuda.memory_stats``'s
     ``allocated_bytes.all.current`` -- the live tensors, which is what
     dropping cache entries frees (the caching allocator keeps the freed
-    blocks reserved for reuse); the limit is the card's total memory from
+    blocks reserved for reuse) -- and the peak its ``.peak``, the process's
+    high watermark; the limit is the card's total memory from
     ``torch.cuda.mem_get_info``."""
     if device is None or getattr(device, "type", None) != "cuda":
         return None
@@ -87,6 +88,7 @@ def memory_sample(device):
     _free, total = torch.cuda.mem_get_info(device)
     return {
         "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+        "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
         "bytes_limit": int(total),
     }
 

@@ -54,12 +54,27 @@ Each entry point (``execute``, ``execute_bundle``, ``execute_dag``) first
 fires the ``worker.device`` fault site (:mod:`bqueryd_tpu_torch.chaos`),
 before any upload, working-set insert or launch.
 
+With a :class:`~bqueryd_tpu_torch.utils.tracing.PhaseTimer` set as
+``timer``, each entry point times its phases (``align``, ``mask``,
+``layout``, ``aggregate``, ``fetch``, ``collect``; ``prune`` for a DAG),
+which become the calc reply's spans (``layout`` as ``h2d_transfer``,
+``aggregate`` as ``kernel``, ``fetch`` as ``d2h_fetch``, ``collect`` as
+``merge``).  The launches are asynchronous: the host-timed ``aggregate``
+ends before its kernels do, and their device time lands in the ``fetch``
+that waits for them, which runs nested in ``aggregate`` and is debited
+from it.  On a CUDA device a CUDA event pair recorded around the launches
+on the current stream, read after that fetch (which has synchronized
+already), tags the ``kernel`` span with ``device_s``: no synchronization
+is added.  Under ``BQUERYD_TPU_PROFILE=1`` each phase is also a
+``torch.profiler`` range and an NVTX range (``utils.tracing.trace_span``).
+
 Waiting for a later slice: several devices (the ``torch.distributed``
 merge, its host-merge kill switch and the ``psum`` mode).
 """
 
 import contextlib
 import os
+import threading
 import time
 
 import numpy as np
@@ -169,10 +184,54 @@ def _upload(arr, device):
     return as_tensor(arr, device)
 
 
+#: the open aggregate phase of this thread: (timer, device clock), which
+#: :func:`_fetch` ends and times
+_fetch_ctx = threading.local()
+
+
+class _DeviceClock:
+    """A CUDA event pair on the current stream: :meth:`start` and
+    :meth:`stop` record, :meth:`seconds` reads once both completed."""
+
+    def __init__(self):
+        import torch
+
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._stop = torch.cuda.Event(enable_timing=True)
+        self._stopped = False
+
+    def start(self):
+        self._start.record()
+
+    def stop(self):
+        if not self._stopped:
+            self._stop.record()
+            self._stopped = True
+
+    def done(self):
+        """Whether both events completed (no wait)."""
+        return self._stopped and self._stop.query()
+
+    def seconds(self):
+        return self._start.elapsed_time(self._stop) / 1e3
+
+
 def _fetch(flat):
-    """The device -> host copy of a query's result: the one packed
-    buffer."""
-    return flat.cpu().numpy()
+    """The device -> host copy of a query's result: the one packed buffer.
+    Inside an aggregate phase (:meth:`MeshQueryExecutor._kernel_phase`) it
+    first ends the phase's device clock, and is timed as the phase
+    ``fetch``, debited from the enclosing ``aggregate``."""
+    timer, clock = getattr(_fetch_ctx, "value", None) or (None, None)
+    if clock is not None:
+        clock.stop()
+    if timer is None:
+        return flat.cpu().numpy()
+    t0 = time.perf_counter()
+    try:
+        with timer.phase("fetch"):
+            return flat.cpu().numpy()
+    finally:
+        timer.debit("aggregate", time.perf_counter() - t0)
 
 
 class MeshQueryExecutor:
@@ -231,9 +290,41 @@ class MeshQueryExecutor:
         return self._align_engine
 
     def _phase(self, name):
-        if self.timer is None:
-            return contextlib.nullcontext()
-        return self.timer.phase(name)
+        """A timed phase (when ``timer`` is set) and a profiler range."""
+        from bqueryd_tpu_torch.utils.tracing import trace_span
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(trace_span(name, self.device))
+        if self.timer is not None:
+            stack.enter_context(self.timer.phase(name))
+        return stack
+
+    @contextlib.contextmanager
+    def _kernel_phase(self):
+        """The ``aggregate`` phase of an entry point: its launches, then
+        the fetch (:func:`_fetch`).  With a span recorder on a CUDA device,
+        a :class:`_DeviceClock` from the phase's start to the fetch tags
+        the ``kernel`` span with ``device_s``."""
+        recorder = getattr(self.timer, "recorder", None)
+        clock = (_DeviceClock() if recorder is not None
+                 and self.device.type == "cuda" else None)
+        prev = getattr(_fetch_ctx, "value", None)
+        _fetch_ctx.value = (self.timer, clock)
+        try:
+            with self._phase("aggregate"):
+                if clock is not None:
+                    clock.start()
+                yield
+        finally:
+            _fetch_ctx.value = prev
+        if clock is not None and clock.done():
+            # the fetch inside the phase synchronized the stream
+            device_s = clock.seconds()
+            for span in reversed(recorder.spans):
+                if span.get("name") == "kernel":
+                    span.setdefault("tags", {})["device_s"] = round(
+                        device_s, 6)
+                    break
 
     @staticmethod
     def supports(query: GroupByQuery):
@@ -494,7 +585,7 @@ class MeshQueryExecutor:
 
         if align_warm:
             prefetch_missing()
-        with pipeline.stage("align"):
+        with self._phase("align"), pipeline.stage("align"):
             cached = self._align_cache.get((tables_key, cols_key))
             if cached is None:
                 dense, combos, cards, key_values = self._global_key_space(
@@ -523,9 +614,10 @@ class MeshQueryExecutor:
             codes_d = self._codes_block(tables, query, dense, n_groups,
                                         engine)
             self._codes_cache.put(codes_key, codes_d)
-        measures_d = self._measure_blocks(
-            tables, unique_cols, block_key, prefetch
-        )
+        with self._phase("layout"):
+            measures_d = self._measure_blocks(
+                tables, unique_cols, block_key, prefetch
+            )
 
         sentinels = tuple(
             np.iinfo(np.int64).min if k == "datetime" else None
@@ -542,7 +634,7 @@ class MeshQueryExecutor:
         self.last_effective_strategy = route
         marker = onehot.build_marker()
         kernel_clock = time.perf_counter()
-        with pipeline.stage("kernel"):
+        with self._kernel_phase(), pipeline.stage("kernel"):
             merged = self._device_partials(
                 tuple(query.ops), n_prog, codes_d, per_agg, sentinels,
                 strategy,
@@ -561,7 +653,7 @@ class MeshQueryExecutor:
         if n_prog != n_groups:
             merged = _tree_map(lambda a: a[:n_groups], merged)
         self.last_merge_mode = "device"
-        with pipeline.stage("merge"):
+        with self._phase("collect"), pipeline.stage("merge"):
             return self._collect_payload(
                 merged, query, tables, combos, cards, key_values,
                 measure_kinds,
@@ -579,35 +671,39 @@ class MeshQueryExecutor:
         from bqueryd_tpu_torch.parallel import pipeline
 
         masks = []
-        for t in tables:
-            mask = ops.build_mask(t, query.where_terms, self.device)
-            if query.expand_filter_column:
-                bcodes, buniques = engine._basket_codes(
-                    t, query.expand_filter_column
+        with self._phase("mask"):
+            for t in tables:
+                mask = ops.build_mask(t, query.where_terms, self.device)
+                if query.expand_filter_column:
+                    bcodes, buniques = engine._basket_codes(
+                        t, query.expand_filter_column
+                    )
+                    mask = ops.expand_mask_by_group(
+                        bcodes, mask, n_groups=len(buniques),
+                        device=self.device,
+                    )
+                masks.append(mask)
+        with self._phase("layout"):
+            with pipeline.stage("align"):
+                cdt = _codes_dtype(n_groups)
+                packed = self._pack(
+                    [d.astype(cdt) for d in dense], self.n_devices,
+                    cdt.type(-1), dtype=cdt,
                 )
-                mask = ops.expand_mask_by_group(
-                    bcodes, mask, n_groups=len(buniques), device=self.device
-                )
-            masks.append(mask)
-        with pipeline.stage("align"):
-            cdt = _codes_dtype(n_groups)
-            packed = self._pack(
-                [d.astype(cdt) for d in dense], self.n_devices,
-                cdt.type(-1), dtype=cdt,
+            with pipeline.stage("h2d"):
+                codes_d = _upload(packed, self.device)
+            if all(m is None for m in masks):
+                return codes_d
+            keep = torch.zeros(packed.size, dtype=torch.bool,
+                               device=self.device)
+            off = 0
+            for d, m in zip(dense, masks):
+                keep[off:off + len(d)] = True if m is None else m
+                off += len(d)
+            return torch.where(
+                keep.view(packed.shape), codes_d,
+                torch.full_like(codes_d, -1),
             )
-        with pipeline.stage("h2d"):
-            codes_d = _upload(packed, self.device)
-        if all(m is None for m in masks):
-            return codes_d
-        keep = torch.zeros(packed.size, dtype=torch.bool, device=self.device)
-        off = 0
-        for d, m in zip(dense, masks):
-            keep[off:off + len(d)] = True if m is None else m
-            off += len(d)
-        return torch.where(
-            keep.view(packed.shape), codes_d,
-            torch.full_like(codes_d, -1),
-        )
 
     def _measure_blocks(self, tables, unique_cols, block_key, prefetch):
         """One packed device block per distinct measure column, from the
@@ -882,7 +978,7 @@ class MeshQueryExecutor:
         )
 
         n_prog = ops.program_bucket(n_groups)
-        with self._phase("aggregate"), pipeline.stage("kernel"):
+        with self._kernel_phase(), pipeline.stage("kernel"):
             # the members share one shape: the first one's route speaks
             # for the bundle
             first = queries[0]
@@ -1200,7 +1296,7 @@ class MeshQueryExecutor:
             sketch_spec.append((slot_of[dag.aggs[i][0]], float(lg),
                                 int(imin), int(imax), int(kmin), int(width)))
 
-        with self._phase("aggregate"), pipeline.stage("kernel"):
+        with self._kernel_phase(), pipeline.stage("kernel"):
             self.last_effective_strategy = ops.kernel_route(
                 None, tuple(measures_d[s] for s, _op, _st in classic_spec),
                 tuple(op for _s, op, _st in classic_spec),
@@ -1432,6 +1528,24 @@ def _dag_partials(n_groups, codes_d, measures_d, classic_spec, topk_spec,
     spec = [(gb.np_dtype(leaf.dtype), tuple(leaf.shape)) for leaf in leaves]
     flat = _fetch(torch.cat([_pack_leaf(leaf) for leaf in leaves]))
     return _dag_unflatten(tree, _unpack_host(flat, spec))
+
+
+def _dag_program_flops(args, _kwargs):
+    """Analytic flops of one :func:`_dag_partials` call: one multiply-add
+    per row and classic aggregation (the partial-table contraction)."""
+    codes_d, classic_spec = args[1], args[3]
+    return 2 * int(codes_d.shape[-1]) * (len(classic_spec) + 1)
+
+
+def _instrument_dag_program():
+    from bqueryd_tpu_torch.obs import profile
+
+    return profile.instrument("executor.dag_program", _dag_partials,
+                              cost=_dag_program_flops)
+
+
+#: call accounting of the fast path's device program (obs.profile)
+_dag_partials = _instrument_dag_program()
 
 
 def _dag_leaves(tree):

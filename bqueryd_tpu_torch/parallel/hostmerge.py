@@ -42,14 +42,19 @@ def merge_payloads(payloads):
     Mixed kinds: 'empty' payloads are dropped; remaining payloads must agree
     on kind.  Returns a single payload dict (kind 'empty' if all were).
     """
+    from bqueryd_tpu_torch.utils.tracing import trace_span
+
     live = [p for p in payloads if p.get("kind") != "empty"]
     if not live:
         return {"format": "bqueryd-tpu-result-1", "kind": "empty"}
     kinds = {p["kind"] for p in live}
-    if kinds == {"rows"}:
-        return _merge_rows(live)
-    if kinds == {"partials"}:
-        return _merge_partials(live)
+    # a profiler range under BQUERYD_TPU_PROFILE=1, on the timeline of the
+    # device kernels it complements
+    with trace_span("hostmerge"):
+        if kinds == {"rows"}:
+            return _merge_rows(live)
+        if kinds == {"partials"}:
+            return _merge_partials(live)
     raise ValueError(f"cannot merge mixed payload kinds: {sorted(kinds)}")
 
 

@@ -18,8 +18,11 @@ Env defaults (overridable per :class:`AdmissionController` instance):
 ``BQUERYD_TPU_ADMIT_MAX_ACTIVE`` (64), ``BQUERYD_TPU_ADMIT_QUEUE_DEPTH``
 (256), ``BQUERYD_TPU_ADMIT_CLIENT_QUOTA`` (0 = unlimited).
 
-The reference's wait and arrival observer hooks feed its metrics, which
-the port has not ported yet.
+Two hooks feed the controller's observability and keep this module free
+of it: ``wait_observer(seconds)`` for every ticket launched from the
+queue, and ``arrival_observer(decision, payload)`` for every submission
+that is not a duplicate (ADMIT, QUEUED and BUSY alike: offered load).  An
+observer that raises never breaks admission.
 
 Control-plane module: stdlib only.
 """
@@ -63,6 +66,13 @@ class AdmissionController:
         self._heap = []      # (priority, deadline-or-inf, seq, ticket_id)
         self._seq = itertools.count()
         self._client_load = {}  # client -> active + queued count
+        self._enqueued_at = {}  # ticket_id -> monotonic enqueue time
+        #: called with the queued seconds of each ticket launched from the
+        #: queue
+        self.wait_observer = None
+        #: called as ``arrival_observer(decision, payload)`` for each
+        #: non-duplicate submission
+        self.arrival_observer = None
         # lifetime totals, for stats()
         self.total_admitted = 0
         self.total_queued = 0
@@ -77,6 +87,15 @@ class AdmissionController:
         else:
             self._client_load[client] = n
 
+    def _notify_arrival(self, decision, payload):
+        """Fire the arrival tap; returns ``decision``."""
+        if self.arrival_observer is not None:
+            try:
+                self.arrival_observer(decision, payload)
+            except Exception:
+                pass  # an observer must never break admission
+        return decision
+
     # -- surface -------------------------------------------------------------
     def submit(self, ticket_id, client, priority=0, deadline=None,
                payload=None):
@@ -89,15 +108,15 @@ class AdmissionController:
             self._client_load.get(client, 0) >= self.client_quota
         ):
             self.total_busy += 1
-            return BUSY
+            return self._notify_arrival(BUSY, payload)
         if len(self._active) < self.max_active:
             self._active[ticket_id] = client
             self._charge(client, +1)
             self.total_admitted += 1
-            return ADMIT
+            return self._notify_arrival(ADMIT, payload)
         if len(self._queued) >= self.queue_depth:
             self.total_busy += 1
-            return BUSY
+            return self._notify_arrival(BUSY, payload)
         entry = (
             float(priority or 0),
             float(deadline) if deadline is not None else float("inf"),
@@ -105,10 +124,11 @@ class AdmissionController:
             ticket_id,
         )
         self._queued[ticket_id] = (client, priority, deadline, payload)
+        self._enqueued_at[ticket_id] = time.monotonic()
         heapq.heappush(self._heap, entry)
         self._charge(client, +1)
         self.total_queued += 1
-        return QUEUED
+        return self._notify_arrival(QUEUED, payload)
 
     def pop_ready(self, now=None):
         """Drain the queue into capacity.  Returns ``(launch, expired)``:
@@ -121,6 +141,7 @@ class AdmissionController:
             item = self._queued.pop(ticket_id, None)
             if item is None:
                 continue  # cancelled/expired earlier; stale heap entry
+            enqueued = self._enqueued_at.pop(ticket_id, None)
             client, _priority, deadline, payload = item
             if deadline is not None and deadline <= now:
                 self._charge(client, -1)
@@ -130,12 +151,18 @@ class AdmissionController:
             self._active[ticket_id] = client
             self.total_admitted += 1
             launch.append(payload)
+            if self.wait_observer is not None and enqueued is not None:
+                try:
+                    self.wait_observer(max(time.monotonic() - enqueued, 0.0))
+                except Exception:
+                    pass  # an observer must never break admission
         # deadline sweep for tickets stuck behind higher-priority work
         if self._queued:
             for ticket_id, item in list(self._queued.items()):
                 client, _priority, deadline, payload = item
                 if deadline is not None and deadline <= now:
                     self._queued.pop(ticket_id, None)
+                    self._enqueued_at.pop(ticket_id, None)
                     self._charge(client, -1)
                     self.total_expired += 1
                     expired.append(payload)
@@ -149,6 +176,7 @@ class AdmissionController:
             return True
         item = self._queued.pop(ticket_id, None)
         if item is not None:
+            self._enqueued_at.pop(ticket_id, None)
             self._charge(item[0], -1)
             return True
         return False

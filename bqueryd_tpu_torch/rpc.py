@@ -20,7 +20,12 @@ attempt, raises :class:`RPCBusyError`.  ``last_call_answer_source`` and
 ``last_call_subsumed_from`` say how the controller produced the last
 answer; ``rpc.metrics()`` returns its Prometheus text and
 ``rpc.debug_bundle()`` its debug bundle, ``rpc.health()`` the controller's
-per-worker health statuses.  ``rpc.download(filenames=[...], bucket=...,
+per-worker health statuses.  Every call mints a trace context
+(``last_trace_id``): ``rpc.trace(trace_id)`` returns the query's span
+waterfall, :meth:`RPC.autopsy` its attributed critical path,
+``rpc.slow_queries()`` the slow-query ring, ``rpc.timeline()`` the
+controller's snapshot ring and :meth:`RPC.capacity` the fleet capacity
+model; ``slo_class=`` names the client's SLO class.  ``rpc.download(filenames=[...], bucket=...,
 scheme=..., wait=True)`` distributes shards; ``downloads()``,
 ``download_progress()``, ``get_download_data()`` and
 ``delete_download(ticket)`` read and cancel tickets straight from the
@@ -128,6 +133,7 @@ class RPC:
         retries=3,
         client_id=None,
         legacy_merge=False,
+        slo_class=None,
     ):
         bqueryd_tpu_torch.configure_logging(loglevel)
         self.logger = bqueryd_tpu_torch.logger.getChild("rpc")
@@ -141,6 +147,16 @@ class RPC:
         #: the reference's sum-of-shard-means quirk: each shard finalized
         #: alone, then every measure re-merged with "sum"
         self.legacy_merge = legacy_merge
+        #: the SLO class this client declares on every request (envelope
+        #: key ``slo_class``): the controller's deadline-margin histograms
+        #: and burn rates bucket its queries under it (unknown: "default")
+        self.slo_class = slo_class
+        #: the trace id minted for the most recent call:
+        #: ``rpc.trace(rpc.last_trace_id)``, ``rpc.autopsy(...)``
+        self.last_trace_id = None
+        # the client's deserialize-and-merge wall per trace id (the newest
+        # 32), folded into autopsy() as its client_deserialize segment
+        self._client_merge_by_trace = {}
         self.last_call_duration = None
         #: attempts the most recent call consumed (1 = first try answered)
         self.last_call_attempts = None
@@ -236,6 +252,15 @@ class RPC:
             msg["priority"] = priority
         if self.client_id is not None:
             msg["client_id"] = self.client_id
+        if self.slo_class is not None:
+            msg["slo_class"] = self.slo_class
+        # every call mints a root trace context: the controller parents
+        # the query's spans to it
+        from bqueryd_tpu_torch.obs.trace import TraceContext
+
+        ctx = TraceContext.new_root()
+        msg.set_trace(ctx)
+        self.last_trace_id = ctx.trace_id
         msg.set_args_kwargs(list(args), kwargs)
         wire = msg.to_json().encode()
         last_error = None
@@ -372,7 +397,45 @@ class RPC:
             result = hostmerge.finalize_table(
                 hostmerge.merge_payloads(payloads))
         self.last_call_client_merge_s = time.perf_counter() - merge_clock
+        if self.last_trace_id:
+            self._client_merge_by_trace[self.last_trace_id] = (
+                self.last_call_client_merge_s)
+            while len(self._client_merge_by_trace) > 32:
+                self._client_merge_by_trace.pop(
+                    next(iter(self._client_merge_by_trace)))
         return result
+
+    # -- query autopsy and fleet capacity -------------------------------------
+    def autopsy(self, trace_id=None):
+        """The attributed critical path of one query (default: the
+        controller's newest trace): named non-overlapping segments, their
+        coverage of the wall and the dispatch attempts.  When this client
+        merged the query's reply itself, its deserialize-and-merge wall,
+        which the controller cannot see, is added as the
+        ``client_deserialize`` segment and the coverage recomputed over
+        the longer wall."""
+        record = self._rpc("autopsy", (trace_id,) if trace_id else (), {})
+        if not isinstance(record, dict):
+            return record
+        merge_s = self._client_merge_by_trace.get(record.get("trace_id"))
+        if merge_s:
+            segments = record.setdefault("segments", {})
+            segments["client_deserialize"] = round(merge_s, 6)
+            wall = float(record.get("wall_s") or 0.0) + merge_s
+            covered = float(record.get("covered_s") or 0.0) + merge_s
+            record["wall_s"] = round(wall, 6)
+            record["covered_s"] = round(covered, 6)
+            if wall > 0:
+                record["coverage"] = round(covered / wall, 4)
+        return record
+
+    def capacity(self):
+        """The controller's fleet capacity model (``obs.capacity``): per
+        worker μ, λ, ρ and saturation state, fleet utilization, the
+        predicted saturation knee and headroom, predicted against measured
+        queue delay, the per-shard dispatch heat map and the shadow
+        advisor's recommendations, which nothing acts on."""
+        return self._rpc("capacity", (), {})
 
     @staticmethod
     def _legacy_merge_tables(payloads):

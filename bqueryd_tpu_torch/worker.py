@@ -104,6 +104,14 @@ from bqueryd_tpu_torch.utils import devicehealth
 from bqueryd_tpu_torch.utils.net import get_my_ip
 from bqueryd_tpu_torch.utils.tracing import PhaseTimer
 
+#: calc phase -> span name: the reference's mapping, and no span for the
+#: port's own ``execute`` and ``delta`` phases (the phases inside them
+#: are spans; the rest of their wall is the calc root's)
+CALC_SPAN_NAMES = {**obs.PHASE_SPAN_NAMES, "execute": None, "delta": None}
+
+#: what :meth:`WorkerBase._run_work` returns after a die_after_ack fault
+_DIED = object()
+
 DEFAULT_HEARTBEAT_INTERVAL = 20.0   # WRM re-broadcast / rescan period
 DEFAULT_POLL_TIMEOUT = 1.0          # seconds per zmq poll tick
 DEFAULT_MEMORY_LIMIT_MB = 2048      # RSS past which the watchdog acts
@@ -123,7 +131,7 @@ def execute(tables, query, engine, executor=None, strategy=None,
     payload), and, only when the filter ran through chunk pruning,
     ``chunk_prune``: ``(chunks_decoded, chunks_skipped)`` over all shards.
     ``timer``, a :class:`PhaseTimer` when given, times the ``prune``
-    phase.
+    phase and the executor's phases.
 
     The executor runs only when the group's rows exceed
     ``host_kernel_rows`` at the worst shard's host cost
@@ -157,6 +165,8 @@ def execute(tables, query, engine, executor=None, strategy=None,
             and total_rows > host_kernel_rows(max(
                 (_host_ns_estimate(t, query.agg_list, total_rows)
                  for t in tables), default=None))):
+        # the executor's phases (and their spans) time into ``timer``
+        executor.timer = timer
         try:
             result = executor.execute(tables, query, strategy=strategy)
         except ops.CompositeOverflow:
@@ -168,6 +178,8 @@ def execute(tables, query, engine, executor=None, strategy=None,
             report["effective_strategy"] = executor.last_effective_strategy
             report["merge_mode"] = executor.last_merge_mode
             return result
+        finally:
+            executor.timer = None
     if len(tables) == 1:
         result = engine.execute_local(tables[0], query, strategy=strategy)
         report["effective_strategy"] = engine.last_effective_strategy
@@ -321,6 +333,12 @@ class WorkerBase:
             "flight-ring events evicted by the entry/byte bounds (monotonic)",
             fn=lambda: self.flight.evictions,
         )
+        # /metrics and /healthz under BQUERYD_TPU_METRICS_PORT (the CLI's
+        # --metrics_port), this node's registry
+        from bqueryd_tpu_torch.obs import http as obs_http
+
+        self._metrics_server = obs_http.maybe_start(self.metrics,
+                                                    self.logger)
 
     # -- lifecycle ---------------------------------------------------------
     def go(self):
@@ -371,6 +389,10 @@ class WorkerBase:
         (:meth:`_request_stop_only`)."""
         if self._request_stop_only():
             return
+        server = getattr(self, "_metrics_server", None)
+        if server is not None:
+            server.close()
+            self._metrics_server = None
         for addr in list(self.controllers):
             try:
                 self.send(addr, StopMessage({"worker_id": self.worker_id}))
@@ -516,17 +538,26 @@ class WorkerBase:
             return None
 
     def _debug_snapshot(self, flight_limit=32):
-        """This node's slice of a debug bundle: the flight ring's tail and
-        the device-health snapshot.  It rides the WRM (small: the tail is
-        capped), so that the controller holds a slice even of a worker that
-        has since died."""
+        """This node's slice of a debug bundle: the flight ring's tail, the
+        call and build registry of :mod:`obs.profile` (``compile``), the
+        device-health snapshot, the runtime versions and the kernel build
+        directory (``compile_cache``), and the device memory.  It rides the
+        WRM (small: the tail and the registry are capped), so that the
+        controller holds a slice even of a worker that has since died."""
+        from bqueryd_tpu_torch.obs import profile
+
+        prof = profile.profiler()
         return {
             "node_id": self.worker_id,
             "workertype": self.workertype,
             "pid": os.getpid(),
             "flight": self.flight.tail(flight_limit),
             "flight_evictions": self.flight.evictions,
+            "compile": prof.snapshot(),
             "device_health": devicehealth.health_snapshot(),
+            "device_memory": prof.device_memory(),
+            "runtime": profile.runtime_versions(),
+            "compile_cache": profile.compile_cache_info(),
         }
 
     #: re-send an unchanged debug slice at most this often (a restarted
@@ -534,9 +565,14 @@ class WorkerBase:
     DEBUG_READVERTISE_S = 60.0
 
     def _debug_change_key(self):
-        """What the slice depends on: the flight ring's sequence and the
-        wedge generation."""
-        return (self.flight.seq,
+        """What the slice depends on: the flight ring's sequence, the
+        profiler's call sequence and build counters, and the wedge
+        generation."""
+        from bqueryd_tpu_torch.obs import profile
+
+        prof = profile.profiler()
+        return (self.flight.seq, prof._call_seq, prof.library_loads,
+                prof.persistent_cache_hits, prof.persistent_cache_misses,
                 devicehealth.health_snapshot()["wedge_generation"])
 
     def _debug_to_advertise(self):
@@ -552,6 +588,18 @@ class WorkerBase:
         self._debug_sent_key = key
         self._debug_sent_ts = now
         return snapshot
+
+    def _pipeline_busy_to_advertise(self):
+        """The stage clocks' busy snapshot for a calc WRM (cumulative
+        seconds per stage, ``parallel.pipeline.clock``): the capacity
+        model names each worker's bottleneck stage from its deltas.  None
+        for the other roles, and on any failure."""
+        if self.workertype != "calc":
+            return None
+        try:
+            return pipeline.clock().snapshot()
+        except Exception:
+            return None
 
     def prepare_wrm(self):
         # getattr: a node built piecemeal (``__new__``) must still answer
@@ -592,6 +640,8 @@ class WorkerBase:
                 "calibration": self._calibration_to_advertise(),
                 # the node's slice of the controller's debug bundle
                 "debug": debug,
+                # the stage clocks the capacity model reads
+                "pipeline_busy": self._pipeline_busy_to_advertise(),
             }
         )
 
@@ -665,6 +715,11 @@ class WorkerBase:
         :class:`~bqueryd_tpu_torch.chaos.TransientError`), Done, then the
         memory watchdog."""
         self.send_to_all(BusyMessage({"worker_id": self.worker_id}))
+        wire = msg.get_trace()
+        log_fields = {
+            "trace_id": (wire or {}).get("trace_id"),
+            "query_id": msg.get("parent_token") or msg.get("token"),
+        }
         # every accepted envelope (hot path: under the kill switch; a
         # failure below is recorded regardless)
         if obs.enabled():
@@ -673,8 +728,24 @@ class WorkerBase:
                 verb=msg.get("payload"),
                 token=msg.get("token"),
                 parent=msg.get("parent_token"),
+                trace_id=log_fields["trace_id"],
             )
         work_clock = time.perf_counter()
+        # the correlation ids on every log line of this work (the JSON
+        # formatter) and the trace context the profiler ranges carry; the
+        # failure's traceback is logged inside both
+        with obs.bind_log_context(**log_fields), obs.use_trace(
+            obs.TraceContext.from_wire(wire)
+        ):
+            result = self._run_work(msg, log_fields, work_clock)
+        if result is _DIED:
+            return  # a hard crash: no reply, no Done, no goodbye
+        self._reply(msg, sender, result)
+
+    def _run_work(self, msg, log_fields, work_clock):
+        """The work item under the fault site and the deadline check: its
+        reply, an ``ErrorMessage`` when it raised, or ``_DIED`` after a
+        ``die_after_ack`` fault."""
         try:
             # the worker.execute fault site: a transient raise (the
             # failover trigger), the wedge latch, die-after-ack (the Busy
@@ -689,7 +760,7 @@ class WorkerBase:
             ) if chaos.enabled() else None
             if fault is not None and fault.action == "die_after_ack":
                 self._chaos_die()
-                return  # a hard crash: no reply, no Done, no goodbye
+                return _DIED
             if fault is not None and fault.action == "wedge":
                 self._chaos_wedged = True
                 self.flight.record("chaos_wedged")
@@ -712,6 +783,7 @@ class WorkerBase:
                 "work_error",
                 verb=msg.get("payload"),
                 token=msg.get("token"),
+                trace_id=log_fields["trace_id"],
                 error=f"{type(exc).__name__}: {exc}"[:300],
             )
             result = ErrorMessage(msg)
@@ -726,8 +798,14 @@ class WorkerBase:
                     "work_done",
                     verb=msg.get("payload"),
                     token=msg.get("token"),
+                    trace_id=log_fields["trace_id"],
                     wall_s=round(time.perf_counter() - work_clock, 6),
                 )
+        return result
+
+    def _reply(self, msg, sender, result):
+        """Send a work item's result (through the ``worker.reply`` fault
+        site), then Done and the memory watchdog."""
         if result is not None:
             # the worker.reply fault site: drop loses the finished result
             # on the wire (the dispatch timeout and the failover recover
@@ -889,16 +967,91 @@ class WorkerNode(WorkerBase):
             "health probes written off as hung since the last success",
             fn=lambda: snap()["abandoned_probes"],
         )
-        # the latency family the controller's health scorer reads from
-        # the WRM's histogram snapshot
+        # the latency family the controller's health scorer and capacity
+        # model read from the WRM's histogram snapshot
         self.groupby_seconds = self.metrics.histogram(
             "bqueryd_tpu_worker_groupby_seconds",
             "whole-CalcMessage wall on the worker (open to serialize)",
         )
+        self.groupby_queries = self.metrics.counter(
+            "bqueryd_tpu_worker_groupby_total",
+            "groupby CalcMessages executed by this worker",
+        )
+        self.reply_bytes = self.metrics.histogram(
+            "bqueryd_tpu_reply_bytes",
+            "serialized groupby result-payload size per calc reply "
+            "(the wire bytes the device-resident merge shrinks)",
+            buckets=obs.BYTES_BUCKETS,
+        )
+        # the process-global build, call and device-memory profile on this
+        # node's registry
+        obs.profile.profiler().bind(self.metrics)
 
     @property
     def device(self):
         return self.engine.device
+
+    def _calc_timer(self, msg):
+        """``(timer, recorder)`` of one calc message: while the hot path is
+        on, a :class:`obs.SpanRecorder` whose ``calc`` root adopts the
+        envelope's trace context (a child of the controller's dispatch
+        span), fed by the timer's phases."""
+        recorder = None
+        if obs.enabled():
+            ctx = obs.TraceContext.from_wire(msg.get_trace())
+            recorder = obs.SpanRecorder(
+                trace_id=ctx.trace_id if ctx else obs.new_id(16),
+                node=self.worker_id,
+                root_name="calc",
+                root_parent=ctx.span_id if ctx else None,
+            )
+        return PhaseTimer(recorder=recorder, span_names=CALC_SPAN_NAMES), \
+            recorder
+
+    def _profiling(self):
+        """A ``torch.profiler`` Chrome trace of the block into
+        ``BQUERYD_TPU_PROFILE_DIR`` when it is set."""
+        profile_dir = os.environ.get("BQUERYD_TPU_PROFILE_DIR")
+        if not profile_dir:
+            return contextlib.nullcontext()
+        from bqueryd_tpu_torch.utils.tracing import profiler_trace
+
+        return profiler_trace(profile_dir, device=self.device)
+
+    def _finish_calc(self, reply, data, timer, recorder, mem_tags=None):
+        """The observability tail of a groupby reply: its spans (device
+        memory on the calc root), the latency histograms and the reply
+        size."""
+        self.groupby_queries.inc()
+        self.groupby_seconds.observe(timer.total())
+        if recorder is None:
+            return
+        reply["spans"] = recorder.export(tags=mem_tags)
+        self.reply_bytes.observe(len(data))
+        for phase, seconds in timer.timings.items():
+            name = CALC_SPAN_NAMES.get(phase, phase)
+            self.metrics.histogram(
+                "bqueryd_tpu_query_phase_seconds",
+                "per-phase worker latency (storage decode, H2D, "
+                "kernel, merge, ...)",
+                labels={"phase": name or phase},
+            ).observe(seconds)
+
+    @staticmethod
+    def _memory_tags(before, after):
+        """Device-memory attribution of one query for its calc root span:
+        the process's watermark, and what this query raised it by and added
+        to live memory."""
+        if after is None:
+            return None
+        before = before or after
+        return {
+            "device_hbm_watermark_bytes": after["peak_bytes_in_use"],
+            "device_peak_delta_bytes": (after["peak_bytes_in_use"]
+                                        - before["peak_bytes_in_use"]),
+            "device_bytes_delta": (after["bytes_in_use"]
+                                   - before["bytes_in_use"]),
+        }
 
     def go(self):
         if self.device.type == "cuda":
@@ -1218,7 +1371,7 @@ class WorkerNode(WorkerBase):
         from bqueryd_tpu_torch.ops import workingset
         from bqueryd_tpu_torch.plan import dag as dagmod
 
-        timer = PhaseTimer()
+        timer, recorder = self._calc_timer(msg)
         args, _kwargs = msg.get_args_kwargs()
         filename, groupby_cols, agg_list, where_terms = args[:4]
         with timer.phase("open"):
@@ -1269,6 +1422,8 @@ class WorkerNode(WorkerBase):
         reply["data"] = data
         reply["rollup_mode"] = mode
         reply["phase_timings"] = timer.as_dict()
+        if recorder is not None:
+            reply["spans"] = recorder.export()
         reply.add_as_binary("rollup_base", workingset.table_growth_base(table))
         reply.add_as_binary("rollup_zones", self._rollup_census(table))
         return reply
@@ -1331,7 +1486,7 @@ class WorkerNode(WorkerBase):
             return self._handle_bundle(msg)
         from bqueryd_tpu_torch.storage.ctable import table_cache_key
 
-        timer = PhaseTimer()
+        timer, recorder = self._calc_timer(msg)
         args, kwargs = msg.get_args_kwargs()
         query, dag, strategy = self._query_of(msg, args, kwargs)
         filename = args[0]
@@ -1363,9 +1518,13 @@ class WorkerNode(WorkerBase):
                 report["merge_mode"] = "host"
                 if cache is not None and len(data) <= cache.max_bytes // 8:
                     cache.put(cache_key, data, nbytes=len(data))
+        mem_tags = None
         if data is None:
-            with timer.phase("execute"):
-                # the prune phase, when it runs, is timed inside execute
+            prof = obs.profile.profiler()
+            mem_before = prof.memory_sample(self.device)
+            with self._profiling(), timer.phase("execute"):
+                # the prune phase and the executor's phases, when they
+                # run, are timed inside execute
                 if query is not None:
                     payload = execute(tables, query, self.engine,
                                       executor=self.executor,
@@ -1373,6 +1532,10 @@ class WorkerNode(WorkerBase):
                                       timer=timer)
                 else:
                     payload = self._execute_dag(tables, dag, timer, report)
+            mem_tags = self._memory_tags(mem_before,
+                                         prof.memory_sample(self.device))
+            if recorder is not None:
+                self._tag_spans(recorder, report)
             with timer.phase("serialize"):
                 data = payload.to_bytes()
             if cache is not None and len(data) <= cache.max_bytes // 8:
@@ -1403,8 +1566,23 @@ class WorkerNode(WorkerBase):
             reply["effective_strategy"] = report["effective_strategy"]
         if report["merge_mode"] is not None:
             reply["merge_mode"] = report["merge_mode"]
-        self.groupby_seconds.observe(timer.total())
+        self._finish_calc(reply, data, timer, recorder, mem_tags)
         return reply
+
+    @staticmethod
+    def _tag_spans(recorder, report):
+        """The kernel span carries the route the executor took, the prune
+        span the chunks it decoded and skipped."""
+        for span in recorder.spans:
+            if (span.get("name") == "kernel"
+                    and report.get("effective_strategy")):
+                span.setdefault("tags", {})["effective_strategy"] = (
+                    report["effective_strategy"])
+            elif span.get("name") == "prune" and "chunk_prune" in report:
+                decoded, skipped = report["chunk_prune"]
+                tags = span.setdefault("tags", {})
+                tags["chunks_decoded"] = decoded
+                tags["chunks_skipped"] = skipped
 
     def _handle_bundle(self, msg):
         """A shared-scan bundle: one CalcMessage carrying several
@@ -1432,7 +1610,7 @@ class WorkerNode(WorkerBase):
         from bqueryd_tpu_torch.plan import dag as dagmod
         from bqueryd_tpu_torch.storage.ctable import table_cache_key
 
-        timer = PhaseTimer()
+        timer, recorder = self._calc_timer(msg)
         fragment = msg.get_from_binary("bundle")
         # each member through the DAG layer, as a solo groupby compiles:
         # the same query, the same result-cache key
@@ -1535,7 +1713,7 @@ class WorkerNode(WorkerBase):
         if report["merge_mode"] is not None:
             reply["merge_mode"] = report["merge_mode"]
         # one CalcMessage executed, whatever its member count
-        self.groupby_seconds.observe(timer.total())
+        self._finish_calc(reply, data, timer, recorder)
         return reply
 
     def _bundle_mesh_eligible(self, tables, queries):

@@ -151,7 +151,30 @@
    library must carry) and single's query over it exact, then ``sleep``,
    ``readfile``, ``info`` and ``killall``, every loop ending within 5 s;
    one ``distribution`` line before the ``kernels`` line;
-14. runs the CLI: ``python -m bqueryd_tpu_torch.node controller``,
+14. drives the observability stack on a cluster of its own
+   (``run_observability_path``, started as ``--metrics_port 0`` and
+   ``--log_json`` start a node, every query a slow one, the result cache
+   off, the heuristic hints, the SLO class ``interactive`` declared) through
+   an ``RPC(slo_class="interactive")``: sharded, multikey, zones and
+   highcard, 1 cold + 5 warm each, each query followed by the same one
+   under ``BQUERYD_TPU_METRICS=0``, both exact and launching the same
+   kernels as their routes imply; every warm query's autopsy is its own,
+   ok, its segments summing to its wall within 1 ms (sharded's coverage
+   at least 0.95), its trace holds the required spans with the groupby
+   span the one orphan and a kernel span with ``device_s`` > 0; then the
+   slow-query ring (one entry per query, class ``interactive``), the
+   timeline, the debug bundle (its nine observability sections, the SLO
+   class, the worker's calls per kernel wrapper and shape equal to the
+   launch counters, the library's load, the runtime, the build directory,
+   the device memory from ``torch.cuda.memory_stats`` at or above the
+   working set's bytes), both nodes' ``/metrics`` scraped over HTTP, a
+   burst of 32 sharded queries from 8 clients with ``rpc.capacity()``
+   (coverage 1.0, the worker's μ > 0), and one warm sharded query under
+   ``BQUERYD_TPU_PROFILE=1`` whose Chrome trace holds the ``mma``
+   kernel's launch inside its ``aggregate`` range; it prints the
+   ``observability`` line (walls on and off, their ratio, each config's
+   segments and ``kernel`` host seconds against ``device_s``);
+15. runs the CLI: ``python -m bqueryd_tpu_torch.node controller``,
    ``... worker --device=cuda``, ``... downloader`` and ``... movebcolz``
    as processes, one checked query per config (but the unpruned leg,
    whose environment the worker process does not have), dag_join through
@@ -159,20 +182,21 @@
    a delta refresh) and the download of a zipped shard from a
    ``BQUERYD_TPU_BLOB_DIR`` store, which the worker then answers; all
    four stopped by SIGTERM and exiting 0;
-15. drives the per-shard engine path (``QueryEngine.execute_local`` per
+16. drives the per-shard engine path (``QueryEngine.execute_local`` per
    shard + ``hostmerge``) for the five BASELINE configs, 1 warm-up + 1
    timed query, checked the same way, each query launching its branch once
    per shard; the launch counters are set to 0 just before each path
    (executor, cluster, DAG, append, concurrency, routing, calibration,
-   serving, resilience, distribution, engine) and read just after, and every
+   serving, resilience, distribution, observability, engine) and read
+   just after, and every
    kernel of each path must have launched there;
-16. breaks queries down into host phases and pipeline stage busy time
+17. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
    time and idle share (torch.profiler, at the pipeline's own width): the
    BASELINE configs on the executor path cold and warm and on the engine
    path warm, the other configs through ``LocalRPC`` (cold and warm on the
    executor, warm per shard);
-17. holds every branch of each kernel against its plain PyTorch version at
+18. holds every branch of each kernel against its plain PyTorch version at
    every recorded shape: each config's own inputs (captured from a warm
    ``LocalRPC`` query: the executor's one call, or a per-shard config's
    first shard; highcard's also forced onto the hicard "global" branch),
@@ -190,13 +214,13 @@
    torch.profiler), beside its plain version, one library call
    (``index_add_``, used nowhere in the port) and a plain streaming read
    of the same bytes;
-18. sweeps the base kernel's two branches over G (the crossover behind
+19. sweeps the base kernel's two branches over G (the crossover behind
     ``onehot.MMA_GROUPS_LIMIT``), beside ``index_add_``, at n = 1M and at
     the executor's n = 10,223,616, and the hicard cluster count C;
-19. times the fast path's torch bodies at the shapes its programs ran
+20. times the fast path's torch bodies at the shapes its programs ran
     (each top-k emission, checked against the sort route, each sketch
     grid, the whole program with its fetch);
-20. prints the sweeps, the fast path's program times, the device-health
+21. prints the sweeps, the fast path's program times, the device-health
     snapshot (the latch must have flipped only where the wedge leg forced
     it, no probe written off), the ``kernels`` JSON line, then the device
     JSON line last.
@@ -808,11 +832,15 @@ def run_executor_path(rpc, names, parts, data_dir, warm=3):
     return report
 
 
-def _wait(predicate, timeout, what, interval=0.1):
+def _wait(predicate, timeout, what, interval=0.1, state=None):
+    """Poll ``predicate`` until it holds; past ``timeout`` raise, with
+    ``state()`` in the message when given."""
     deadline = time.time() + timeout
     while not predicate():
         if time.time() > deadline:
-            raise AssertionError(f"timed out after {timeout}s: {what}")
+            detail = f": {state()}" if state is not None else ""
+            raise AssertionError(
+                f"timed out after {timeout}s: {what}{detail}")
         time.sleep(interval)
 
 
@@ -2993,6 +3021,23 @@ class _Resilience:
         check_result(config, order, columns, self.want[config])
         return wall
 
+    def _dispatch_state(self, box):
+        """What a pinned query's missing dispatch waits on: the queues,
+        the workers' busy flags and health, the work in flight."""
+        ctl = self.controller
+        return {
+            "box": {k: repr(v)[:300] for k, v in box.items()},
+            "queued": {str(k): len(v)
+                       for k, v in ctl.worker_out_messages.items()},
+            "workers": {self.label_of(w): {"busy": i.get("busy"),
+                                           "hb_only": i.get("hb_only")}
+                        for w, i in ctl.worker_map.items()},
+            "inflight": len(ctl.inflight),
+            "health": {self.label_of(w): s.get("status")
+                       for w, s in ctl.health.statuses().items()},
+            "admission": ctl.admission.stats(),
+        }
+
     def pinned(self, label, config):
         """Start ``config``'s query with every other live holder marked
         busy, so that its first dispatch goes to worker ``label``; release
@@ -3002,8 +3047,15 @@ class _Resilience:
         others = [w.worker_id for w in self.workers.values()
                   if w.worker_id != target
                   and w.worker_id in self.controller.worker_map]
-        for wid in others:
-            self.controller.worker_map[wid]["busy"] = True
+        def hold_others():
+            # a registration replaces a worker's entry from the loop
+            # thread, so the mark is set again on every poll
+            for wid in others:
+                info = self.controller.worker_map.get(wid)
+                if info is not None:
+                    info["busy"] = True
+
+        hold_others()
         seq = self.controller.flight.seq
         box = {}
 
@@ -3019,9 +3071,14 @@ class _Resilience:
             # polled every millisecond: a fault that fails at once is
             # retried after a backoff of 50 ms or more, which must find
             # the other holders free again, or it lands on ``label`` anew
-            _wait(lambda: _flight_since(self.controller, seq, "dispatch",
-                                        worker=target), 60,
-                  f"the dispatch to {label}", interval=0.001)
+            _wait(lambda: hold_others() or "error" in box or _flight_since(
+                self.controller, seq, "dispatch", worker=target), 60,
+                f"the dispatch to {label}", interval=0.001,
+                state=lambda: self._dispatch_state(box))
+            if "error" in box:
+                raise AssertionError(
+                    f"the query pinned to {label} failed before its "
+                    f"dispatch: {box['error']!r}") from box["error"]
         finally:
             for wid in others:
                 info = self.controller.worker_map.get(wid)
@@ -3800,6 +3857,448 @@ def run_distribution_path(names, parts, data_dir, scratch, captured):
 def controller_url(store_dir):
     """The coordination URL of a cluster started on ``store_dir``."""
     return f"file://{store_dir}"
+
+
+# -- observability: traces, autopsies, SLO classes, slow queries, the
+# profile, /metrics, the capacity model and the device trace --------------
+
+OBS_CONFIGS = ("sharded", "multikey", "zones", "highcard")
+OBS_WARM = 5
+#: the spans a warm query's timeline holds (tests/test_obs.py's waterfall)
+OBS_SPANS = ("admission", "plan", "dispatch", "kernel", "merge", "calc",
+             "storage_decode", "h2d_transfer", "groupby")
+#: warm autopsy coverage each config is held to (the reference's contract
+#: on its real-wall config); the others' is printed
+OBS_COVERAGE = {"sharded": 0.95}
+#: the debug bundle's sections of this slice's subsystems
+OBS_SECTIONS = ("trace", "autopsy", "slow_queries", "worker_histograms",
+                "runtime", "compile_cache", "slo", "timeline_ring",
+                "capacity")
+OBS_KERNELS = ("onehot_rows_dot", "onehot_rows_dot_hicard")
+OBS_ENV = {
+    # what the CLI's --metrics_port 0 and --log_json set for a node
+    "BQUERYD_TPU_METRICS_PORT": "0",
+    "BQUERYD_TPU_LOG_JSON": "1",
+    # every query lands in the slow-query ring
+    "BQUERYD_TPU_SLOW_QUERY_MS": "0",
+    "BQUERYD_TPU_SLO_CLASSES": "interactive:2.0:0.99",
+    "BQUERYD_TPU_RESULT_CACHE_BYTES": "0",
+    "BQUERYD_TPU_CALIB": "0",
+}
+OBS_SWARM_CLIENTS = 8
+OBS_SWARM_ROUNDS = 4
+
+
+def _program_calls():
+    """{(name, signature): calls} of the process's call registry."""
+    from bqueryd_tpu_torch.obs import profile
+
+    prof = profile.profiler()
+    with prof._lock:
+        return {(e["name"], sig): e["calls"]
+                for sig, e in prof.programs.items()}
+
+
+def _kernel_calls_since(before):
+    """Calls of the two instrumented kernel wrappers since ``before``."""
+    out = dict.fromkeys(OBS_KERNELS, 0)
+    for (name, sig), calls in _program_calls().items():
+        short = name.rsplit(".", 1)[-1]
+        if short in out:
+            out[short] += calls - before.get((name, sig), 0)
+    return out
+
+
+def _kernel_launches(launched):
+    """Launches per wrapper of a ``_launch_delta``."""
+    out = dict.fromkeys(OBS_KERNELS, 0)
+    for key, n in launched.items():
+        out[key.split("/", 1)[0]] += n
+    return out
+
+
+def _check_waterfall(label, timeline):
+    """The required spans, the groupby span the one orphan (its parent is
+    the client's root span), and a kernel span with its device time."""
+    spans = timeline["spans"]
+    names = {s["name"] for s in spans}
+    missing = set(OBS_SPANS) - names
+    ids = {s["span_id"] for s in spans}
+    orphans = [s["name"] for s in spans if s.get("parent_span_id") not in ids]
+    kernels = [s for s in spans if s["name"] == "kernel"]
+    device = [(s.get("tags") or {}).get("device_s") for s in kernels]
+    if missing or orphans != ["groupby"] or not all(
+            d is not None and d > 0 for d in device):
+        raise AssertionError(
+            f"{label}: spans missing {sorted(missing)}, orphans {orphans}, "
+            f"kernel device_s {device}")
+    return (sum(s["duration_s"] for s in kernels), sum(device))
+
+
+def _check_autopsy(label, record, trace_id):
+    """The query's own record, ok, its segments summing to its wall."""
+    total = sum(record["segments"].values()) + record["unattributed_s"]
+    if (record.get("trace_id") != trace_id or record.get("ok") is not True
+            or abs(total - record["wall_s"]) > 1e-3):
+        raise AssertionError(
+            f"{label}: autopsy {record.get('trace_id')} (want {trace_id}), "
+            f"ok {record.get('ok')}, segments {total} against wall "
+            f"{record['wall_s']}")
+
+
+def _scrape(port, families):
+    """GET /metrics of a node; every sample line parses, and each family
+    has samples.  Returns the sample count."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        text = resp.read().decode()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=10) as resp:
+        if resp.read().strip() != b"ok":
+            raise AssertionError(f"/healthz of port {port}")
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        float(value)
+        family = name.split("{", 1)[0]
+        samples[family] = samples.get(family, 0) + 1
+    absent = [f for f in families if not samples.get(f)]
+    if absent:
+        raise AssertionError(f"/metrics of port {port} lacks {absent}")
+    return sum(samples.values())
+
+
+def _trace_launch_in_range(trace_dir, kernel, range_name):
+    """Whether the Chrome trace in ``trace_dir`` holds a launch of
+    ``kernel`` inside a ``range_name`` range: the launch (the runtime call
+    of the kernel's correlation id) within the range, or, where the trace
+    keeps no runtime record of it, the kernel's external id that of the
+    range."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"{len(files)} traces in {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("ph") == "X"
+              and str(e.get("name", "")).startswith(range_name)
+              and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel in str(e.get("name", ""))]
+    by_corr = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr:
+            by_corr[corr] = e
+    found = None
+    for k in kernels:
+        args = k.get("args") or {}
+        launch = by_corr.get(args.get("correlation"))
+        if launch is not None:
+            if any(r["ts"] <= launch["ts"] <= r["ts"] + r["dur"]
+                   for r in ranges):
+                found = "runtime launch inside the range"
+                break
+        elif any((r.get("args") or {}).get("External id")
+                 == args.get("External id") for r in ranges):
+            found = "kernel's external id is the range's"
+            break
+    return {"ranges": len(ranges), "kernels": len(kernels),
+            "runtime_records": len(by_corr), "found": found,
+            "file": files[0]}
+
+
+def run_observability_path(names, parts, data_dir, store_dir, scratch):
+    """The observability stack on a cluster of its own (the controller and
+    a worker on cuda, ``--metrics_port 0`` and ``--log_json``, every query
+    a slow one, the result cache off, the heuristic hints alone) through
+    an ``RPC(slo_class="interactive")``: sharded, multikey, zones and
+    highcard, 1 cold + 5 warm each, every query followed by the same one
+    under ``BQUERYD_TPU_METRICS=0``, each exact, launching as its route
+    implies, on and off alike.  Every warm query's autopsy is its own,
+    ok, with segments summing to its wall (sharded's warm coverage at
+    least 0.95), and its trace holds the required spans, the groupby span
+    the one orphan and a kernel span with ``device_s``.  Then the slow
+    queries (one per query, class "interactive"), the timeline, the debug
+    bundle (the nine sections, the worker's calls per instrumented name
+    and shape against the launch counters, the library's load, runtime,
+    build directory, device memory against the working set), both nodes'
+    ``/metrics`` over HTTP, a burst of 32 sharded queries from 8 clients
+    and ``rpc.capacity()`` (coverage 1.0, the worker's μ > 0), and one
+    warm sharded query under ``BQUERYD_TPU_PROFILE=1`` whose Chrome trace
+    must hold the ``mma`` kernel's launch inside its ``aggregate`` range.
+    Returns the ``observability`` report."""
+    import logging
+
+    from bqueryd_tpu_torch.obs import profile
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.rpc import RPC
+
+    report = {"configs": {}}
+    with _env_set(OBS_ENV):
+        rpc0, controller, worker, threads = _start_cluster(data_dir,
+                                                           store_dir)
+        rpc0._close_socket()
+        url = f"file://{store_dir}"
+        rpc = RPC(coordination_url=url, timeout=300, retries=1,
+                  loglevel=logging.WARNING, slo_class="interactive")
+        try:
+            _wait(lambda: all(n in controller.shard_stats for n in names),
+                  60, "every shard's advertised stats")
+            on_traces = []
+            calls = dict.fromkeys(OBS_KERNELS, 0)
+            launches = dict.fromkeys(OBS_KERNELS, 0)
+            for config in OBS_CONFIGS:
+                want = reference(config, parts)
+                worker.clear_caches()
+                walls = {"on": [], "off": []}
+                coverage, segments, kernel_s = [], [], []
+                unattributed = []
+                for rep in range(OBS_WARM + 1):
+                    answers = {}
+                    for mode in ("on", "off"):
+                        env = ({} if mode == "on"
+                               else {"BQUERYD_TPU_METRICS": "0"})
+                        with _env_set(env):
+                            before = dict(onehot.LAUNCHES)
+                            prog = _program_calls()
+                            answer, wall = _timed(
+                                lambda: _query(rpc, names, config))
+                            trace_id = rpc.last_trace_id
+                            # the controller replies, then accounts: a
+                            # verb served after the query is served after
+                            # its accounting, under this environment
+                            rpc.ping()
+                            launched = _launch_delta(before)
+                            called = _kernel_calls_since(prog)
+                            routes = list(rpc.last_call_strategies[
+                                "effective"].values())
+                        label = f"observability {config} {mode} {rep}"
+                        check_result(config, *answer, want)
+                        # the route the reply names implies the launches
+                        expect = route_launches(config, parts, routes)
+                        if launched != expect:
+                            raise AssertionError(
+                                f"{label}: launched {launched}, expected "
+                                f"{expect}")
+                        answers[mode] = (answer, launched)
+                        if rep:
+                            walls[mode].append(wall)
+                        if mode == "off":
+                            continue
+                        for name in OBS_KERNELS:
+                            calls[name] += called[name]
+                            launches[name] += _kernel_launches(
+                                launched)[name]
+                        on_traces.append(trace_id)
+                        if not rep:
+                            continue
+                        record = rpc.autopsy(trace_id)
+                        _check_autopsy(label, record, trace_id)
+                        coverage.append(record["coverage"])
+                        segments.append(record["segments"])
+                        unattributed.append(record["unattributed_s"])
+                        kernel_s.append(_check_waterfall(
+                            label, rpc.trace(trace_id)))
+                    (order_on, cols_on), launched_on = answers["on"]
+                    (order_off, cols_off), launched_off = answers["off"]
+                    if launched_on != launched_off or order_on != order_off \
+                            or any(not np.array_equal(cols_on[c], cols_off[c])
+                                   for c in order_on):
+                        raise AssertionError(
+                            f"observability {config} {rep}: the answers or "
+                            f"launches with observability on and off "
+                            f"differ ({launched_on}, {launched_off})")
+                floor = OBS_COVERAGE.get(config)
+                if floor is not None and min(coverage) < floor:
+                    raise AssertionError(
+                        f"observability {config}: warm coverage "
+                        f"{coverage} below {floor}")
+                on_med = float(np.median(walls["on"]))
+                off_med = float(np.median(walls["off"]))
+                report["configs"][config] = {
+                    "coverage": coverage,
+                    "coverage_min": min(coverage),
+                    "segments_median_s": {
+                        k: float(np.median([s.get(k, 0.0)
+                                            for s in segments]))
+                        for k in sorted({k for s in segments for k in s})},
+                    "unattributed_s_median": float(np.median(unattributed)),
+                    "kernel_host_s_median": float(np.median(
+                        [k[0] for k in kernel_s])),
+                    "kernel_device_s_median": float(np.median(
+                        [k[1] for k in kernel_s])),
+                    "warm_wall_on_s_median": on_med,
+                    "warm_wall_off_s_median": off_med,
+                    "on_off_ratio": on_med / off_med,
+                    "routes": routes,
+                    "launches_per_query": sum(expect.values()),
+                }
+                log(f"observability {config}: "
+                    f"{json.dumps(report['configs'][config])}")
+            if calls != launches:
+                raise AssertionError(
+                    f"observability: instrumented kernel calls {calls}, "
+                    f"launches {launches}")
+            report["kernel_calls"] = calls
+            # the slow-query ring: one entry per query with observability
+            # on (the off ones are not accounted), in the client's class
+            slow = rpc.slow_queries()
+            slow_ids = [e["trace_id"] for e in slow]
+            if (sorted(slow_ids) != sorted(on_traces)
+                    or {e["slo_class"] for e in slow} != {"interactive"}):
+                raise AssertionError(
+                    f"observability: {len(slow)} slow-query entries of "
+                    f"classes {sorted({e['slo_class'] for e in slow})} for "
+                    f"{len(on_traces)} queries")
+            timeline = rpc.timeline()
+            if not timeline:
+                raise AssertionError("observability: an empty timeline")
+            report["slow_queries"] = len(slow)
+            report["timeline_entries"] = len(timeline)
+            report["bundle"] = _check_obs_bundle(rpc, controller, worker,
+                                                 len(on_traces))
+            report["metrics_samples"] = {
+                "worker": _scrape(worker._metrics_server.port, (
+                    "bqueryd_tpu_worker_groupby_seconds_bucket",
+                    "bqueryd_tpu_query_phase_seconds_bucket",
+                    "bqueryd_tpu_reply_bytes_bucket",
+                    "bqueryd_tpu_device_peak_bytes_in_use")),
+                "controller": _scrape(controller._metrics_server.port, (
+                    "bqueryd_tpu_groupby_seconds_bucket",
+                    "bqueryd_tpu_capacity_fleet_utilization",
+                    "bqueryd_tpu_capacity_headroom_qps",
+                    "bqueryd_tpu_slo_queries_total")),
+            }
+            report["capacity"] = _obs_capacity(rpc, url, names, parts,
+                                               worker)
+            report["device_trace"] = _obs_device_trace(rpc, names, parts,
+                                                       scratch)
+        finally:
+            rpc._close_socket()
+            _stop_cluster(rpc0, controller, worker, threads)
+    return report
+
+
+def _check_obs_bundle(rpc, controller, worker, n_queries):
+    """The debug bundle: the nine sections, the SLO class's queries, and
+    the worker's slice (polled until its heartbeat carried the newest
+    calls) with the calls per instrumented name and shape equal to the
+    process's registry, the library's load, the runtime, the build
+    directory and the device memory from ``torch.cuda.memory_stats``, its
+    peak at least the working set's device bytes."""
+    from bqueryd_tpu_torch.obs import profile
+
+    def slice_now():
+        bundle = rpc.debug_bundle()
+        snap = (bundle["workers"].get(worker.worker_id) or {}).get(
+            "snapshot") or {}
+        want = {p["signature"]: p["calls"]
+                for p in profile.profiler().snapshot()["programs"]}
+        got = {p["signature"]: p["calls"]
+               for p in (snap.get("compile") or {}).get("programs", ())}
+        return bundle, snap, got == want and bool(want)
+
+    deadline = time.time() + 30
+    bundle, snap, fresh = slice_now()
+    while not fresh and time.time() < deadline:
+        time.sleep(0.5)
+        bundle, snap, fresh = slice_now()
+    section = bundle["controller"]
+    missing = [s for s in OBS_SECTIONS if s not in section]
+    compile_ = snap.get("compile") or {}
+    kernel_entries = [p for p in compile_.get("programs", ())
+                      if p["name"].rsplit(".", 1)[-1] in OBS_KERNELS]
+    runtime = snap.get("runtime") or {}
+    cache = snap.get("compile_cache") or {}
+    memory = (snap.get("device_memory") or [{}])[0]
+    ws = worker.executor.workingset.stats()
+    ws_bytes = ws["codes"]["bytes"] + ws["blocks"]["bytes"]
+    interactive = section.get("slo", {}).get("interactive", {})
+    problems = []
+    if missing:
+        problems.append(f"sections missing {missing}")
+    if not fresh:
+        problems.append("the worker slice never carried the newest calls")
+    if interactive.get("queries", 0) < n_queries:
+        problems.append(f"slo section {interactive}")
+    if compile_.get("library_loads", 0) < 1 or not kernel_entries:
+        problems.append(f"compile section {compile_.get('library_loads')} "
+                        f"loads, {len(kernel_entries)} kernel entries")
+    if not {"torch", "torch_cuda", "device"} <= set(runtime):
+        problems.append(f"runtime {runtime}")
+    if not str(cache.get("path", "")).endswith(os.path.join("build",
+                                                             "kernels")):
+        problems.append(f"compile_cache {cache}")
+    if not memory.get("peak_bytes_in_use", 0) >= ws_bytes > 0:
+        problems.append(f"device memory {memory} against the working "
+                        f"set's {ws_bytes} bytes")
+    if problems:
+        raise AssertionError(f"observability bundle: {problems}")
+    return {
+        "sections": sorted(section),
+        "slo_interactive": interactive,
+        "library_loads": compile_["library_loads"],
+        "persistent_cache": [compile_["persistent_cache_hits"],
+                             compile_["persistent_cache_misses"]],
+        "kernel_entries": [{k: p[k] for k in ("signature", "calls",
+                                              "flops", "bytes_accessed")}
+                           for p in kernel_entries],
+        "runtime": runtime,
+        "compile_cache": cache,
+        "device_memory": memory,
+        "workingset_device_bytes": ws_bytes,
+    }
+
+
+def _obs_capacity(rpc, url, names, parts, worker):
+    """A burst of sharded queries from 8 clients, each answer exact, then
+    ``rpc.capacity()`` until the fleet's coverage is 1.0 and the worker's
+    μ > 0 (its WRM histograms carry the burst)."""
+    sl, gcols, aggs, where = CONFIGS["sharded"]
+    want = reference("sharded", parts)
+    query = (names[sl], gcols, aggs, where)
+    results, walls, elapsed, _timings = _swarm(
+        url, [[query] * OBS_SWARM_ROUNDS] * OBS_SWARM_CLIENTS, 0)
+    for order, columns in results.values():
+        check_result("sharded", order, columns, want)
+    deadline = time.time() + 30
+    while True:
+        snap = rpc.capacity()
+        fleet = snap.get("fleet") or {}
+        mu = ((snap.get("workers") or {}).get(worker.worker_id)
+              or {}).get("mu")
+        if fleet.get("coverage") == 1.0 and mu:
+            break
+        if time.time() > deadline:
+            raise AssertionError(f"observability capacity: {snap}")
+        time.sleep(0.5)
+    return {"queries": len(results), "elapsed_s": elapsed,
+            "wall_s_median": float(np.median(walls)),
+            "fleet": fleet, "worker": snap["workers"][worker.worker_id]}
+
+
+def _obs_device_trace(rpc, names, parts, scratch):
+    """One warm sharded query under ``BQUERYD_TPU_PROFILE=1`` and
+    ``BQUERYD_TPU_PROFILE_DIR``: its Chrome trace holds the mma kernel's
+    launch inside the ``aggregate`` range."""
+    trace_dir = tempfile.mkdtemp(prefix="obs_trace_", dir=scratch)
+    try:
+        with _env_set({"BQUERYD_TPU_PROFILE": "1",
+                       "BQUERYD_TPU_PROFILE_DIR": trace_dir}):
+            order, columns = _query(rpc, names, "sharded")
+        check_result("sharded", order, columns, reference("sharded", parts))
+        found = _trace_launch_in_range(
+            trace_dir, BRANCH_KERNEL[("onehot_rows_dot", "mma")],
+            "aggregate")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    if not found["found"]:
+        raise AssertionError(f"observability device trace: {found}")
+    return found
 
 
 def run_cli_check(names, parts, data_dir, store_dir):
@@ -4807,6 +5306,16 @@ def main():
                                                  scratch, captured)
         distribution_launches = path_launches("distribution", DIST_KERNELS)
         log(f"distribution path: {time.perf_counter() - t0:.1f}s")
+        # observability: traces, autopsies, the SLO classes, slow queries,
+        # the profile, /metrics and the capacity model, on its own cluster
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        observability = run_observability_path(
+            names, parts, data_dir,
+            tempfile.mkdtemp(prefix="obs_store_", dir=data_dir), scratch)
+        observability_launches = path_launches("observability", DIST_KERNELS)
+        log(f"observability path: {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"observability": observability}), flush=True)
         t0 = time.perf_counter()
         cli = run_cli_check(
             names, parts, data_dir,
@@ -4827,6 +5336,7 @@ def main():
                           "serving": serving,
                           "resilience": resilience,
                           "distribution": distribution,
+                          "observability": observability,
                           "cli": cli,
                           "engine_configs": engine_configs,
                           "launches": {"executor": exec_launches,
@@ -4839,6 +5349,8 @@ def main():
                                        "serving": serving_launches,
                                        "resilience": resilience_launches,
                                        "distribution": distribution_launches,
+                                       "observability":
+                                           observability_launches,
                                        "engine": engine_launches},
                           "card": smi}), flush=True)
         print(json.dumps({"breakdown": breakdown(rpc, names)}), flush=True)
@@ -4873,7 +5385,8 @@ def main():
                               ("calibration", calib_launches),
                               ("serving", serving_launches),
                               ("resilience", resilience_launches),
-                              ("distribution", distribution_launches)):
+                              ("distribution", distribution_launches),
+                              ("observability", observability_launches)):
             for label, e in inputs.items():
                 key = shape_key(e[0], e[1], e[4], e[5], e[2].shape[0])
                 if counted.get(key) and not label.startswith("bundle "):

@@ -92,7 +92,9 @@ def test_reference_cluster_case_on_port(case, port_cluster, taxi_df,
 def test_verbs_are_the_references_but_the_unported_subsystems():
     import bqueryd_tpu.controller as jax_controller
 
-    unported = ("trace", "slow_queries", "autopsy", "timeline", "capacity")
+    # every subsystem is ported now: the verbs are the reference's, in
+    # its order
+    unported = ()
     assert port_controller.CONTROLLER_VERBS == tuple(
         v for v in jax_controller.CONTROLLER_VERBS if v not in unported)
     for verb in port_controller.CONTROLLER_VERBS:

@@ -936,8 +936,14 @@ def test_rpc_sends_client_id_and_priority_on_the_envelope(cluster,
 def _window_zero_expected(msg, plan, group, sole):
     """The CalcMessage the port's controller built for one shard group
     before it had admission and a window, with the affinity key the
-    affinity queues add (None: unpinned, as in the reference)."""
+    affinity queues add (None: unpinned, as in the reference) and the
+    dispatch's trace hop the tracing adds: a child of the query's groupby
+    span, and the queue clock its dispatch span starts at."""
     from bqueryd_tpu_torch.plan import fragment_for
+
+    hop = msg["trace"]
+    assert set(hop) == {"trace_id", "span_id", "parent_span_id"}
+    assert hop["span_id"] != hop["parent_span_id"]
 
     target = group if len(group) > 1 else group[0]
     shard = CalcMessage({"payload": "groupby"})
@@ -951,6 +957,8 @@ def _window_zero_expected(msg, plan, group, sole):
     shard["filename"] = target
     shard["affinity"] = None
     shard["created"] = msg["created"]
+    shard["trace"] = hop
+    shard["_dispatch_queued_ts"] = msg["_dispatch_queued_ts"]
     shard.add_as_binary("plan", fragment_for(plan, group, sole=sole))
     return shard
 

@@ -67,6 +67,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.obs.metrics",
                    "bqueryd_tpu_torch.obs.flightrec",
                    "bqueryd_tpu_torch.obs.health",
+                   "bqueryd_tpu_torch.obs.trace",
+                   "bqueryd_tpu_torch.obs.logs",
+                   "bqueryd_tpu_torch.obs.http",
+                   "bqueryd_tpu_torch.obs.profile",
+                   "bqueryd_tpu_torch.obs.slo",
+                   "bqueryd_tpu_torch.obs.capacity",
                    "bqueryd_tpu_torch.chaos",
                    "bqueryd_tpu_torch.chaos.plan",
                    "bqueryd_tpu_torch.serve",
@@ -83,6 +89,9 @@ import json, sys
 import bqueryd_tpu_torch.controller
 import bqueryd_tpu_torch.serve
 import bqueryd_tpu_torch.obs
+import bqueryd_tpu_torch.obs.trace, bqueryd_tpu_torch.obs.logs
+import bqueryd_tpu_torch.obs.http, bqueryd_tpu_torch.obs.profile
+import bqueryd_tpu_torch.obs.slo, bqueryd_tpu_torch.obs.capacity
 import bqueryd_tpu_torch.chaos
 import bqueryd_tpu_torch.coordination
 import bqueryd_tpu_torch.blob

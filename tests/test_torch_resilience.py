@@ -20,8 +20,8 @@ and its ``RPC`` answers are seen as DataFrames.  Included:
   append-delta failover, a dead worker culled and rejoining, a busy worker
   not culled, a retry landing on a replacement, and the memory watchdog.
 
-The execute-code, peering, capacity and autopsy cases wait for the
-modules they test.  Then the port's own contracts: a JAX ``RPC`` reads the
+The autopsy and capacity cases run in ``tests/test_torch_capacity.py``.
+Then the port's own contracts: a JAX ``RPC`` reads the
 port's ``DispatchExhausted`` envelope, appends and rollup builds are
 pinned with ``worker_id`` (no ``target``) and carry the reference's wire
 keys, a transient device fault launches nothing, the chaos wedge stays per

@@ -542,6 +542,7 @@ def test_served_answer_dispatches_nothing_and_records_its_path(
     dispatched = controller.counters["dispatched_shards"]
     worker_msgs = c["worker"].msg_count
     got = rpc.groupby(*ref.Q)
+    served_trace = rpc.last_trace_id
     assert rpc.last_call_answer_source == "rollup"
     assert rpc.last_call_subsumed_from == key
     assert controller.counters["dispatched_shards"] == dispatched
@@ -565,10 +566,12 @@ def test_served_answer_dispatches_nothing_and_records_its_path(
     assert {"envelope", "rollup_build", "work_done"} <= {
         e["kind"] for e in slice_["flight"]}
     section = bundle["controller"]
-    for absent in ("trace", "autopsy", "slow_queries",
-                   "worker_histograms", "runtime", "compile_cache",
-                   "slo", "timeline_ring", "capacity"):
-        assert absent not in section
+    # the observability sections, the served answer's trace the newest
+    assert {"trace", "autopsy", "slow_queries", "worker_histograms",
+            "runtime", "compile_cache", "slo", "timeline_ring",
+            "capacity"} <= set(section)
+    assert section["trace"]["trace_id"] == served_trace
+    assert section["trace"]["answer_source"] == "rollup"
     assert {"address", "node", "uptime_s", "flight", "flight_evictions",
             "counters", "admission", "workers_known", "inflight", "metrics",
             "calibration", "batch_window", "serving", "health",
