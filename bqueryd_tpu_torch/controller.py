@@ -3273,11 +3273,14 @@ class ControllerNode:
         for a DAG dispatch (``kwargs["dag"]``, whose ``batch`` flag
         ``plan.dag.groupby_equivalent`` sets) the top-k and sketch ops; raw
         rows and the distinct ops go one shard per message, as does
-        ``batch=False``."""
+        ``batch=False`` and every query under ``BQUERYD_TPU_DEVICE_MERGE=0``
+        (each shard's partial table then rides the wire and merges on the
+        host, the reference's host-gather baseline)."""
         from bqueryd_tpu_torch.models.query import (
             MERGEABLE_OPS,
             normalize_agg_list,
         )
+        from bqueryd_tpu_torch.parallel import devicemerge
         from bqueryd_tpu_torch.plan.dag import is_extended_op
 
         dag_riding = kwargs.get("dag") is not None
@@ -3287,6 +3290,7 @@ class ControllerNode:
             and all(a[1] in MERGEABLE_OPS
                     or (dag_riding and is_extended_op(a[1]))
                     for a in normalize_agg_list(agg_list))
+            and devicemerge.device_merge_enabled()
         )
         if not batchable:
             return [[f] for f in filenames]

@@ -22,7 +22,9 @@ in the build directory, so the mapping is:
   rows (``flops``, the kernels' contraction) where the caller gives a
   ``cost`` function.  Accounting adds no launch and no synchronization;
 * :meth:`ProgramProfiler.memory_sample` and the device-memory gauges read
-  ``torch.cuda.memory_stats`` through ``ops.workingset.memory_sample``.
+  ``torch.cuda.memory_stats`` through ``ops.workingset.memory_sample``,
+  per card of the executor (:meth:`ProgramProfiler.watch_devices`),
+  summed as the reference sums its local devices.
 
 Every ``torch.cuda`` call is guarded by ``torch.cuda.is_initialized()``
 (and torch by its presence in ``sys.modules``): a controller or a
@@ -118,6 +120,7 @@ class ProgramProfiler:
         self.programs = {}        # signature -> registry entry dict
         self.programs_evicted = 0
         self._call_seq = 0        # recency order for eviction and snapshot
+        self._devices = ()        # the executor's CUDA cards
 
     # -- the kernel library ------------------------------------------------
     def record_build(self, hit, seconds=0.0, nvcc_release=None):
@@ -188,30 +191,61 @@ class ProgramProfiler:
                 entry.update(cost)
 
     # -- device memory -----------------------------------------------------
-    def memory_sample(self, device=None):
-        """``{"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}`` of the
-        current CUDA device (or ``device``), from
-        ``ops.workingset.memory_sample``; None while this process holds no
-        CUDA context."""
-        if not _cuda_initialized():
-            return None
+    def watch_devices(self, devices):
+        """The CUDA cards whose memory the profile reads (the executor's;
+        a repeated card counts once)."""
+        with self._lock:
+            self._devices = tuple(dict.fromkeys(
+                d for d in devices if d.type == "cuda"))
+
+    def _cards(self):
         import torch
 
+        with self._lock:
+            cards = self._devices
+        return cards or (torch.device("cuda", torch.cuda.current_device()),)
+
+    def memory_sample(self, device=None):
+        """``{"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}`` of
+        ``device``, or over the watched cards (the current one when none
+        is watched): in use and limit summed, the peak the largest, as the
+        reference summarizes its local devices; from
+        ``ops.workingset.memory_sample``.  None while this process holds
+        no CUDA context."""
+        if device is not None:
+            return self.device_memory_of(device)
+        per_device = self.device_memory()
+        if not per_device:
+            return None
+        return {
+            "bytes_in_use": sum(d["bytes_in_use"] for d in per_device),
+            "peak_bytes_in_use": max(d["peak_bytes_in_use"]
+                                     for d in per_device),
+            "bytes_limit": sum(d["bytes_limit"] for d in per_device),
+        }
+
+    def device_memory_of(self, device):
+        """One card's sample, or None without a CUDA context."""
+        if not _cuda_initialized():
+            return None
         from bqueryd_tpu_torch.ops.workingset import memory_sample
 
-        if device is None:
-            device = torch.device("cuda", torch.cuda.current_device())
         return memory_sample(device)
 
     def device_memory(self):
-        """The per-device list of the reference's shape (one device)."""
-        sample = self.memory_sample()
-        if sample is None:
+        """One entry per watched card, the reference's per-device list."""
+        if not _cuda_initialized():
             return []
         import torch
 
-        return [{"device": torch.cuda.current_device(),
-                 "kind": torch.cuda.get_device_name(), **sample}]
+        out = []
+        for card in self._cards():
+            sample = self.device_memory_of(card)
+            if sample is not None:
+                out.append({"device": card.index,
+                            "kind": torch.cuda.get_device_name(card),
+                            **sample})
+        return out
 
     def _memory_gauge(self, key):
         def read():

@@ -720,6 +720,13 @@ def _extremum(a, b, kind):
     return _restored(out, dt)
 
 
+def _add(a, b):
+    """Elementwise sum of two leaves, unsigned ones included (mod 2^64,
+    as int sums are exact)."""
+    (ca, dt), (cb, _) = _computable(a), _computable(b)
+    return _restored(ca + cb, dt)
+
+
 def combine_partials(a, b):
     """Merge two partial-table trees of tensors."""
     aggs = []
@@ -732,6 +739,121 @@ def combine_partials(a, b):
                 merged[key] = pa[key] + pb[key]
         aggs.append(merged)
     return {"rows": a["rows"] + b["rows"], "aggs": tuple(aggs)}
+
+
+def _pad_leaf(leaf, pad):
+    """``leaf`` with ``pad`` zeros appended along its first axis."""
+    t, dt = _computable(leaf)
+    zeros = torch.zeros((pad,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        device=t.device)
+    return _restored(torch.cat([t, zeros]), dt)
+
+
+def bucketize_partials(partials, n_groups, n_buckets):
+    """Re-emit a partial-table tree on the key-span bucket layout: every
+    leaf's group axis is padded from ``n_groups`` to ``span * n_buckets``
+    (``span = ceil(n_groups / n_buckets)``), so that bucket ``d`` (device
+    ``d`` of the merge) owns the contiguous span ``[d*span, (d+1)*span)``.
+
+    Returns ``(padded_partials, span)``.  Pad entries are zeros appended
+    past every real group, so sums and counts gain nothing and min/max pads
+    never shadow a real group; the collector slices the pad tail off after
+    the fetch.  Applied to the OUTPUT of :func:`partial_tables`, so every
+    kernel guard and route applies unchanged."""
+    from bqueryd_tpu_torch.parallel.devicemerge import bucket_span
+
+    span, padded = bucket_span(n_groups, n_buckets)
+    pad = padded - int(n_groups)
+    if pad == 0:
+        return partials, span
+    return {
+        "rows": _pad_leaf(partials["rows"], pad),
+        "aggs": tuple({k: _pad_leaf(v, pad) for k, v in part.items()}
+                      for part in partials["aggs"]),
+    }, span
+
+
+def partial_tables_bucketized(codes, measures, ops, n_groups, n_buckets,
+                              mask=None, null_sentinels=None, strategy=None,
+                              device=None):
+    """:func:`partial_tables` with the output laid onto the
+    ``n_buckets``-way key-span bucket layout (:func:`bucketize_partials`),
+    the emission form of the device-resident merge.  Same guards, routes
+    and partial semantics; only the group-axis padding differs."""
+    partials = partial_tables(
+        codes, measures, ops, n_groups, mask=mask,
+        null_sentinels=null_sentinels, strategy=strategy, device=device,
+    )
+    return bucketize_partials(partials, n_groups, n_buckets)
+
+
+def _reducible(t, kind):
+    """``(tensor, restore)``: a leaf in a type every collective backend
+    reduces (int64 or a float; unsigned int64 with its sign bit flipped
+    for an extremum, so that signed order is unsigned order), and the
+    inverse."""
+    c, dt = _computable(t)
+    orig = c.dtype
+    flip = dt == torch.uint64 and kind in ("min", "max")
+    if not c.is_floating_point():
+        c = c.to(torch.int64)
+    if flip:
+        c = c ^ _INT64_MIN
+
+    def restore(r):
+        if flip:
+            r = r ^ _INT64_MIN
+        return _restored(r.to(orig), dt)
+
+    return c, restore
+
+
+def all_reduce_leaf(t, kind, group=None):
+    """One leaf reduced across the processes of ``group`` (the default
+    group when None): SUM for sums, counts and rows, MIN and MAX for
+    extrema.  Returns the replicated result on ``t``'s device.  Under gloo
+    the reduction runs on a host copy; under NCCL on this rank's card."""
+    import torch.distributed as dist
+
+    op = {"min": dist.ReduceOp.MIN,
+          "max": dist.ReduceOp.MAX}.get(kind, dist.ReduceOp.SUM)
+    c, restore = _reducible(t, kind)
+    if dist.get_backend(group) == "nccl":
+        comm = c.to(torch.device("cuda", torch.cuda.current_device()))
+    else:
+        comm = c.cpu()
+    comm = comm.clone()
+    dist.all_reduce(comm, op=op, group=group)
+    return restore(comm.to(t.device))
+
+
+def all_gather_leaf(t, group=None):
+    """Every process's ``t`` (equal shapes), in rank order, on ``t``'s
+    device."""
+    import torch.distributed as dist
+
+    c, restore = _reducible(t, "sum")
+    if dist.get_backend(group) == "nccl":
+        comm = c.to(torch.device("cuda", torch.cuda.current_device()))
+    else:
+        comm = c.cpu()
+    parts = [torch.empty_like(comm)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, comm.contiguous(), group=group)
+    return [restore(p.to(t.device)) for p in parts]
+
+
+def psum_partials(partials, group=None):
+    """Merge a partial-table tree across the processes of a
+    ``torch.distributed`` group with all-reduces: SUM for rows, sums and
+    counts, MIN and MAX for extrema.  Every process gets the whole merged
+    table (the multi-host ``psum`` mode)."""
+    return {
+        "rows": all_reduce_leaf(partials["rows"], "rows", group),
+        "aggs": tuple({k: all_reduce_leaf(v, k, group)
+                       for k, v in part.items()}
+                      for part in partials["aggs"]),
+    }
 
 
 def finalize(partials, ops):

@@ -17,9 +17,9 @@ shard misses, and a query with another measure or filter still hits the
 segments it shares.  Tensors are accounted by their own bytes.
 
 :meth:`WorkingSet.evict_under_pressure` sheds LRU device entries (blocks
-before codes) while the device's allocated bytes stand above
-``BQUERYD_TPU_HBM_EVICT_WATERMARK`` x its memory; on the CPU there is no
-sample and it does nothing.
+before codes) while any of its devices' allocated bytes stand above
+``BQUERYD_TPU_HBM_EVICT_WATERMARK`` x that device's memory; on the CPU
+there is no sample and it does nothing.
 
 :class:`DeltaAggCache` keeps the worker's delta-maintained aggregates of
 streaming ingest: a cached result of a shard group whose tables only grew
@@ -93,13 +93,26 @@ def memory_sample(device):
     }
 
 
+def pressure_sample(devices):
+    """The sample of the most pressed of ``devices`` (the highest share of
+    its memory in use), each card read once; None when none is a CUDA
+    device.  Blocks are spread evenly over the devices, so the fullest
+    card is the one that runs out first."""
+    samples = [memory_sample(d) for d in dict.fromkeys(devices or ())]
+    samples = [s for s in samples if s and s.get("bytes_limit")]
+    if not samples:
+        return None
+    return max(samples, key=lambda s: s["bytes_in_use"] / s["bytes_limit"])
+
+
 class WorkingSet:
     """Named LRU cache segments and the device-memory-pressure eviction
-    policy (module docstring).  ``device`` is where the device segments'
-    tensors live; its memory is what the pressure policy samples."""
+    policy (module docstring).  ``devices`` are where the device
+    segments' tensors live; their memory is what the pressure policy
+    samples."""
 
-    def __init__(self, device=None):
-        self.device = device
+    def __init__(self, devices=()):
+        self.devices = tuple(devices)
         self._segments = {
             name: BytesCappedCache(_budget(name), sizeof=sizeof)
             for name in SEGMENTS
@@ -127,8 +140,8 @@ class WorkingSet:
         """Shed LRU device-segment entries while the device's allocated
         bytes stand above the watermark.  ``sample`` is a
         ``{"bytes_in_use", "bytes_limit"}`` dict (default:
-        :func:`memory_sample` of this set's device; None -- the CPU -- is a
-        no-op).  Returns the accounted bytes freed.  ``blocks`` go before
+        :func:`pressure_sample` of this set's devices, every card read;
+        None -- the CPU -- is a no-op).  Returns the accounted bytes freed.  ``blocks`` go before
         ``codes``: measure blocks rebuild from the cached alignment with
         one decode and upload, codes also re-run the mask fold."""
         if watermark is None:
@@ -136,7 +149,7 @@ class WorkingSet:
         if watermark <= 0:
             return 0
         if sample is None:
-            sample = memory_sample(self.device)
+            sample = pressure_sample(self.devices)
         if not sample:
             return 0
         limit = sample.get("bytes_limit") or 0

@@ -1,10 +1,11 @@
-"""Query executor: one query over many shards, one kernel call, merged on
-the device.
+"""Query executor: one query over many shards, one kernel call per device,
+merged on the devices.
 
 The port of ``bqueryd_tpu/parallel/executor.py``'s ``MeshQueryExecutor``
-for one CUDA device.  Where the per-shard engine runs one partial-table
-call per shard and merges the payloads on the host by key value, the
-executor
+over a list of torch devices (``devices=``, which may repeat a device, as
+the reference's tests repeat the CPU; or ``n_devices=``).  Where the
+per-shard engine runs one partial-table call per shard and merges the
+payloads on the host by key value, the executor
 
 * aligns every shard's group keys into ONE global code space on the host
   (:meth:`MeshQueryExecutor._global_key_space`: dictionary-sized NumPy
@@ -12,14 +13,24 @@ executor
   next to the shard as a sidecar both packages read);
 * lays every shard's rows out as one ``[n_dev, width]`` block
   (:meth:`MeshQueryExecutor._pack`, ``width`` on the
-  ``program_bucket(fine=True)`` grid, padded with code -1);
+  ``program_bucket(fine=True)`` grid, padded with code -1), whose row
+  ``d`` lives on device ``d`` (:class:`_Rows`);
 * keeps the codes (with the row filter folded in) and the measure columns
   resident on the device in a working set (:mod:`..ops.workingset`), so a
   repeat query -- also one with another measure or filter -- skips decode,
   factorize, alignment and uploads;
-* runs ONE ``partial_tables`` call over all rows, so the merge across
-  shards happens inside the kernel, packs every result leaf into one byte
-  buffer on the device and fetches it with one D2H copy.
+* runs ONE ``partial_tables`` call per device over its row, so the merge
+  across shards happens inside the kernel, then merges across devices as
+  ``parallel.devicemerge.resolve_mode`` says: ``device`` (each device
+  owns a key span of the table, receives that span of every device's
+  table and reduces it; the spans alone are fetched, in parallel, and
+  concatenated in device order), ``host`` (the ``BQUERYD_TPU_DEVICE_MERGE=0``
+  kill switch: every device's table is fetched and merged by
+  ``hostmerge.merge_payloads``) or ``psum`` (a ``torch.distributed`` job:
+  the local devices merge, then an all-reduce leaves the whole table on
+  every process, each of which runs its own rows of the global pack).
+  Each device's result leaves are packed into one byte buffer and fetched
+  with one D2H copy.
 
 Host work (decode, factorize, NumPy packing) runs on the pipeline pool
 (:mod:`.pipeline`); device work (uploads, kernels, the fetch) stays on the
@@ -40,15 +51,18 @@ key codes) cached under the DAG's derivation signature, one key alignment
 over the shard group, the folded codes and every measure resident in the
 working set, and one device program (:func:`_dag_partials`) emitting the
 classic partials through ``partial_tables``, a dense per-group top-k table
-per top-k agg and a dense bucket grid per quantile agg, fetched with one
-D2H copy.  Shapes it cannot serve raise :class:`DagFastPathUnsupported`,
-and the worker runs those per shard.
+per top-k agg and a dense bucket grid per quantile agg, per device, merged
+across devices (the classic partials and the grids span-owned, the top-k
+tables by gathering and re-selecting) and fetched.  Shapes it cannot serve
+raise :class:`DagFastPathUnsupported`, and the worker runs those per
+shard; so does the kill switch.
 
 A compatible bundle of queries (the same shards and group keys, any
 measures and filters) takes :meth:`MeshQueryExecutor.execute_bundle`:
 one alignment, one unmasked codes upload, one upload per distinct measure,
-the members' masks stacked on the device, one member-per-launch
-``bundle_partial_tables`` call and one fetch for every member.
+the members' masks stacked on each device, one member-per-launch
+``bundle_partial_tables`` call per device, every member merged in one
+pass and one fetch per device for every member.
 
 Each entry point (``execute``, ``execute_bundle``, ``execute_dag``) first
 fires the ``worker.device`` fault site (:mod:`bqueryd_tpu_torch.chaos`),
@@ -62,14 +76,12 @@ which become the calc reply's spans (``layout`` as ``h2d_transfer``,
 ``merge``).  The launches are asynchronous: the host-timed ``aggregate``
 ends before its kernels do, and their device time lands in the ``fetch``
 that waits for them, which runs nested in ``aggregate`` and is debited
-from it.  On a CUDA device a CUDA event pair recorded around the launches
-on the current stream, read after that fetch (which has synchronized
-already), tags the ``kernel`` span with ``device_s``: no synchronization
-is added.  Under ``BQUERYD_TPU_PROFILE=1`` each phase is also a
-``torch.profiler`` range and an NVTX range (``utils.tracing.trace_span``).
-
-Waiting for a later slice: several devices (the ``torch.distributed``
-merge, its host-merge kill switch and the ``psum`` mode).
+from it.  On CUDA devices a CUDA event pair per card recorded around the
+launches on its current stream, read after that fetch (which has
+synchronized already), tags the ``kernel`` span with ``device_s``, the
+longest card's: no synchronization is added.  Under
+``BQUERYD_TPU_PROFILE=1`` each phase is also a ``torch.profiler`` range and
+an NVTX range (``utils.tracing.trace_span``).
 """
 
 import contextlib
@@ -184,28 +196,59 @@ def _upload(arr, device):
     return as_tensor(arr, device)
 
 
-#: the open aggregate phase of this thread: (timer, device clock), which
-#: :func:`_fetch` ends and times
+class _Rows:
+    """A ``[n_dev, width]`` block whose row ``d`` lives on device ``d``:
+    ``block[d]`` is that device's ``[width]`` tensor.  Shaped and sized
+    like the tensor it stands for, so that the working set accounts it by
+    its bytes."""
+
+    def __init__(self, rows):
+        self.rows = tuple(rows)
+
+    def __getitem__(self, d):
+        return self.rows[d]
+
+    def __iter__(self):
+        return iter(self.rows)
+
+    @property
+    def shape(self):
+        return (len(self.rows),) + tuple(self.rows[0].shape)
+
+    @property
+    def dtype(self):
+        return self.rows[0].dtype
+
+    def numel(self):
+        return sum(int(r.numel()) for r in self.rows)
+
+    def element_size(self):
+        return self.rows[0].element_size()
+
+
+#: the open aggregate phase of this thread: (timer, device clocks), which
+#: :func:`_fetch_many` ends and times
 _fetch_ctx = threading.local()
 
 
 class _DeviceClock:
-    """A CUDA event pair on the current stream: :meth:`start` and
+    """A CUDA event pair on ``device``'s current stream: :meth:`start` and
     :meth:`stop` record, :meth:`seconds` reads once both completed."""
 
-    def __init__(self):
+    def __init__(self, device):
         import torch
 
+        self._stream = torch.cuda.current_stream(device)
         self._start = torch.cuda.Event(enable_timing=True)
         self._stop = torch.cuda.Event(enable_timing=True)
         self._stopped = False
 
     def start(self):
-        self._start.record()
+        self._start.record(self._stream)
 
     def stop(self):
         if not self._stopped:
-            self._stop.record()
+            self._stop.record(self._stream)
             self._stopped = True
 
     def done(self):
@@ -216,42 +259,98 @@ class _DeviceClock:
         return self._start.elapsed_time(self._stop) / 1e3
 
 
-def _fetch(flat):
-    """The device -> host copy of a query's result: the one packed buffer.
-    Inside an aggregate phase (:meth:`MeshQueryExecutor._kernel_phase`) it
-    first ends the phase's device clock, and is timed as the phase
-    ``fetch``, debited from the enclosing ``aggregate``."""
-    timer, clock = getattr(_fetch_ctx, "value", None) or (None, None)
-    if clock is not None:
+def _copy_out(flats):
+    """Host copies of packed buffers: one blocking copy for a sole buffer;
+    several CUDA buffers are copied in parallel (non-blocking copies into
+    pinned host memory, each device's current stream, then waited on)."""
+    import torch
+
+    if len(flats) == 1 or not any(f.device.type == "cuda" for f in flats):
+        return [f.cpu().numpy() for f in flats]
+    outs, events = [], []
+    for f in flats:
+        if f.device.type != "cuda":
+            outs.append(f.cpu())
+            continue
+        host = torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+        host.copy_(f, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(f.device))
+        outs.append(host)
+        events.append(event)
+    for event in events:
+        event.synchronize()
+    return [o.numpy() for o in outs]
+
+
+def _fetch_many(flats):
+    """The device -> host copies of a query's result: one packed buffer per
+    device.  Inside an aggregate phase
+    (:meth:`MeshQueryExecutor._kernel_phase`) it first ends the phase's
+    device clocks, and is timed as the phase ``fetch``, debited from the
+    enclosing ``aggregate``."""
+    timer, clocks = getattr(_fetch_ctx, "value", None) or (None, ())
+    for clock in clocks:
         clock.stop()
     if timer is None:
-        return flat.cpu().numpy()
+        return _copy_out(flats)
     t0 = time.perf_counter()
     try:
         with timer.phase("fetch"):
-            return flat.cpu().numpy()
+            return _copy_out(flats)
     finally:
         timer.debit("aggregate", time.perf_counter() - t0)
 
 
-class MeshQueryExecutor:
-    """Executes a :class:`GroupByQuery` over a list of shard tables on one
-    device (``cuda`` unless ``device="cpu"`` is passed), merging on the
-    device.  Handles the mergeable ops (``ops.MERGEABLE_OPS``); the worker
-    serves the rest per shard.  ``n_devices`` other than 1 raises
-    ``NotImplementedError`` until the multi-GPU slice."""
+def resolve_devices(device=None, n_devices=1, devices=None):
+    """The executor's devices: ``devices`` as given (a list, which may
+    repeat a device: ``[cuda:0] * 4`` runs four logical devices on one
+    card); else ``n_devices`` of ``device``'s type: on ``cuda`` the cards
+    from ``device``'s index on (``None``: every visible card, or in a
+    joined multi-process job this rank's own, ``ops.rank_cards``), on the
+    CPU ``n_devices`` logical CPU devices (``None``: one)."""
+    import torch
 
-    def __init__(self, device=None, n_devices=1):
-        from bqueryd_tpu_torch import resolve_device
+    from bqueryd_tpu_torch import ops, resolve_device
+
+    if devices is not None:
+        out = tuple(resolve_device(d) for d in devices)
+        if not out:
+            raise ValueError("devices must name at least one device")
+        return out
+    base = resolve_device(device)
+    if base.type == "cpu":
+        return (base,) * (1 if n_devices is None else int(n_devices))
+    count = torch.cuda.device_count()
+    job = ops.distributed_info()
+    if n_devices is None and job is not None:
+        return tuple(torch.device("cuda", i) for i in ops.rank_cards(
+            count, job["rank"], job["world_size"]))
+    n = count - base.index if n_devices is None else int(n_devices)
+    if n < 1 or base.index + n > count:
+        raise ValueError(
+            f"{n_devices} cards from {base} asked for, {count} visible; "
+            "pass devices=[...] to repeat a card"
+        )
+    return tuple(torch.device("cuda", base.index + i) for i in range(n))
+
+
+class MeshQueryExecutor:
+    """Executes a :class:`GroupByQuery` over a list of shard tables on a
+    list of devices (``cuda`` unless ``device="cpu"`` is passed; see
+    :func:`resolve_devices`), merging on the devices.  Handles the
+    mergeable ops (``ops.MERGEABLE_OPS``); the worker serves the rest per
+    shard."""
+
+    def __init__(self, device=None, n_devices=1, devices=None):
         from bqueryd_tpu_torch.ops.workingset import WorkingSet
 
-        if int(n_devices) != 1:
-            raise NotImplementedError(
-                "the executor runs on one device; the multi-GPU merge is "
-                "not ported yet"
-            )
-        self.device = resolve_device(device)
-        self.n_devices = 1
+        self.devices = resolve_devices(device, n_devices, devices)
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices)
+        #: whether every rank of the psum job was seen to run as many
+        #: devices as this one (:meth:`_layout`)
+        self._psum_checked = False
         self._align_engine = None
         #: a PhaseTimer the worker sets: execute_dag's phases go there
         self.timer = None
@@ -261,14 +360,15 @@ class MeshQueryExecutor:
         #: the kernel route the last execute() dispatched ("matmul",
         #: "scatter" or "sort")
         self.last_effective_strategy = None
-        #: how the last execute() merged: "device" (on one device the
-        #: kernel call over every shard's rows is the merge)
+        #: how the last entry point merged across devices: "device" (the
+        #: span-owned merge, or the all-reduce of the psum mode) or "host"
+        #: (the kill switch), the reply envelope's ``merge_mode``
         self.last_merge_mode = None
         #   align:  (tables_key, groupby_cols) -> (dense codes per shard,
         #           combos, cards, key_values), host
-        #   codes:  folded + packed group codes, [n_dev, width] tensor
+        #   codes:  folded + packed group codes, [n_dev, width] _Rows
         #   blocks: packed wire-dtype measure columns, [n_dev, width]
-        self.workingset = WorkingSet(device=self.device)
+        self.workingset = WorkingSet(devices=self.devices)
         self._align_cache = self.workingset.segment("align")
         self._hbm_cache = self.workingset.segment("blocks")
         self._codes_cache = self.workingset.segment("codes")
@@ -301,25 +401,28 @@ class MeshQueryExecutor:
 
     @contextlib.contextmanager
     def _kernel_phase(self):
-        """The ``aggregate`` phase of an entry point: its launches, then
-        the fetch (:func:`_fetch`).  With a span recorder on a CUDA device,
-        a :class:`_DeviceClock` from the phase's start to the fetch tags
-        the ``kernel`` span with ``device_s``."""
+        """The ``aggregate`` phase of an entry point: its launches and
+        merge, then the fetch (:func:`_fetch_many`).  With a span recorder
+        on CUDA devices, a :class:`_DeviceClock` per card from the phase's
+        start to the fetch tags the ``kernel`` span with ``device_s``."""
         recorder = getattr(self.timer, "recorder", None)
-        clock = (_DeviceClock() if recorder is not None
-                 and self.device.type == "cuda" else None)
+        clocks = ()
+        if recorder is not None and self.device.type == "cuda":
+            clocks = tuple(_DeviceClock(d) for d in dict.fromkeys(
+                self.devices))
         prev = getattr(_fetch_ctx, "value", None)
-        _fetch_ctx.value = (self.timer, clock)
+        _fetch_ctx.value = (self.timer, clocks)
         try:
             with self._phase("aggregate"):
-                if clock is not None:
+                for clock in clocks:
                     clock.start()
                 yield
         finally:
             _fetch_ctx.value = prev
-        if clock is not None and clock.done():
-            # the fetch inside the phase synchronized the stream
-            device_s = clock.seconds()
+        if clocks and all(clock.done() for clock in clocks):
+            # the fetch inside the phase synchronized the streams; the
+            # longest card's time is the kernel's
+            device_s = max(clock.seconds() for clock in clocks)
             for span in reversed(recorder.spans):
                 if span.get("name") == "kernel":
                     span.setdefault("tags", {})["device_s"] = round(
@@ -500,6 +603,128 @@ class MeshQueryExecutor:
             off += len(arr)
         return out.reshape(n_devices, width)
 
+    def _layout(self, mode):
+        """``(n_rows, first)``: the rows of the global ``[n_rows, width]``
+        pack and the first of this process's.  In the psum mode every
+        process packs every shard's rows and runs its own devices' rows,
+        ``[rank * n_dev, (rank + 1) * n_dev)``; otherwise all rows are
+        local.  That layout holds only when every rank runs as many
+        devices: the first psum call all-gathers the counts and raises
+        ``ValueError`` in every rank when they differ (the all-reduce of
+        equal-shaped tables would otherwise count rows twice or drop
+        them)."""
+        from bqueryd_tpu_torch.parallel import devicemerge
+
+        if mode != devicemerge.MODE_PSUM:
+            return self.n_devices, 0
+        import torch
+        import torch.distributed as dist
+
+        from bqueryd_tpu_torch.ops.groupby import all_gather_leaf
+
+        if not self._psum_checked:
+            counts = [int(c[0]) for c in all_gather_leaf(
+                torch.tensor([self.n_devices], dtype=torch.int64))]
+            if len(set(counts)) > 1:
+                raise ValueError(
+                    f"the psum ranks run {counts} devices (in rank "
+                    "order); every rank must run as many"
+                )
+            self._psum_checked = True
+        return (self.n_devices * dist.get_world_size(),
+                self.n_devices * dist.get_rank())
+
+    def _dev_key(self, first):
+        """The devices (and the first local row of the pack) in working-set
+        keys: another device list, or another rank's rows, is another
+        entry."""
+        key = ",".join(str(d) for d in self.devices)
+        return key if not first else f"{key}@{first}"
+
+    def _upload_rows(self, packed, first):
+        """This process's rows of a packed ``[n_rows, width]`` block, row
+        ``d`` uploaded to device ``d``."""
+        return _Rows(_upload(packed[first + d], dev)
+                     for d, dev in enumerate(self.devices))
+
+    def _merge_fetch(self, per_dev, n_groups, mode):
+        """Merge per-device partial tables across devices and fetch them.
+
+        ``per_dev[d]`` is the list of partial-table trees (one per bundle
+        member, one for a query) device ``d`` emitted over ``n_groups``.
+        ``device`` mode pads each onto the key-span layout, merges it
+        span-owned (``devicemerge.scatter_merge_partials``) and fetches
+        each owner's span without the pad tail, so the bytes fetched are
+        one table's; ``host`` mode fetches every device's tables; ``psum``
+        merges the local devices onto the first, all-reduces across the
+        processes and fetches that one table.  One packed buffer per
+        device, fetched in parallel.  Returns the trees as NumPy leaves,
+        ``[n_groups]`` each, or ``[n_dev, n_groups]`` in host mode; records
+        the bytes in ``devicemerge.stats()``."""
+        from bqueryd_tpu_torch import ops
+        from bqueryd_tpu_torch.parallel import devicemerge
+
+        devices, n_dev = self.devices, len(self.devices)
+        like = per_dev[0]
+        if mode == devicemerge.MODE_DEVICE:
+            span, _padded = devicemerge.bucket_span(n_groups, n_dev)
+            outputs = [[] for _ in devices]
+            for m in range(len(like)):
+                owned = devicemerge.scatter_merge_partials(
+                    [ops.bucketize_partials(trees[m], n_groups, n_dev)[0]
+                     for trees in per_dev], devices, span)
+                for d, tree in enumerate(owned):
+                    keep = max(0, min(span, n_groups - d * span))
+                    outputs[d].append(_tree_map(lambda a, k=keep: a[:k],
+                                                tree))
+        elif mode == devicemerge.MODE_PSUM:
+            outputs = [[
+                ops.psum_partials(devicemerge.reduce_partials(
+                    [trees[m] for trees in per_dev], devices[0]))
+                for m in range(len(like))
+            ]]
+        else:
+            outputs = per_dev
+        host, fetched = _fetch_leaves(
+            [[leaf for tree in trees for leaf in _tree_leaves(tree)]
+             for trees in outputs])
+        n_leaves = [len(_tree_leaves(tree)) for tree in like]
+        if mode == devicemerge.MODE_HOST:
+            leaves = [np.stack(per) for per in zip(*host)]
+        elif mode == devicemerge.MODE_DEVICE:
+            leaves = [np.concatenate(per) for per in zip(*host)]
+        else:
+            leaves = host[0]
+        merged, off = [], 0
+        for tree, n in zip(like, n_leaves):
+            merged.append(_tree_unflatten(tree, leaves[off:off + n]))
+            off += n
+        table_bytes = sum(leaf.nbytes for leaf in leaves)
+        if mode == devicemerge.MODE_HOST:
+            table_bytes //= n_dev
+        _record_merge_bytes(mode, fetched, self._layout(mode)[0],
+                            table_bytes)
+        return merged
+
+    def _finish_collect(self, merged, mode, query, tables, combos, cards,
+                        key_values, measure_kinds):
+        """One query's merged partials -> its ResultPayload.  Host mode
+        collects each device's table and merges the payloads by key value
+        with ``hostmerge.merge_payloads``, the reference's host-gather
+        merge: the same aggregates, bit for bit on ints."""
+        from bqueryd_tpu_torch.parallel import devicemerge, hostmerge
+
+        if mode == devicemerge.MODE_HOST:
+            payloads = [
+                self._collect_payload(
+                    _tree_map(lambda a, d=d: a[d], merged), query, tables,
+                    combos, cards, key_values, measure_kinds)
+                for d in range(self.n_devices)
+            ]
+            return ResultPayload(hostmerge.merge_payloads(payloads))
+        return self._collect_payload(merged, query, tables, combos, cards,
+                                     key_values, measure_kinds)
+
     # -- execution ----------------------------------------------------------
     def execute(self, tables, query: GroupByQuery,
                 strategy=None) -> ResultPayload:
@@ -545,10 +770,16 @@ class MeshQueryExecutor:
         if not tables:
             return ResultPayload.empty()
 
+        from bqueryd_tpu_torch.parallel import devicemerge
+
+        # the cross-device merge of this query: span-owned by default, the
+        # host merge under the kill switch, the all-reduce in a
+        # multi-process job
+        mode = devicemerge.resolve_mode()
+        n_dev, first = self._layout(mode)
+        dev_key = self._dev_key(first)
         tables_key = tuple(_table_key(t) for t in tables)
         cols_key = tuple(query.groupby_cols)
-        n_dev = self.n_devices
-        dev_key = str(self.device)
         codes_key = (
             tables_key, "codes", cols_key, _where_signature(query), n_dev,
             dev_key,
@@ -612,11 +843,11 @@ class MeshQueryExecutor:
         if codes_d is None:
             # cold only: on a hit the folded codes ARE the filter
             codes_d = self._codes_block(tables, query, dense, n_groups,
-                                        engine)
+                                        engine, n_dev, first)
             self._codes_cache.put(codes_key, codes_d)
         with self._phase("layout"):
             measures_d = self._measure_blocks(
-                tables, unique_cols, block_key, prefetch
+                tables, unique_cols, block_key, prefetch, n_dev, first
             )
 
         sentinels = tuple(
@@ -632,12 +863,14 @@ class MeshQueryExecutor:
             strategy, per_agg, tuple(query.ops), width, n_prog
         )
         self.last_effective_strategy = route
+        self.last_merge_mode = (
+            "host" if mode == devicemerge.MODE_HOST else "device")
         marker = onehot.build_marker()
         kernel_clock = time.perf_counter()
         with self._kernel_phase(), pipeline.stage("kernel"):
             merged = self._device_partials(
                 tuple(query.ops), n_prog, codes_d, per_agg, sentinels,
-                strategy,
+                strategy, mode,
             )
         # the measured-cost calibration sample: the wall through the
         # synchronising fetch, keyed on the group's rows as the controller
@@ -651,20 +884,23 @@ class MeshQueryExecutor:
                 wall_s=time.perf_counter() - kernel_clock,
             )
         if n_prog != n_groups:
-            merged = _tree_map(lambda a: a[:n_groups], merged)
-        self.last_merge_mode = "device"
+            # the group axis is last: host mode's leaves are [n_dev, G]
+            merged = _tree_map(lambda a: a[..., :n_groups], merged)
         with self._phase("collect"), pipeline.stage("merge"):
-            return self._collect_payload(
-                merged, query, tables, combos, cards, key_values,
+            return self._finish_collect(
+                merged, mode, query, tables, combos, cards, key_values,
                 measure_kinds,
             )
 
-    def _codes_block(self, tables, query, dense, n_groups, engine):
-        """Packed global codes on the device, with each shard's row filter
-        folded in (filtered-out rows become -1).  Masks are built on the
-        device, expanded to whole baskets there under
-        ``expand_filter_column`` (each shard's own basket codes, cached by
-        ``engine``), and folded there."""
+    def _codes_block(self, tables, query, dense, n_groups, engine, n_dev,
+                     first):
+        """Packed global codes on the devices (rows ``[first, first +
+        self.n_devices)`` of the ``[n_dev, width]`` pack), with each
+        shard's row filter folded in (filtered-out rows become -1).  Masks
+        are built on the first device, expanded to whole baskets there
+        under ``expand_filter_column`` (each shard's own basket codes,
+        cached by ``engine``), and each device's row of them folded on
+        that device."""
         import torch
 
         from bqueryd_tpu_torch import ops
@@ -687,11 +923,11 @@ class MeshQueryExecutor:
             with pipeline.stage("align"):
                 cdt = _codes_dtype(n_groups)
                 packed = self._pack(
-                    [d.astype(cdt) for d in dense], self.n_devices,
+                    [d.astype(cdt) for d in dense], n_dev,
                     cdt.type(-1), dtype=cdt,
                 )
             with pipeline.stage("h2d"):
-                codes_d = _upload(packed, self.device)
+                codes_d = self._upload_rows(packed, first)
             if all(m is None for m in masks):
                 return codes_d
             keep = torch.zeros(packed.size, dtype=torch.bool,
@@ -700,15 +936,19 @@ class MeshQueryExecutor:
             for d, m in zip(dense, masks):
                 keep[off:off + len(d)] = True if m is None else m
                 off += len(d)
-            return torch.where(
-                keep.view(packed.shape), codes_d,
-                torch.full_like(codes_d, -1),
+            keep = keep.view(packed.shape)
+            return _Rows(
+                torch.where(keep[first + d].to(row.device), row,
+                            torch.full_like(row, -1))
+                for d, row in enumerate(codes_d)
             )
 
-    def _measure_blocks(self, tables, unique_cols, block_key, prefetch):
-        """One packed device block per distinct measure column, from the
-        ``blocks`` segment or built: decode + narrow + pack on the pool
-        (one column in flight ahead of the upload), upload here."""
+    def _measure_blocks(self, tables, unique_cols, block_key, prefetch,
+                        n_dev, first):
+        """One packed block per distinct measure column, each device's row
+        on its device, from the ``blocks`` segment or built: decode +
+        narrow + pack on the pool (one column in flight ahead of the
+        upload), upload here."""
         from bqueryd_tpu_torch.parallel import pipeline
 
         def build_packed(col):
@@ -721,7 +961,7 @@ class MeshQueryExecutor:
                 cols = [np.asarray(t.column_raw(col)) for t in tables]
                 if wire is not None:
                     cols = [c.astype(wire, copy=False) for c in cols]
-                return self._pack(cols, self.n_devices, 0, dtype=wire)
+                return self._pack(cols, n_dev, 0, dtype=wire)
 
         missing = [c for c in unique_cols if block_key(c) not in self._hbm_cache]
         futures = {}
@@ -745,37 +985,32 @@ class MeshQueryExecutor:
                 else:
                     packed = build_packed(col)
                 with pipeline.stage("h2d"):
-                    arr = _upload(packed, self.device)
+                    arr = self._upload_rows(packed, first)
                 self._hbm_cache.put(block_key(col), arr)
             measures_d.append(arr)
         return measures_d
 
     def _device_partials(self, agg_ops, n_groups, codes_d, measures_d,
-                         null_sentinels, strategy):
-        """The single-device counterpart of the reference's
-        ``_mesh_partials`` / ``_mesh_program``: ``partial_tables`` over the
-        whole ``[1, width]`` block (one kernel call over every shard's
-        rows), then every leaf packed into one byte buffer on the device
-        and fetched with ONE D2H copy.  Returns the ``[n_groups]`` tables
-        as NumPy leaves."""
-        import torch
-
+                         null_sentinels, strategy, mode):
+        """The counterpart of the reference's ``_mesh_partials`` /
+        ``_mesh_program``: ``partial_tables`` over each device's row of the
+        block (one kernel call per device over its share of every shard's
+        rows), then the merge across devices and the fetch of
+        :meth:`_merge_fetch`.  Returns the tables as NumPy leaves."""
         from bqueryd_tpu_torch import ops
-        from bqueryd_tpu_torch.ops import groupby as gb
 
-        partials = ops.partial_tables(
-            codes_d[0],
-            tuple(m[0] for m in measures_d),
-            agg_ops,
-            n_groups,
-            null_sentinels=null_sentinels,
-            strategy=strategy,
-        )
-        leaves = _tree_leaves(partials)
-        spec = [(gb.np_dtype(leaf.dtype), tuple(leaf.shape))
-                for leaf in leaves]
-        flat = _fetch(torch.cat([_pack_leaf(leaf) for leaf in leaves]))
-        return _tree_unflatten(partials, _unpack_host(flat, spec))
+        per_dev = [
+            [ops.partial_tables(
+                codes_d[d],
+                tuple(m[d] for m in measures_d),
+                agg_ops,
+                n_groups,
+                null_sentinels=null_sentinels,
+                strategy=strategy,
+            )]
+            for d in range(self.n_devices)
+        ]
+        return self._merge_fetch(per_dev, n_groups, mode)[0]
 
     def _collect_payload(self, partial_table, query, tables, combos, cards,
                          key_values, measure_kinds):
@@ -844,8 +1079,7 @@ class MeshQueryExecutor:
 
         from bqueryd_tpu_torch import ops
         from bqueryd_tpu_torch.models.query import freeze_value
-        from bqueryd_tpu_torch.ops import groupby as gb
-        from bqueryd_tpu_torch.parallel import pipeline
+        from bqueryd_tpu_torch.parallel import devicemerge, pipeline
 
         if not queries:
             return []
@@ -881,10 +1115,11 @@ class MeshQueryExecutor:
                         f"{op!r} is not defined for datetime column {col!r}"
                     )
         engine = self._engine()
+        mode = devicemerge.resolve_mode()
+        n_dev, first = self._layout(mode)
+        dev_key = self._dev_key(first)
         tables_key = tuple(_table_key(t) for t in tables)
         cols_key = tuple(gcols)
-        n_dev = self.n_devices
-        dev_key = str(self.device)
         # the unfiltered solo query's codes entry
         codes_key = (tables_key, "codes", cols_key, (freeze_value([]), None),
                      n_dev, dev_key)
@@ -942,19 +1177,20 @@ class MeshQueryExecutor:
                         cdt.type(-1), dtype=cdt,
                     )
                 with pipeline.stage("h2d"):
-                    codes_d = _upload(packed, self.device)
+                    codes_d = self._upload_rows(packed, first)
                 self._codes_cache.put(codes_key, codes_d)
         width = int(codes_d.shape[1])
 
-        # one stacked mask row per member that filters, built on the
-        # device; a member without a filter indexes None and runs with
+        # one stacked mask row per member that filters, built on the first
+        # device over the whole pack, each device's row of the stack moved
+        # to it; a member without a filter indexes None and runs with
         # mask=None, its solo form
         mask_rows, mask_idx_of = [], {}
         with self._phase("mask"), pipeline.stage("mask"):
             for qi, query in enumerate(queries):
                 if not query.where_terms:
                     continue
-                row = torch.zeros(width, dtype=torch.bool,
+                row = torch.zeros(n_dev * width, dtype=torch.bool,
                                   device=self.device)
                 off = 0
                 for t, d in zip(tables, dense):
@@ -962,12 +1198,16 @@ class MeshQueryExecutor:
                     row[off:off + len(d)] = True if m is None else m
                     off += len(d)
                 mask_idx_of[qi] = len(mask_rows)
-                mask_rows.append(row)
-            masks_d = torch.stack(mask_rows) if mask_rows else None
+                mask_rows.append(row.view(n_dev, width))
+            masks_d = None
+            if mask_rows:
+                stacked = torch.stack(mask_rows)
+                masks_d = [stacked[:, first + d].to(dev)
+                           for d, dev in enumerate(self.devices)]
 
         with self._phase("layout"):
             measures_d = self._measure_blocks(tables, union_cols, block_key,
-                                              prefetch)
+                                              prefetch, n_dev, first)
         slot_of = {col: i for i, col in enumerate(union_cols)}
         sentinels = tuple(np.iinfo(np.int64).min if k == "datetime" else None
                           for k in union_kinds)
@@ -978,41 +1218,36 @@ class MeshQueryExecutor:
         )
 
         n_prog = ops.program_bucket(n_groups)
+        self.last_merge_mode = (
+            "host" if mode == devicemerge.MODE_HOST else "device")
         with self._kernel_phase(), pipeline.stage("kernel"):
             # the members share one shape: the first one's route speaks
             # for the bundle
-            first = queries[0]
+            lead = queries[0]
             self.last_effective_strategy = ops.kernel_route(
-                strategy, tuple(measures_d[slot_of[c]] for c in first.in_cols),
-                tuple(first.ops), width, n_prog,
+                strategy, tuple(measures_d[slot_of[c]] for c in lead.in_cols),
+                tuple(lead.ops), width, n_prog,
             )
-            members = ops.bundle_partial_tables(
-                codes_d[0],
-                None if masks_d is None else masks_d,
-                tuple(m[0] for m in measures_d),
-                member_specs, n_prog,
-                null_sentinels=sentinels, strategy=strategy,
-            )
-            # every member's leaves in ONE packed fetch
-            leaves = [leaf for partials in members
-                      for leaf in _tree_leaves(partials)]
-            spec = [(gb.np_dtype(leaf.dtype), tuple(leaf.shape))
-                    for leaf in leaves]
-            flat = _fetch(torch.cat([_pack_leaf(leaf) for leaf in leaves]))
-            host = iter(_unpack_host(flat, spec))
-            merged_members = [
-                _tree_unflatten(partials, [next(host) for _ in
-                                           _tree_leaves(partials)])
-                for partials in members
+            per_dev = [
+                list(ops.bundle_partial_tables(
+                    codes_d[d],
+                    None if masks_d is None else masks_d[d],
+                    tuple(m[d] for m in measures_d),
+                    member_specs, n_prog,
+                    null_sentinels=sentinels, strategy=strategy,
+                ))
+                for d in range(self.n_devices)
             ]
+            # every member merged in one pass, its leaves in one packed
+            # fetch per device
+            merged_members = self._merge_fetch(per_dev, n_prog, mode)
         if n_prog != n_groups:
-            merged_members = [_tree_map(lambda a: a[:n_groups], m)
+            merged_members = [_tree_map(lambda a: a[..., :n_groups], m)
                               for m in merged_members]
-        self.last_merge_mode = "device"
         with self._phase("collect"), pipeline.stage("merge"):
             return [
-                self._collect_payload(
-                    merged, query, tables, combos, cards, key_values,
+                self._finish_collect(
+                    merged, mode, query, tables, combos, cards, key_values,
                     tuple(kind_of[c] for c in query.in_cols),
                 )
                 for query, merged in zip(queries, merged_members)
@@ -1038,7 +1273,7 @@ class MeshQueryExecutor:
         from bqueryd_tpu_torch import ops
         from bqueryd_tpu_torch.models.query import MERGEABLE_OPS
         from bqueryd_tpu_torch.ops import groupby as gb
-        from bqueryd_tpu_torch.parallel import opexec, pipeline
+        from bqueryd_tpu_torch.parallel import devicemerge, opexec, pipeline
         from bqueryd_tpu_torch.plan.dag import DagValidationError, parse_op
 
         _fire_device_site(len(tables),
@@ -1046,6 +1281,10 @@ class MeshQueryExecutor:
         self.last_effective_strategy = None
         self.last_merge_mode = None
         self.last_prune_counts = []
+        mode = devicemerge.resolve_mode()
+        if mode == devicemerge.MODE_HOST:
+            raise DagFastPathUnsupported(
+                "BQUERYD_TPU_DEVICE_MERGE=0: the merge stays on the host")
         if not dag.aggregate_rows:
             raise DagFastPathUnsupported("raw-rows DAGs dispatch per shard")
         parsed = [parse_op(a[1]) for a in dag.aggs]
@@ -1144,8 +1383,8 @@ class MeshQueryExecutor:
         engine = self._engine()
         tables_key = tuple(_table_key(t) for t in tables)
         derive_sig = dag.derive_signature()
-        n_dev = self.n_devices
-        dev_key = str(self.device)
+        n_dev, row0 = self._layout(mode)
+        dev_key = self._dev_key(row0)
         self.last_merge_mode = "device"
         dexec = opexec.DagExecutor(engine)
 
@@ -1197,9 +1436,9 @@ class MeshQueryExecutor:
             # a fact measure shares the groupby executor's block
             if col_source(col) == "fact":
                 return (tables_key, "col", col, n_dev, dev_key)
-            return (tables_key, "dagcol", col, derive_sig, n_dev)
+            return (tables_key, "dagcol", col, derive_sig, n_dev, dev_key)
 
-        codes_key = (tables_key, "dagcodes", derive_sig, n_dev)
+        codes_key = (tables_key, "dagcodes", derive_sig, n_dev, dev_key)
         if (any(block_key(c) not in self._hbm_cache for c in unique_cols)
                 or codes_key not in self._codes_cache):
             self.workingset.evict_under_pressure()
@@ -1222,15 +1461,17 @@ class MeshQueryExecutor:
             n_groups = max(len(combo_cols), 1)
 
         # the sketch grids' budget BEFORE any upload: one dense int64
-        # [groups, width] grid per quantile agg; past the budget the flat
-        # host merge of the per-shard route is the better economics
+        # [padded groups, width] grid per quantile agg and device; past the
+        # budget the flat host merge of the per-shard route is the better
+        # economics
         n_prog = ops.program_bucket(n_groups)
+        _span, padded = devicemerge.bucket_span(n_prog, self.n_devices)
         sketch_geo = {}
         for i in sketch_idx:
             width, kmin = opexec.sketch_grid_layout(parsed[i][2])
-            if n_prog * width > sketch_grid_cells_limit():
+            if padded * width > sketch_grid_cells_limit():
                 raise DagFastPathUnsupported(
-                    f"sketch grid {n_prog}x{width} cells exceeds "
+                    f"sketch grid {padded}x{width} cells exceeds "
                     f"BQUERYD_TPU_SKETCH_GRID_CELLS"
                 )
             sketch_geo[i] = (width, kmin)
@@ -1245,13 +1486,13 @@ class MeshQueryExecutor:
                         cdt.type(-1), dtype=cdt,
                     )
                 with pipeline.stage("h2d"):
-                    codes_d = _upload(packed, self.device)
+                    codes_d = self._upload_rows(packed, row0)
                 self._codes_cache.put(codes_key, codes_d)
 
         with self._phase("layout"):
             fact_cols = [c for c in unique_cols if col_source(c) == "fact"]
             blocks = dict(zip(fact_cols, self._measure_blocks(
-                tables, fact_cols, block_key, {}
+                tables, fact_cols, block_key, {}, n_dev, row0
             )))
             for col in unique_cols:
                 if col in blocks:
@@ -1269,7 +1510,7 @@ class MeshQueryExecutor:
                                 ))
                         packed = self._pack(vals, n_dev, 0)
                     with pipeline.stage("h2d"):
-                        arr = _upload(packed, self.device)
+                        arr = self._upload_rows(packed, row0)
                     self._hbm_cache.put(block_key(col), arr)
                 blocks[col] = arr
             slot_of = {col: i for i, col in enumerate(unique_cols)}
@@ -1306,7 +1547,7 @@ class MeshQueryExecutor:
             # ``present`` drops them below
             merged = _dag_partials(
                 n_prog, codes_d, measures_d, classic_spec, topk_spec,
-                sketch_spec,
+                sketch_spec, self.devices, mode, n_dev,
             )
 
         with self._phase("collect"), pipeline.stage("merge"):
@@ -1487,54 +1728,107 @@ def sketch_grid_cells_limit():
 
 
 def _dag_partials(n_groups, codes_d, measures_d, classic_spec, topk_spec,
-                  sketch_spec):
-    """The fast path's device program on one device (the reference's
-    ``_mesh_dag_program``, whose cross-device merges have nothing to merge
-    here): ONE ``partial_tables`` call for the classic aggs (with none, the
-    row counts alone), one dense top-k emission per ``topk_spec`` entry
-    ``(slot, k, largest, drop_nan, sentinel, float_neg)`` and one bucket
-    grid per ``sketch_spec`` entry ``(slot, log_gamma, imin, imax, kmin,
-    width)``, every leaf packed into one byte buffer and fetched with ONE
-    D2H copy.  Returns ``{"classic": {"rows", "aggs"}, "topk": ((dense,
-    counts), ...), "sketch": (grid, ...)}`` of NumPy leaves over
-    ``n_groups`` (the program bucket)."""
+                  sketch_spec, devices, mode, n_rows):
+    """The fast path's device program (the reference's
+    ``_mesh_dag_program``), per device over its row of the block: ONE
+    ``partial_tables`` call for the classic aggs (with none, the row counts
+    alone), one dense top-k emission per ``topk_spec`` entry ``(slot, k,
+    largest, drop_nan, sentinel, float_neg)`` and one bucket grid per
+    ``sketch_spec`` entry ``(slot, log_gamma, imin, imax, kmin, width)``.
+    Then the merge across ``devices``: in ``device`` mode the classic
+    partials reduce span-owned, the top-k tables (emitted over the padded
+    groups) are gathered per span and re-selected, and the grids add per
+    span, each owner's span fetched without the pad tail; in ``psum`` mode
+    the local devices merge onto the first, then the processes all-reduce
+    (the top-k tables all-gather and re-select).  Each device's leaves are
+    packed into one byte buffer and fetched.  Returns ``{"classic":
+    {"rows", "aggs"}, "topk": ((dense, counts), ...), "sketch": (grid,
+    ...)}`` of NumPy leaves over ``n_groups`` (the program bucket).
+    ``n_rows`` is the global pack's row count, for the byte accounting."""
     import torch
 
     from bqueryd_tpu_torch import ops
     from bqueryd_tpu_torch.ops import groupby as gb
     from bqueryd_tpu_torch.ops import relops
+    from bqueryd_tpu_torch.parallel import devicemerge
 
-    codes = codes_d[0].to(torch.int64)
-    per_slot = tuple(m[0] for m in measures_d)
-    classic = ops.partial_tables(
-        codes,
-        tuple(per_slot[s] for s, _op, _st in classic_spec),
-        tuple(op for _s, op, _st in classic_spec),
-        n_groups,
-        null_sentinels=tuple(st for _s, _op, st in classic_spec),
-    )
-    topk = tuple(
-        relops.topk_dense_emit(codes, per_slot[slot], None, k, largest,
-                               n_groups, drop_nan, sentinel, float_neg)
-        for slot, k, largest, drop_nan, sentinel, float_neg in topk_spec
-    )
-    sketch = tuple(
-        relops.sketch_grid_block(codes, per_slot[slot], n_groups, lg, imin,
-                                 imax, kmin, width)
-        for slot, lg, imin, imax, kmin, width in sketch_spec
-    )
-    tree = {"classic": classic, "topk": topk, "sketch": sketch}
-    leaves = _dag_leaves(tree)
-    spec = [(gb.np_dtype(leaf.dtype), tuple(leaf.shape)) for leaf in leaves]
-    flat = _fetch(torch.cat([_pack_leaf(leaf) for leaf in leaves]))
-    return _dag_unflatten(tree, _unpack_host(flat, spec))
+    n_dev = len(devices)
+    device_mode = mode == devicemerge.MODE_DEVICE
+    span, padded = devicemerge.bucket_span(n_groups, n_dev)
+    g_emit = padded if device_mode else n_groups
+    per_dev = []
+    for d in range(n_dev):
+        codes = codes_d[d].to(torch.int64)
+        per_slot = tuple(m[d] for m in measures_d)
+        classic = ops.partial_tables(
+            codes,
+            tuple(per_slot[s] for s, _op, _st in classic_spec),
+            tuple(op for _s, op, _st in classic_spec),
+            n_groups,
+            null_sentinels=tuple(st for _s, _op, st in classic_spec),
+        )
+        topk = tuple(
+            relops.topk_dense_emit(codes, per_slot[slot], None, k, largest,
+                                   g_emit, drop_nan, sentinel, float_neg)
+            for slot, k, largest, drop_nan, sentinel, float_neg in topk_spec
+        )
+        sketch = tuple(
+            relops.sketch_grid_block(codes, per_slot[slot], g_emit, lg, imin,
+                                     imax, kmin, width)
+            for slot, lg, imin, imax, kmin, width in sketch_spec
+        )
+        per_dev.append({"classic": classic, "topk": topk, "sketch": sketch})
+
+    topk_args = [(spec[2], spec[5]) for spec in topk_spec]
+    if device_mode:
+        classic = devicemerge.scatter_merge_partials(
+            [ops.bucketize_partials(t["classic"], n_groups, n_dev)[0]
+             for t in per_dev], devices, span)
+        topk = [devicemerge.allgather_topk_merge(
+            [t["topk"][i][0] for t in per_dev],
+            [t["topk"][i][1] for t in per_dev], devices, span, largest,
+            float_neg) for i, (largest, float_neg) in enumerate(topk_args)]
+        sketch = [devicemerge.scatter_merge_grid(
+            [t["sketch"][i] for t in per_dev], devices, span)
+            for i in range(len(sketch_spec))]
+        outputs = []
+        for d in range(n_dev):
+            keep = max(0, min(span, n_groups - d * span))
+            tree = {"classic": classic[d],
+                    "topk": tuple(pairs[d] for pairs in topk),
+                    "sketch": tuple(grids[d] for grids in sketch)}
+            outputs.append([leaf[:keep] for leaf in _dag_leaves(tree)])
+    else:  # psum: the local devices, then the processes
+        classic = ops.psum_partials(devicemerge.reduce_partials(
+            [t["classic"] for t in per_dev], devices[0]))
+        topk = []
+        for i, (largest, float_neg) in enumerate(topk_args):
+            (dense, cnt), = devicemerge.allgather_topk_merge(
+                [t["topk"][i][0] for t in per_dev],
+                [t["topk"][i][1] for t in per_dev], devices, None, largest,
+                float_neg)
+            topk.append(devicemerge.topk_reselect(
+                gb.all_gather_leaf(dense), gb.all_gather_leaf(cnt),
+                int(dense.shape[1]), largest, float_neg))
+        sketch = [gb.all_reduce_leaf(devicemerge.scatter_merge_grid(
+            [t["sketch"][i] for t in per_dev], devices, None)[0], "sum")
+            for i in range(len(sketch_spec))]
+        tree = {"classic": classic, "topk": tuple(topk),
+                "sketch": tuple(sketch)}
+        outputs = [_dag_leaves(tree)]
+    host, fetched = _fetch_leaves(outputs)
+    leaves = ([np.concatenate(per) for per in zip(*host)] if device_mode
+              else host[0])
+    _record_merge_bytes(mode, fetched, n_rows,
+                        sum(leaf.nbytes for leaf in leaves))
+    return _dag_unflatten(per_dev[0], leaves)
 
 
 def _dag_program_flops(args, _kwargs):
     """Analytic flops of one :func:`_dag_partials` call: one multiply-add
     per row and classic aggregation (the partial-table contraction)."""
     codes_d, classic_spec = args[1], args[3]
-    return 2 * int(codes_d.shape[-1]) * (len(classic_spec) + 1)
+    return 2 * int(np.prod(codes_d.shape)) * (len(classic_spec) + 1)
 
 
 def _instrument_dag_program():
@@ -1583,6 +1877,33 @@ def _tree_unflatten(like, leaves):
 
 def _tree_map(fn, tree):
     return _tree_unflatten(tree, [fn(leaf) for leaf in _tree_leaves(tree)])
+
+
+def _fetch_leaves(per_device):
+    """Fetch leaf lists, ``per_device[d]`` on device ``d``: each device's
+    leaves packed into one byte buffer there, the buffers fetched in
+    parallel (:func:`_fetch_many`).  Returns ``(NumPy leaf lists, bytes
+    fetched)``."""
+    import torch
+
+    from bqueryd_tpu_torch.ops import groupby as gb
+
+    specs = [[(gb.np_dtype(leaf.dtype), tuple(leaf.shape)) for leaf in leaves]
+             for leaves in per_device]
+    flats = _fetch_many([torch.cat([_pack_leaf(leaf) for leaf in leaves])
+                         for leaves in per_device])
+    return ([_unpack_host(flat, spec) for flat, spec in zip(flats, specs)],
+            sum(int(flat.nbytes) for flat in flats))
+
+
+def _record_merge_bytes(mode, fetched, n_rows, table_bytes):
+    """Account one merged fetch: ``fetched`` bytes against the host-gather
+    fetch of one ``table_bytes`` table per row of the ``n_rows``-row pack
+    (every device's whole table crossing to the host)."""
+    from bqueryd_tpu_torch.parallel import devicemerge
+
+    devicemerge.stats().record(mode, fetched,
+                               saved=n_rows * table_bytes - fetched)
 
 
 def _pack_leaf(leaf):

@@ -63,12 +63,15 @@ from bqueryd_tpu_torch.storage.ctable import ctable
 class LocalRPC:
     """Groupby over local shards on ``cuda`` (or on the CPU when
     ``device="cpu"`` is passed).  Mergeable aggregations run on the
-    executor, the rest per shard on the engine."""
+    executor, over the ``devices`` list (by default every visible card,
+    as the worker's, and one device on the CPU); the rest per shard on the
+    engine."""
 
-    def __init__(self, data_dir, device=None):
+    def __init__(self, data_dir, device=None, devices=None):
         self.data_dir = data_dir
         self.engine = QueryEngine(device=device)
-        self.executor = MeshQueryExecutor(device=self.engine.device)
+        self.executor = MeshQueryExecutor(device=self.engine.device,
+                                          n_devices=None, devices=devices)
         #: the kernel route and merge mode of the last groupby (the
         #: reference worker's reply envelope keys), and its
         #: (chunks_decoded, chunks_skipped) when chunk pruning ran

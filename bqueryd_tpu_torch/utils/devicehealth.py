@@ -13,10 +13,10 @@ host (:func:`bqueryd_tpu_torch.models.query.host_kernel_rows` returns its
 cap), and device-only work fails with an error instead of hanging the
 worker loop.  A later successful probe unlatches.
 
-The probe runs on the device a node registers with :func:`watch` (the
-engine registers its own device), never on an implicit current device: a
-process that registered none has no device intent and never launches a
-probe.  At most one probe is in flight; a dead device costs one parked
+The probe runs on the devices a node registers with :func:`watch` (the
+engine registers its own device, the executor each of its cards), never on
+an implicit current device: a process that registered none has no device
+intent and never launches a probe.  At most one probe is in flight; a dead device costs one parked
 thread per probe attempt, rate-limited to the recheck interval.
 """
 
@@ -30,7 +30,8 @@ _probe_started = None     # monotonic start of the in-flight probe, or None
 _last_probe_start = 0.0   # start of the most recent probe, any outcome
 _abandoned = 0            # probes written off as hung since the last success
 _generation = 0           # incremented on every not-wedged -> wedged flip
-_device = None            # the torch device probes run on, or None
+_device = None            # the first torch device probes run on, or None
+_devices = ()             # every torch device probes run on
 
 #: past this many parked probe threads, relaunch only every 10 intervals:
 #: a permanently dead device must not grow a thread per interval forever
@@ -51,24 +52,31 @@ def _recheck_interval_s():
 
 
 def watch(device):
-    """Register the torch device probes run on (the node's own device).
-    Until a device is registered the default probe never launches."""
-    global _device
+    """Register the torch device probes run on (the node's own device), or
+    a list of them (an executor's cards; a repeated device is probed
+    once).  Until a device is registered the default probe never
+    launches."""
+    global _device, _devices
+    devices = (tuple(device) if isinstance(device, (list, tuple))
+               else (device,))
     with _lock:
-        _device = device
+        _devices = tuple(dict.fromkeys(devices))
+        _device = _devices[0]
 
 
 def watched_device():
-    """The registered probe device, or None."""
+    """The first registered probe device, or None."""
     with _lock:
         return _device
 
 
 def _default_probe():
-    """One tiny op on the watched device and a synchronising fetch."""
+    """One tiny op on each watched device and a synchronising fetch: a
+    card that does not answer keeps the probe from returning."""
     import torch
 
-    (torch.zeros((), device=_device) + 1).item()
+    for device in _devices or (_device,):
+        (torch.zeros((), device=device) + 1).item()
 
 
 #: test seam: replaced to simulate a wedged device without real hangs

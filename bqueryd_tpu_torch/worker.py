@@ -932,19 +932,33 @@ class WorkerNode(WorkerBase):
 
     ``device`` is resolved when the node is built: ``cuda`` unless
     ``device="cpu"`` is passed; without a card it raises before any socket
-    is opened or anything registered."""
+    is opened or anything registered.  The executor runs over
+    ``n_devices`` of them (``parallel.executor.resolve_devices``): by
+    default every visible card (``CUDA_VISIBLE_DEVICES`` limits it), as
+    the reference's mesh takes every local chip, and one device on the
+    CPU.  With ``BQUERYD_TPU_DIST_*`` set the node first joins its
+    multi-process job (``ops.maybe_init_distributed``) and then runs on
+    its rank's own cards.  The node registers the executor's devices with
+    the health probe and the memory profile."""
 
     workertype = "calc"
 
-    def __init__(self, *args, device=None, **kw):
-        from bqueryd_tpu_torch import resolve_device
+    def __init__(self, *args, device=None, n_devices=None, **kw):
+        from bqueryd_tpu_torch import ops, resolve_device
         from bqueryd_tpu_torch.models.query import QueryEngine
+        from bqueryd_tpu_torch.parallel import devicemerge
         from bqueryd_tpu_torch.parallel.executor import MeshQueryExecutor
 
         device = resolve_device(device)
         super().__init__(*args, **kw)
-        self.engine = QueryEngine(device=device)
-        self.executor = MeshQueryExecutor(device=device)
+        # join first: a rank's executor runs on that rank's cards
+        ops.maybe_init_distributed(self.logger)
+        self.executor = MeshQueryExecutor(device=device, n_devices=n_devices)
+        self.engine = QueryEngine(device=self.executor.device)
+        # the health probe covers each card; the memory profile reads each
+        devicehealth.watch(self.executor.devices)
+        if self.executor.device.type == "cuda":
+            obs.profile.profiler().watch_devices(self.executor.devices)
         self._table_cache = {}   # pinned identity -> table instance
         self._realpaths = {}     # rootdir as named -> its realpath
         self._result_cache = None
@@ -982,6 +996,29 @@ class WorkerNode(WorkerBase):
             "serialized groupby result-payload size per calc reply "
             "(the wire bytes the device-resident merge shrinks)",
             buckets=obs.BYTES_BUCKETS,
+        )
+        # the device merge's byte movement (parallel/devicemerge): D2H
+        # bytes per merge mode and the per-device partial bytes the
+        # span-owned merge kept out of the fetch; process-global
+        for mode in (devicemerge.MODE_DEVICE, devicemerge.MODE_HOST):
+            self.metrics.gauge(
+                "bqueryd_tpu_merge_bytes_fetched",
+                "D2H bytes fetched by the partial-table merge, per mode "
+                "(device = final spans only; host = every device's table)",
+                labels={"mode": mode},
+                fn=(lambda m=mode: devicemerge.stats().fetched(m)),
+            )
+            self.metrics.gauge(
+                "bqueryd_tpu_merge_queries",
+                "executor queries merged per merge mode (monotonic)",
+                labels={"mode": mode},
+                fn=(lambda m=mode: devicemerge.stats().count(m)),
+            )
+        self.metrics.gauge(
+            "bqueryd_tpu_merge_d2h_bytes_saved",
+            "per-device partial-table bytes the device-resident merge kept "
+            "out of the D2H fetch (monotonic)",
+            fn=lambda: devicemerge.stats().saved(),
         )
         # the process-global build, call and device-memory profile on this
         # node's registry
@@ -1521,7 +1558,7 @@ class WorkerNode(WorkerBase):
         mem_tags = None
         if data is None:
             prof = obs.profile.profiler()
-            mem_before = prof.memory_sample(self.device)
+            mem_before = prof.memory_sample()
             with self._profiling(), timer.phase("execute"):
                 # the prune phase and the executor's phases, when they
                 # run, are timed inside execute
@@ -1533,7 +1570,7 @@ class WorkerNode(WorkerBase):
                 else:
                     payload = self._execute_dag(tables, dag, timer, report)
             mem_tags = self._memory_tags(mem_before,
-                                         prof.memory_sample(self.device))
+                                         prof.memory_sample())
             if recorder is not None:
                 self._tag_spans(recorder, report)
             with timer.phase("serialize"):

@@ -27,7 +27,21 @@
    mean within rtol=2e-5), must launch its config's kernel branch the
    expected times at the expected shape (R, G, n), merge as expected and
    report the expected chunk counts, and the executor configs' warm
-   queries must hit every working-set segment;
+   queries must hit every working-set segment; then the multi-device leg
+   (``run_multidevice_path``): the executor's three entry points on the
+   card once, on the card repeated 2 and 4 times (logical devices) and,
+   on a box of several, on every card, in device mode and under
+   ``BQUERYD_TPU_DEVICE_MERGE=0``: sharded, multikey, filtered, zones and
+   highcard through ``LocalRPC``, a bundle of 4 filtered queries
+   (``execute_bundle``) and dag_topk, dag_quantile, dag_join and
+   dag_window (``execute_dag``; refused under the kill switch), 1 + 2
+   queries each, every answer equal to NumPy's and to one device's, one
+   contraction per device at the per-device shape, the bytes fetched one
+   table in device mode and k tables in host mode (``MergeStats``); then
+   the psum mode (``run_psum_path``): two ranks of this script (``--psum-
+   rank``) joined by ``BQUERYD_TPU_DIST_*`` (NCCL on a card each, gloo on
+   one card), 2 logical devices each, every answer exact in both ranks;
+   it prints the ``multidevice`` line (walls, bytes, the backend);
 5. drives the main path, the system's own entry points: a controller and a
    worker on cuda as threads of this process, talking TCP ZMQ through a
    file:// store beside the shards, and every config through
@@ -188,7 +202,7 @@
    per shard; the launch counters are set to 0 just before each path
    (executor, cluster, DAG, append, concurrency, routing, calibration,
    serving, resilience, distribution, observability, engine) and read
-   just after, and every
+   just after (the multi-device leg too), and every
    kernel of each path must have launched there;
 17. breaks queries down into host phases and pipeline stage busy time
    (cProfile of a query run with the pipeline serialized), and device busy
@@ -203,7 +217,9 @@
    the engine path's per-shard shapes, the DAG configs' per-shard shapes
    and the append leg's (the executor's and a delta refresh's tail view)
    and the first member of a swarm, zones and highcard bundle (its mask
-   folded into its codes), the distribution leg's sharded and zones over
+   folded into its codes), the multi-device leg's first device at k = 4
+   (and k = 2 for sharded and highcard), the distribution leg's sharded
+   and zones over
    the downloaded shards and single over the imported one, captured from
    their own runs, plus one shape
    per other branch (base "table" at G = 8192, hicard "global" past the
@@ -235,6 +251,7 @@ outside a checkout of the repository.  Any failed phase fails the run.
 
 import collections
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -1052,7 +1069,7 @@ def _start_cluster(data_dir, store_dir):
                                 runfile_dir=store_dir, heartbeat_interval=0.5)
     worker = WorkerNode(coordination_url=url, data_dir=data_dir,
                         loglevel=quiet, heartbeat_interval=1.0,
-                        poll_timeout=0.1)  # cuda
+                        poll_timeout=0.1, n_devices=1)  # one card
     threads = [threading.Thread(target=n.go, daemon=True)
                for n in (controller, worker)]
     for t in threads:
@@ -1406,7 +1423,7 @@ def time_dag_programs(programs, iters=10):
 
     out = {}
     for config, args in programs.items():
-        n_groups, codes_d, measures_d, _classic, topk, sketch = args
+        n_groups, codes_d, measures_d, _classic, topk, sketch = args[:6]
         codes = codes_d[0].to(torch.int64)
         per_slot = [m[0] for m in measures_d]
         rows = {}
@@ -2954,7 +2971,8 @@ class _Resilience:
 
         worker = WorkerNode(coordination_url=self.url,
                             data_dir=self.data_dir, loglevel=self.quiet,
-                            heartbeat_interval=0.5, poll_timeout=0.05)
+                            heartbeat_interval=0.5, poll_timeout=0.05,
+                            n_devices=1)
         thread = threading.Thread(target=worker.go, name=label, daemon=True)
         self.workers[label] = worker
         self.threads.append(thread)
@@ -3564,7 +3582,7 @@ class _Distribution:
         self.controller = ControllerNode(
             coordination_url=self.url, loglevel=quiet, runfile_dir=store_dir,
             heartbeat_interval=0.5)
-        self.calc = WorkerNode(**common)  # cuda
+        self.calc = WorkerNode(n_devices=1, **common)  # one card
         self.downloader = DownloaderNode(download_threads=DIST_THREADS,
                                          **common)
         self.mover = MoveBcolzNode(**common)
@@ -4299,6 +4317,420 @@ def _obs_device_trace(rpc, names, parts, scratch):
     if not found["found"]:
         raise AssertionError(f"observability device trace: {found}")
     return found
+
+
+# -- the multi-device merge ----------------------------------------------------
+
+#: the multi-device leg's groupby configs, bundle and DAGs; its device
+#: layouts are one card repeated k times (logical devices, as the JAX
+#: package's tests repeat the CPU) and, on a box of several, every card
+MD_CONFIGS = ("sharded", "multikey", "filtered", "zones", "highcard")
+MD_DAGS = ("dag_topk", "dag_quantile", "dag_join", "dag_window")
+MD_BUNDLE = 4
+MD_K = (2, 4)
+MD_WARM = 2
+#: logical devices of each rank of the psum leg, and its configs
+MD_PSUM_K = 2
+MD_PSUM_CONFIGS = ("sharded", "multikey", "zones", "highcard")
+#: the layouts whose first device's kernel inputs the kernel rows hold
+MD_KERNEL_ROWS = {"k=4": MD_CONFIGS + ("dag_join", "dag_topk",
+                                       "dag_window"),
+                  "k=2": ("sharded", "highcard")}
+
+
+def _md_layouts():
+    """``[(label, devices)]``: one card once (the reference point), one
+    card repeated ``k`` times for each of :data:`MD_K`, and every card
+    when torch sees more than one."""
+    import torch
+
+    card = torch.device("cuda", 0)
+    out = [("k=1", [card])] + [(f"k={k}", [card] * k) for k in MD_K]
+    n = torch.cuda.device_count()
+    if n > 1:
+        out.append((f"cards={n}", [torch.device("cuda", i)
+                                   for i in range(n)]))
+    return out
+
+
+def _md_launches(kind, shape, n_rows, k):
+    """{shape key: launches} of one query on ``k`` devices: one
+    contraction per device over its row of the pack."""
+    from bqueryd_tpu_torch import ops
+
+    kernel, branch = kind
+    n = ops.program_bucket(-(-n_rows // k), fine=True)
+    return {shape_key(kernel, branch, *shape, n): k}
+
+
+def _md_same(label, got, want, n_keys=1):
+    """Two finalized answers, ``(order, columns)`` (or lists of them, a
+    bundle's), equal group for group (the host merge orders groups its own
+    way): the first ``n_keys`` columns are the keys; ints and keys bit for
+    bit, floats within rtol 2e-5, top-k lists equal."""
+    if isinstance(got, list):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _md_same(f"{label} member {i}", g, w, n_keys)
+        return
+    (o1, c1), (o2, c2) = got, want
+    if o1 != o2:
+        raise AssertionError(f"{label}: columns {o1} against {o2}")
+    if len(c1[o1[0]]) != len(c2[o2[0]]):
+        raise AssertionError(f"{label}: {len(c1[o1[0]])} groups against "
+                             f"{len(c2[o2[0]])}")
+    p1, p2 = (np.lexsort([np.asarray(c[k]) for k in reversed(o1[:n_keys])])
+              for c in (c1, c2))
+    for col in o1:
+        a, b = np.asarray(c1[col])[p1], np.asarray(c2[col])[p2]
+        if a.dtype == object or b.dtype == object:
+            same = len(a) == len(b) and all(
+                np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(a, b))
+        elif a.dtype.kind == "f":
+            same = a.shape == b.shape and np.allclose(a, b, rtol=2e-5,
+                                                      atol=0)
+        else:
+            same = a.dtype == b.dtype and np.array_equal(a, b)
+        if not same:
+            raise AssertionError(f"{label}: column {col} differs from k=1")
+
+
+def _md_capture(store, label, config):
+    """Record under ``label`` the first launch's inputs in the block (the
+    first device's, its kernel call at the per-device shape)."""
+    from bqueryd_tpu_torch.ops import onehot
+
+    saved = {"onehot_rows_dot": onehot._launch_base,
+             "onehot_rows_dot_hicard": onehot._launch_hicard}
+
+    def wrap(name):
+        def run(codes, rows, n_rows, n_groups, plan):
+            store.setdefault(label, (name, plan.branch, codes, rows, n_rows,
+                                     n_groups,
+                                     n_rows - FLOAT_ROWS.get(config, 0)))
+            return saved[name](codes, rows, n_rows, n_groups, plan)
+        return run
+
+    onehot._launch_base = wrap("onehot_rows_dot")
+    onehot._launch_hicard = wrap("onehot_rows_dot_hicard")
+    return saved
+
+
+def _md_restore(saved):
+    from bqueryd_tpu_torch.ops import onehot
+
+    onehot._launch_base = saved["onehot_rows_dot"]
+    onehot._launch_hicard = saved["onehot_rows_dot_hicard"]
+
+
+#: the bundle's members: the swarm's query, passenger_count -> fare sum,
+#: each under its own trip_distance threshold
+MD_BUNDLE_AGGS = [["fare_amount", "sum", "fare_amount"]]
+MD_BUNDLE_THRESHOLDS = tuple(CONC_BASE + CONC_STEP * i
+                             for i in range(MD_BUNDLE))
+
+
+def _md_bundle_queries():
+    from bqueryd_tpu_torch.models.query import GroupByQuery
+
+    return [GroupByQuery(["passenger_count"], MD_BUNDLE_AGGS,
+                         [["trip_distance", ">", t]])
+            for t in MD_BUNDLE_THRESHOLDS]
+
+
+def run_multidevice_path(names, parts, data_dir, captured):
+    """The executor's three entry points over several devices: per layout
+    of :func:`_md_layouts` a ``LocalRPC`` whose executor runs on those
+    devices, in device mode and (but at k=1) under
+    ``BQUERYD_TPU_DEVICE_MERGE=0``: the groupby configs of
+    :data:`MD_CONFIGS` (1 cold query, then ``MD_WARM`` warm), a bundle of
+    ``MD_BUNDLE`` filtered queries (``execute_bundle``) and the extended
+    DAGs on the fast path (``execute_dag``; under the kill switch it must
+    refuse).  Every answer equals NumPy's and k=1's; each query launches
+    one contraction per device at the per-device shape; the bytes fetched
+    are one table in device mode (k=1's) and k tables in host mode; the
+    first device's kernel inputs of :data:`MD_KERNEL_ROWS` go to
+    ``captured``."""
+    import torch
+
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.parallel import devicemerge, hostmerge
+    from bqueryd_tpu_torch.parallel.executor import DagFastPathUnsupported
+    from bqueryd_tpu_torch.plan import dag as dagmod
+    from bqueryd_tpu_torch.rpc import LocalRPC
+
+    rows = _rows_of(parts, slice(None))
+    cols = {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+    want = {c: reference(c, parts) for c in MD_CONFIGS}
+    want.update({c: dag_reference(c, parts) for c in MD_DAGS})
+    bundle_want = [conc_reference(cols, ["passenger_count"],
+                                  MD_BUNDLE_AGGS, t)
+                   for t in MD_BUNDLE_THRESHOLDS]
+    stats = devicemerge.stats()
+    base, base_bytes = {}, {}
+    report = {}
+    for label, devices in _md_layouts():
+        k = len(devices)
+        rpc = LocalRPC(data_dir, devices=devices)
+        tables = [rpc._table(n) for n in names]
+        modes = ("device",) if k == 1 else ("device", "host")
+        for mode in modes:
+            rec = report.setdefault(label, {})[mode] = {}
+            env = {"BQUERYD_TPU_DEVICE_MERGE":
+                   "1" if mode == "device" else "0"}
+
+            def hold(what, run, expect, check, capture=None):
+                walls, answer, fetched = [], None, []
+                for rep in range(MD_WARM + 1):
+                    before = dict(onehot.LAUNCHES)
+                    snap = stats.snapshot()
+                    saved = (_md_capture(captured, capture[0], capture[1])
+                             if capture and rep == 1 else None)
+                    try:
+                        out, wall = _timed(run)
+                    finally:
+                        if saved:
+                            _md_restore(saved)
+                    check(out)
+                    launched = _launch_delta(before)
+                    if launched != expect:
+                        raise AssertionError(
+                            f"multidevice {label} {mode} {what} query "
+                            f"{rep}: launched {launched}, expected {expect}")
+                    after = stats.snapshot()
+                    fetched.append(after["bytes_fetched"][mode]
+                                   - snap["bytes_fetched"][mode])
+                    walls.append(wall)
+                    answer = out
+                if len(set(fetched)) != 1:
+                    raise AssertionError(f"multidevice {label} {mode} "
+                                         f"{what}: fetched {fetched}")
+                if k == 1:
+                    base[what], base_bytes[what] = answer, fetched[0]
+                else:
+                    _md_same(f"multidevice {label} {mode} {what}",
+                             answer, base[what],
+                             len(CONFIGS[what][1]) if what in CONFIGS
+                             else 1)
+                    bound = base_bytes[what] * (k if mode == "host" else 1)
+                    if fetched[0] != bound:
+                        raise AssertionError(
+                            f"multidevice {label} {mode} {what}: fetched "
+                            f"{fetched[0]} bytes, expected {bound}")
+                rec[what] = {"first_wall_s": walls[0],
+                             "warm_walls_s": walls[1:],
+                             "warm_wall_s_median":
+                                 float(np.median(walls[1:])),
+                             "fetched_bytes": fetched[0],
+                             "launches": sum(expect.values())}
+
+            with _env_set(env):
+                for config in MD_CONFIGS:
+                    def run_query(config=config):
+                        return _query(rpc, names, config)
+
+                    def check(out, config=config):
+                        check_result(config, *out, want[config])
+                        if rpc.last_merge_mode != mode:
+                            raise AssertionError(
+                                f"multidevice {config}: merge mode "
+                                f"{rpc.last_merge_mode}, expected {mode}")
+
+                    capture = None
+                    if mode == "device" and config in MD_KERNEL_ROWS.get(
+                            label, ()):
+                        capture = (f"multidevice {label} {config}", config)
+                    hold(config, run_query,
+                         _md_launches(CONFIG_KERNEL[config],
+                                      EXEC_SHAPE[config], rows, k),
+                         check, capture)
+
+                def run_bundle():
+                    payloads = rpc.executor.execute_bundle(
+                        tables, _md_bundle_queries())
+                    return [hostmerge.finalize_table(
+                        hostmerge.merge_payloads([p])) for p in payloads]
+
+                def check_bundle(outs):
+                    for i, (out, w) in enumerate(zip(outs, bundle_want)):
+                        check_conc(f"multidevice bundle member {i}",
+                                   ["passenger_count"], MD_BUNDLE_AGGS,
+                                   *out, w)
+                    if rpc.executor.last_merge_mode != mode:
+                        raise AssertionError("multidevice bundle: merge "
+                                             "mode "
+                                             f"{rpc.executor.last_merge_mode}")
+
+                expect = _md_launches(CONFIG_KERNEL["sharded"],
+                                      EXEC_SHAPE["sharded"], rows, k)
+                hold("bundle", run_bundle,
+                     {key: n * MD_BUNDLE for key, n in expect.items()},
+                     check_bundle)
+                for config in MD_DAGS:
+                    dag = dagmod.compile_query(dict(DAG_SPECS[config],
+                                                    table=list(names)))
+                    if mode == "host":
+                        try:
+                            rpc.executor.execute_dag(tables, dag)
+                        except DagFastPathUnsupported:
+                            continue
+                        raise AssertionError(
+                            f"multidevice {config}: the fast path ran "
+                            "under BQUERYD_TPU_DEVICE_MERGE=0")
+
+                    def run_dag(dag=dag):
+                        return hostmerge.finalize_table(
+                            hostmerge.merge_payloads(
+                                [rpc.executor.execute_dag(tables, dag)]))
+
+                    def check_d(out, config=config):
+                        check_dag(config, *out, want[config])
+
+                    capture = None
+                    if config in MD_KERNEL_ROWS.get(label, ()):
+                        capture = (f"multidevice {label} {config}", config)
+                    hold(config, run_dag,
+                         _md_launches(("onehot_rows_dot", "mma"),
+                                      DAG_FAST_SHAPE[config], rows, k),
+                         check_d, capture)
+        rpc.executor.clear_caches()
+        rpc.engine.clear_caches()
+        del rpc, tables
+        # release the layout's host and device buffers now, not in a later
+        # leg's query (a cycle's arrays are freed at the next collection)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"multidevice {label}: {json.dumps(report[label])}")
+    return report
+
+
+def psum_rank(rank, data_dir, out_path):
+    """One rank of the psum leg (``chip_smoke.py --psum-rank R DATA OUT``,
+    started by :func:`run_psum_path` with the ``BQUERYD_TPU_DIST_*``
+    variables): joins the job, runs :data:`MD_PSUM_CONFIGS` and dag_topk
+    through a ``LocalRPC`` on ``MD_PSUM_K`` logical devices of its card
+    (1 cold + 1 warm each) and pickles the answers, walls, merge modes,
+    launches and backend to ``out_path``."""
+    import pickle
+
+    import torch
+
+    from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.ops import onehot
+    from bqueryd_tpu_torch.parallel import devicemerge, hostmerge
+    from bqueryd_tpu_torch.plan import dag as dagmod
+    from bqueryd_tpu_torch.rpc import LocalRPC
+
+    if not ops.maybe_init_distributed():
+        raise AssertionError("the psum rank joined no job")
+    info = ops.distributed_info()
+    if devicemerge.resolve_mode() != devicemerge.MODE_PSUM:
+        raise AssertionError("a joined rank must take the psum mode")
+    card = torch.device("cuda", torch.cuda.current_device())
+    rpc = LocalRPC(data_dir, devices=[card] * MD_PSUM_K)
+    names = [f"taxi_{i}.bcolzs" for i in range(SHARDS)]
+    onehot._library()
+    out = {"info": info, "devices": [str(d) for d in rpc.executor.devices],
+           "answers": {}, "walls": {}, "modes": {}}
+    onehot.reset_launch_counts()
+    for config in MD_PSUM_CONFIGS:
+        walls = []
+        for _rep in range(2):
+            answer, wall = _timed(lambda: _query(rpc, names, config))
+            walls.append(wall)
+        out["answers"][config], out["walls"][config] = answer, walls
+        out["modes"][config] = rpc.last_merge_mode
+    tables = [rpc._table(n) for n in names]
+    dag = dagmod.compile_query(dict(DAG_SPECS["dag_topk"],
+                                    table=list(names)))
+    walls = []
+    for _rep in range(2):
+        answer, wall = _timed(lambda: hostmerge.finalize_table(
+            hostmerge.merge_payloads([rpc.executor.execute_dag(tables,
+                                                               dag)])))
+        walls.append(wall)
+    out["answers"]["dag_topk"], out["walls"]["dag_topk"] = answer, walls
+    out["launches"] = {shape_key(*key): v
+                       for key, v in onehot.LAUNCHES.items()}
+    with open(out_path, "wb") as fh:
+        pickle.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_psum_path(names, parts, data_dir, scratch):
+    """The psum mode with two ranks, each a process of this script
+    (:func:`psum_rank`) on ``MD_PSUM_K`` logical devices: NCCL where each
+    rank has a card of its own, gloo on one card.  Both ranks' answers must
+    equal NumPy's and each other's, with the launches the 4-row pack
+    implies (each rank runs its 2 rows); returns the backend, the walls
+    and the launches."""
+    import pickle
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, BQUERYD_TPU_DIST_COORDINATOR=f"127.0.0.1:{port}",
+               BQUERYD_TPU_DIST_NPROCS="2")
+    outs = [os.path.join(scratch, f"psum_rank{r}.pkl") for r in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--psum-rank", str(r),
+         data_dir, outs[r]],
+        env=dict(env, BQUERYD_TPU_DIST_PROC_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"psum rank {r} failed:\n{text[-4000:]}")
+    ranks = []
+    for path in outs:
+        with open(path, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    from bqueryd_tpu_torch import ops
+
+    # each rank runs its MD_PSUM_K rows of the 2 * MD_PSUM_K-row pack: one
+    # launch per device and query, two queries per config
+    n = ops.program_bucket(-(-_rows_of(parts, slice(None))
+                             // (2 * MD_PSUM_K)), fine=True)
+    want_launches = {}
+    shapes = [CONFIG_KERNEL[c] + EXEC_SHAPE[c] for c in MD_PSUM_CONFIGS]
+    shapes.append(("onehot_rows_dot", "mma") + DAG_FAST_SHAPE["dag_topk"])
+    for shape in shapes:
+        key = shape_key(*shape, n)
+        want_launches[key] = want_launches.get(key, 0) + 2 * MD_PSUM_K
+    for r, rank in enumerate(ranks):
+        for config in MD_PSUM_CONFIGS:
+            check_result(config, *rank["answers"][config],
+                         reference(config, parts))
+            if rank["modes"][config] != "device":
+                raise AssertionError(f"psum rank {r} {config}: merge mode "
+                                     f"{rank['modes'][config]}")
+        check_dag("dag_topk", *rank["answers"]["dag_topk"],
+                  dag_reference("dag_topk", parts))
+        if rank["launches"] != want_launches:
+            raise AssertionError(f"psum rank {r}: launched "
+                                 f"{rank['launches']}, expected "
+                                 f"{want_launches}")
+    for config in ranks[0]["answers"]:
+        _md_same(f"psum {config}", ranks[0]["answers"][config],
+                 ranks[1]["answers"][config])
+    report = {"backend": ranks[0]["info"]["backend"],
+              "world_size": ranks[0]["info"]["world_size"],
+              "devices_per_rank": [r["devices"] for r in ranks],
+              "walls_s": [r["walls"] for r in ranks],
+              "launches_per_rank": ranks[0]["launches"]}
+    log(f"psum: {json.dumps(report)}")
+    return report
 
 
 def run_cli_check(names, parts, data_dir, store_dir):
@@ -5158,6 +5590,8 @@ def main():
     if not torch.cuda.is_available():
         log("torch sees no CUDA device: nothing to run")
         return 2
+    if sys.argv[1:2] == ["--psum-rank"]:
+        return psum_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from bqueryd_tpu_torch.ops import onehot
     from bqueryd_tpu_torch.rpc import LocalRPC
     from bqueryd_tpu_torch.storage import native
@@ -5192,7 +5626,8 @@ def main():
             "pickup_ts sorted within each shard (bench.py writes the same "
             "draws unsorted), so that its zone maps prune chunks",
         ]}), flush=True)
-        rpc = LocalRPC(data_dir)  # cuda
+        # one card: run_multidevice_path drives the device lists
+        rpc = LocalRPC(data_dir, devices=[device])
         # set-up outside every timed query: the CUDA context and the
         # kernels' library
         torch.zeros(1, device=device)
@@ -5202,6 +5637,24 @@ def main():
         configs = run_executor_path(rpc, names, parts, data_dir)
         exec_launches = counted_launches("executor")
         log(f"executor path: {time.perf_counter() - t0:.1f}s")
+        # the executor's three entry points over several devices, in
+        # device and host mode, then the psum mode in two ranks
+        md_captured = {}
+        t0 = time.perf_counter()
+        onehot.reset_launch_counts()
+        multidevice = run_multidevice_path(names, parts, data_dir,
+                                           md_captured)
+        md_launches = path_launches(
+            "multidevice", tuple({CONFIG_KERNEL[c] for c in MD_CONFIGS}))
+        md_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        psum = run_psum_path(names, parts, data_dir, scratch)
+        log(f"multidevice path: {md_wall:.1f}s, psum ranks: "
+            f"{time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"multidevice": {
+            "layouts": multidevice, "psum": psum,
+            "leg_s": md_wall, "psum_s": time.perf_counter() - t0}}),
+            flush=True)
         # the cluster's nodes bind and advertise the loopback address
         os.environ["BQUERYD_TPU_IP"] = "127.0.0.1"
         # the serving layer stays off on every leg but its own, so that a
@@ -5339,7 +5792,10 @@ def main():
                           "observability": observability,
                           "cli": cli,
                           "engine_configs": engine_configs,
+                          "multidevice": multidevice,
+                          "psum": psum,
                           "launches": {"executor": exec_launches,
+                                       "multidevice": md_launches,
                                        "cluster": cluster_launches,
                                        "dag": dag_launches,
                                        "append": append_launches,
@@ -5360,11 +5816,13 @@ def main():
         inputs["executor highcard global"] = (name, "global", *rest)
         inputs.update(_shard_inputs(parts, device))
         inputs.update(captured)
+        inputs.update(md_captured)
         # launches per path: the executor rows count each config's own
         # queries on the cluster and executor paths, the other rows the
         # launches at their shape
         launches = {label: {} for label in inputs}
         for path, counted in (("executor", exec_launches),
+                              ("multidevice", md_launches),
                               ("cluster", cluster_launches),
                               ("dag", dag_launches),
                               ("append", append_launches),
@@ -5375,10 +5833,12 @@ def main():
                 if counted.get(key):
                     launches[label][path] = counted[key]
         for config in configs:
-            launches[_input_label(config)] = {
-                "executor": configs[config]["launches"],
-                "cluster": cluster[config]["launches"],
-            }
+            label = _input_label(config)
+            launches[label] = dict(
+                {"executor": configs[config]["launches"],
+                 "cluster": cluster[config]["launches"]},
+                **{p: n for p, n in launches[label].items()
+                   if p == "multidevice"})
         # the routing, calibration, serving and resilience legs' launches
         # at each row's shape
         for path, counted in (("routing", routing_launches),

@@ -145,8 +145,8 @@ def test_packed_fetch_round_trips_every_leaf(dtype):
     leaf = leaf > 0 if dtype == tg.torch.bool else leaf.to(dtype)
     leaves = [odd, leaf, leaf.flip(0)]
     spec = [(tg.np_dtype(x.dtype), tuple(x.shape)) for x in leaves]
-    flat = port_executor._fetch(
-        tg.torch.cat([port_executor._pack_leaf(x) for x in leaves]))
+    flat = port_executor._fetch_many(
+        [tg.torch.cat([port_executor._pack_leaf(x) for x in leaves])])[0]
     assert flat.dtype == np.uint8 and flat.nbytes == sum(
         x.numel() * x.element_size() for x in leaves)
     for got, want in zip(port_executor._unpack_host(flat, spec), leaves):
@@ -461,11 +461,23 @@ def test_per_shard_path_launches_on_the_calling_thread(shards, port,
 
 
 def test_datetime_sum_and_more_devices_are_refused(port):
+    """A datetime mean is refused on any number of devices; two devices
+    (once refused, before the device merge) answer what one does: ints
+    bit for bit, floats within ``_compare``."""
     executor, tables = port
-    with pytest.raises(ValueError, match="not defined for datetime"):
-        executor.execute(tables, GroupByQuery(["k_int"], [["t", "mean", "x"]]))
-    with pytest.raises(NotImplementedError, match="one device"):
-        MeshQueryExecutor(device="cpu", n_devices=2)
+    two = MeshQueryExecutor(device="cpu", n_devices=2)
+    assert two.devices == (tg.torch.device("cpu"),) * 2
+    for ex in (executor, two):
+        with pytest.raises(ValueError, match="not defined for datetime"):
+            ex.execute(tables, GroupByQuery(["k_int"], [["t", "mean", "x"]]))
+    gcols = ["k_int"]
+    aggs = [["v_big", "sum", "s"], ["v_small", "min", "lo"],
+            ["v_float", "mean", "m"], ["v_small", "count", "n"]]
+    query = GroupByQuery(gcols, aggs)
+    one = _payload_frame(executor.execute(tables, query))
+    got = _payload_frame(two.execute(tables, query))
+    assert two.last_merge_mode == "device"
+    _compare(got, one, gcols, aggs)
 
 
 def test_pressure_eviction_sheds_blocks_before_codes(port):
