@@ -539,6 +539,10 @@ class ControllerNode:
         self._loop_thread = threading.current_thread()
         try:
             signal.signal(signal.SIGTERM, self._term_signal)
+            if hasattr(signal, "SIGUSR1"):
+                # local forensic dump: kill -USR1 <pid> writes the full
+                # debug bundle without needing a live client
+                signal.signal(signal.SIGUSR1, self._dump_debug_signal)
         except ValueError:
             pass  # not the main thread (in-process clusters)
         self.logger.info("controller %s running", self.address)
@@ -581,6 +585,18 @@ class ControllerNode:
     def _term_signal(self, *args):
         self.logger.info("SIGTERM received, stopping")
         self.running = False
+
+    def _dump_debug_signal(self, *args):
+        """SIGUSR1: write :meth:`build_debug_bundle` as one JSON file under
+        ``BQUERYD_TPU_DEBUG_DIR`` (else the temporary directory)."""
+        from bqueryd_tpu_torch.obs import flightrec
+
+        try:
+            path = flightrec.dump_bundle(self.build_debug_bundle(),
+                                         role="controller")
+            self.logger.warning("SIGUSR1: debug bundle written to %s", path)
+        except Exception:
+            self.logger.exception("SIGUSR1 debug dump failed")
 
     def stop(self):
         """Stop the node.  From another thread this only flags the loop;

@@ -240,13 +240,41 @@ class ResultPayload(dict):
 
 _measured_floor = None
 
+#: the dispatch floor is the least wall over this many rounds of 3 calls,
+#: :data:`_FLOOR_ROUND_GAP_S` apart: a call that waited for another
+#: thread (the GIL, a busy core) is inflated, and a worker measures its
+#: floor in the background while its loop registers and the rest of the
+#: process runs, so three calls back to back can all land in one burst
+#: of contention and set the host-routing threshold, for the process
+#: lifetime, to several times its value
+_FLOOR_ROUNDS = 10
+_FLOOR_ROUND_GAP_S = 0.05
+
+
+def _min_wall(call, rounds=None, gap_s=None):
+    """The least wall-clock seconds of ``call()`` over ``rounds`` rounds
+    of 3 calls, with a sleep of ``gap_s`` between rounds (defaults
+    :data:`_FLOOR_ROUNDS`, :data:`_FLOOR_ROUND_GAP_S`)."""
+    rounds = _FLOOR_ROUNDS if rounds is None else rounds
+    gap_s = _FLOOR_ROUND_GAP_S if gap_s is None else gap_s
+    best = float("inf")
+    for r in range(rounds):
+        if r:
+            time.sleep(gap_s)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
 
 def device_dispatch_floor(remeasure=False, device=None):
     """Measured wall of one tiny op plus a synchronising fetch on
     ``device`` (default: the device :func:`devicehealth.watch` registered,
-    else the CPU): the minimum of 3 after one warm call, cached per
-    process.  The fetch is included because the device query path ends in
-    one; this is the cost host routing competes against.
+    else the CPU): after one warm call, the minimum of
+    :data:`_FLOOR_ROUNDS` rounds of 3 spread in time (:func:`_min_wall`),
+    cached per process.  The fetch is included because the device query
+    path ends in one; this is the cost host routing competes against.
 
     A sample taken while another thread holds the device (a kernel build,
     the CUDA context's creation) is inflated: the worker calls
@@ -266,12 +294,7 @@ def device_dispatch_floor(remeasure=False, device=None):
 
             x = torch.zeros((), device=dev if dev is not None else "cpu")
             (x + 1).item()
-            walls = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                (x + 1).item()
-                walls.append(time.perf_counter() - t0)
-            return min(walls)
+            return _min_wall(lambda: (x + 1).item())
 
         timeout = devicehealth.probe_timeout_s()
         if timeout <= 0:  # detection disabled: measure directly

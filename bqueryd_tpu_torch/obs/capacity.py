@@ -264,6 +264,17 @@ class CapacityModel:
     events, which take their own lock)."""
 
 
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    _bqtpu_guarded_ = {
+        "_lock": (
+            "_workers", "_arrivals", "_launched",
+            "_arrivals_by_class", "_dispatches",
+            "_shard_rates", "_shard_workers", "_measured_wait",
+            "_measured_wait_n", "_spq_ewma", "_fleet_state", "_last_eval",
+            "_last_advice", "_advice_counts",
+        ),
+    }
+
     def __init__(self, on_advice=None):
         self._lock = threading.Lock()
         self._workers = {}            # worker_id -> _WorkerModel

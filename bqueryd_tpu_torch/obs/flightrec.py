@@ -69,6 +69,12 @@ class FlightRecorder:
     ``BQUERYD_TPU_FLIGHT_CAPACITY`` and ``BQUERYD_TPU_FLIGHT_BYTES`` set
     the bounds when the constructor is not given them."""
 
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    #: (lock-unguarded-attr)
+    _bqtpu_guarded_ = {
+        "_lock": ("_events", "_sizes", "_nbytes", "_evictions", "_seq"),
+    }
+
     def __init__(self, node_id=None, capacity=None, max_bytes=None):
         if capacity is None:
             try:

@@ -63,6 +63,9 @@ class Counter:
 
     kind = "counter"
 
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    _bqtpu_guarded_ = {"_lock": ("_value",)}
+
     def __init__(self, name, help_text, labels=None):
         self.name = name
         self.help = help_text
@@ -92,6 +95,9 @@ class Gauge:
     """Settable value, or one read from ``fn`` at render time."""
 
     kind = "gauge"
+
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    _bqtpu_guarded_ = {"_lock": ("_value",)}
 
     def __init__(self, name, help_text, labels=None, fn=None):
         self.name = name
@@ -134,6 +140,9 @@ class Histogram:
     cumulative ``_bucket{le=...}`` samples."""
 
     kind = "histogram"
+
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    _bqtpu_guarded_ = {"_lock": ("_counts", "_sum")}
 
     def __init__(self, name, help_text, labels=None, buckets=LATENCY_BUCKETS_S):
         self.name = name
@@ -199,6 +208,9 @@ class MetricsRegistry:
     """One node's metrics: get-or-create by (name, label set), grouped into
     families for rendering.  Creation takes the registry's lock; a metric's
     ``inc``/``observe`` takes only its own."""
+
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    _bqtpu_guarded_ = {"_lock": ("_metrics", "_families")}
 
     def __init__(self):
         self._lock = threading.Lock()

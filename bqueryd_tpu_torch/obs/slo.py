@@ -407,6 +407,9 @@ class SLOTracker:
     callback-backed gauges (read at scrape time, no upkeep thread)."""
 
 
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    _bqtpu_guarded_ = {"_lock": ("_events",)}
+
     def __init__(self, registry, classes=None):
         self.classes = classes or parse_classes()
         self._lock = threading.Lock()

@@ -24,6 +24,7 @@ from bqueryd_tpu_torch.ops.groupby import (
     combine_partials,
     expand_mask_by_group,
     finalize,
+    groupby_aggregate,
     groupby_count_distinct,
     groupby_sorted_count_distinct,
     host_expand_mask_by_group,
@@ -60,6 +61,7 @@ __all__ = [
     "combine_partials",
     "expand_mask_by_group",
     "finalize",
+    "groupby_aggregate",
     "groupby_count_distinct",
     "groupby_sorted_count_distinct",
     "host_expand_mask_by_group",

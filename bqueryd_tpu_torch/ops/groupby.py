@@ -28,6 +28,7 @@ on the device: a CUDA tensor goes through the kernels, a CPU tensor
 through their plain versions, along the same route.
 """
 
+import os
 import warnings
 
 import numpy as np
@@ -72,7 +73,7 @@ _MATMUL_GROUPS_LIMIT = 8192
 #: cap on rows * groups for the base contraction route
 _MATMUL_CELLS_LIMIT = 1 << 36
 
-#: group ceiling of the hicard contraction route
+#: default group ceiling of the hicard contraction route
 HICARD_GROUPS_LIMIT = 1 << 18
 
 #: native host-groupby routing: below the row floor thread spawn overhead
@@ -250,12 +251,24 @@ def _matmul_profitable(dtypes, ops, n, n_groups):
     return not dtypes  # rows-count-only query
 
 
+def hicard_groups_limit():
+    """Group ceiling of the hicard contraction route: past it the sort
+    route takes the query.  ``BQUERYD_TPU_PALLAS_HICARD_GROUPS`` (the
+    reference's name, read per call) tunes it; an unparseable value keeps
+    :data:`HICARD_GROUPS_LIMIT`."""
+    try:
+        return int(os.environ.get("BQUERYD_TPU_PALLAS_HICARD_GROUPS",
+                                  HICARD_GROUPS_LIMIT))
+    except ValueError:
+        return HICARD_GROUPS_LIMIT
+
+
 def _hicard_matmul_profitable(dtypes, ops, n, n_groups):
     """Hicard contraction past the base route's group ceiling: INT sums
     and counts only (its mod-2^32 accumulation has no wrap-free encoding
-    for float limbs), at most HICARD_GROUPS_LIMIT groups and
+    for float limbs), at most :func:`hicard_groups_limit` groups and
     HICARD_MAX_ROWS rows."""
-    if not _MATMUL_GROUPS_LIMIT < n_groups <= HICARD_GROUPS_LIMIT:
+    if not _MATMUL_GROUPS_LIMIT < n_groups <= hicard_groups_limit():
         return False
     if n > onehot.HICARD_MAX_ROWS:
         return False
@@ -887,6 +900,20 @@ def finalize(partials, ops):
         else:
             raise ValueError(f"cannot finalize op {op!r}")
     return tuple(out)
+
+
+def groupby_aggregate(codes, measures, ops, n_groups, mask=None,
+                      device=None):
+    """Single-shard convenience: partials -> finalize in one call.
+
+    Returns ``(tables, rows)`` where ``tables[i]`` is the aggregate tensor
+    for ``ops[i]`` (shape [n_groups]) and ``rows`` counts valid rows per
+    group (used to drop never-seen groups).  ``device`` as in
+    :func:`partial_tables`."""
+    ops = tuple(ops)
+    partials = partial_tables(codes, tuple(measures), ops, n_groups, mask,
+                              device=device)
+    return finalize(partials, ops), partials["rows"]
 
 
 def tree_to_numpy(tree):

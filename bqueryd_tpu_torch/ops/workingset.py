@@ -55,6 +55,7 @@ _DEFAULT_BUDGETS = {
 def _budget(segment):
     env, default = _DEFAULT_BUDGETS[segment]
     try:
+        # bqtpu: allow[config-dynamic-env-key] keys come from _DEFAULT_BUDGETS above; all three are in ENV_REGISTRY
         return int(os.environ.get(env, default))
     except ValueError:
         logging.getLogger("bqueryd_tpu_torch").warning(
@@ -110,6 +111,12 @@ class WorkingSet:
     policy (module docstring).  ``devices`` are where the device
     segments' tensors live; their memory is what the pressure policy
     samples."""
+
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    #: (lock-unguarded-attr).  ``_segments`` is read-only after __init__
+    #: (the per-segment caches carry their own locks), so only the
+    #: pressure-eviction counter is guarded.
+    _bqtpu_guarded_ = {"_pressure_lock": ("pressure_evictions",)}
 
     def __init__(self, devices=()):
         self.devices = tuple(devices)
@@ -300,6 +307,10 @@ class DeltaAggCache:
             key, {"bases": bases, "data": data}, nbytes=len(data)
         )
         return True
+
+    @property
+    def nbytes(self):
+        return self._cache.nbytes
 
     def refresh_ids(self, entry, tables):
         """Per-table NEW chunk ids for a cached entry against live tables,

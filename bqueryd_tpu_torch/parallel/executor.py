@@ -380,6 +380,18 @@ class MeshQueryExecutor:
         if self._align_engine is not None:
             self._align_engine.clear_caches()
 
+    @staticmethod
+    def _map_shards(fn, items):
+        """Map ``fn`` over shards on the shared pipeline pool, in order.
+        ``BQUERYD_TPU_ALIGN_THREADS`` caps this alignment fan-out (1 runs it
+        sequentially); ``BQUERYD_TPU_PIPELINE_THREADS`` sizes the pool."""
+        from bqueryd_tpu_torch.parallel import pipeline
+
+        items = list(items)
+        cap = os.environ.get("BQUERYD_TPU_ALIGN_THREADS")
+        max_workers = int(cap) if cap is not None else len(items)
+        return pipeline.map_ordered(fn, items, max_workers=max_workers)
+
     def _engine(self):
         """The engine whose factorize cache serves key alignment, kept
         across queries."""
@@ -444,7 +456,6 @@ class MeshQueryExecutor:
         global per-column cardinalities, and ``key_values[col]`` the global
         per-column key values (indexed by unpacked codes)."""
         from bqueryd_tpu_torch import ops
-        from bqueryd_tpu_torch.parallel import pipeline
 
         n_cols = len(query.groupby_cols)
         shard_codes = [[] for _ in range(n_cols)]   # [col][shard] -> codes
@@ -458,7 +469,7 @@ class MeshQueryExecutor:
             )
             for t in tables
         ]
-        per_table = pipeline.map_ordered(
+        per_table = self._map_shards(
             lambda table: [
                 engine._key_codes(table, col) for col in query.groupby_cols
             ],
@@ -500,7 +511,7 @@ class MeshQueryExecutor:
             # dense shortcut: every global dictionary entry is observed in
             # some row, so global codes are already dense positions
             combos = np.arange(len(global_values[0]), dtype=np.int64)
-            dense = pipeline.map_ordered(
+            dense = self._map_shards(
                 lambda si: mapped_codes(si, 0).astype(np.int64),
                 range(len(tables)),
             )
@@ -555,7 +566,7 @@ class MeshQueryExecutor:
                 )
             return inv, uniq
 
-        composites = pipeline.map_ordered(shard_composites, range(len(tables)))
+        composites = self._map_shards(shard_composites, range(len(tables)))
         local_uniques = [c[1] for c in composites]
         observed = [u[u >= 0] for u in local_uniques]
         observed = [o for o in observed if len(o)]
@@ -1429,7 +1440,7 @@ class MeshQueryExecutor:
 
         def get_derived():
             if not derived_memo:
-                derived_memo.append(pipeline.map_ordered(derive, tables))
+                derived_memo.append(self._map_shards(derive, tables))
             return derived_memo[0]
 
         def block_key(col):
@@ -1622,7 +1633,6 @@ class MeshQueryExecutor:
         codes per shard, combo_cols [n_combos, n_cols] global dictionary
         positions, key_values)`` with combos in sorted composite order."""
         from bqueryd_tpu_torch import ops
-        from bqueryd_tpu_torch.parallel import pipeline
 
         n_cols = len(dag.group_keys)
         n_shards = len(derived)
@@ -1665,7 +1675,7 @@ class MeshQueryExecutor:
 
         key_values = dict(zip(dag.group_keys, global_values))
         if n_cols == 1:
-            dense = pipeline.map_ordered(
+            dense = self._map_shards(
                 lambda si: fold(si, mapped(si, 0).astype(np.int64)),
                 range(n_shards),
             )
@@ -1688,7 +1698,7 @@ class MeshQueryExecutor:
             inv, uniq = ops.factorize(packed)
             return np.asarray(inv), np.asarray(uniq, dtype=np.int64)
 
-        composites = pipeline.map_ordered(shard_composites, range(n_shards))
+        composites = self._map_shards(shard_composites, range(n_shards))
         observed = [u[u >= 0] for _inv, u in composites]
         observed = [o for o in observed if len(o)]
         combos = (

@@ -28,6 +28,10 @@ import os
 import threading
 import time
 
+#: the stages the worker's ``bqueryd_tpu_pipeline_busy_seconds{stage}``
+#: gauges report: the reference's stage names
+STAGES = ("decode", "align", "h2d", "kernel", "merge")
+
 _DEFAULT_THREADS = min(16, os.cpu_count() or 4)
 
 
@@ -88,12 +92,15 @@ def submit(fn, *args, **kwargs):
     return pool().submit(fn, *args, **kwargs)
 
 
-def map_ordered(fn, items):
+def map_ordered(fn, items, max_workers=None):
     """Map ``fn`` over ``items`` on the pipeline pool, returning results in
-    input order, at most ``pipeline_threads()`` jobs in flight.  Runs
-    serially when that width or the item count is 1."""
+    input order, at most ``pipeline_threads()`` jobs in flight (fewer under
+    ``max_workers``, which never resizes the shared pool).  Runs serially
+    when that width or the item count is 1."""
     items = list(items)
     width = pipeline_threads()
+    if max_workers is not None:
+        width = min(width, int(max_workers))
     if len(items) <= 1 or width <= 1:
         return [fn(it) for it in items]
     # at most `width` jobs in flight: prime a window, then launch the next
@@ -126,6 +133,10 @@ def map_ordered(fn, items):
 class StageClock:
     """Thread-safe per-stage busy seconds and call counts."""
 
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    #: (lock-unguarded-attr)
+    _bqtpu_guarded_ = {"_lock": ("_busy", "_calls")}
+
     def __init__(self):
         self._lock = threading.Lock()
         self._busy = {}    # stage -> seconds
@@ -137,6 +148,10 @@ class StageClock:
                 self._busy.get(stage_name, 0.0) + float(seconds)
             )
             self._calls[stage_name] = self._calls.get(stage_name, 0) + 1
+
+    def busy_seconds(self, stage_name):
+        with self._lock:
+            return self._busy.get(stage_name, 0.0)
 
     def snapshot(self):
         with self._lock:

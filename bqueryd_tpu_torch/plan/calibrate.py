@@ -173,6 +173,13 @@ class CalibrationStore:
     #: gossip sources tracked before the oldest is evicted
     MAX_PEERS = 256
 
+    _bqtpu_guarded_ = {
+        "_lock": (
+            "_cells", "_peers", "_decisions", "samples_total",
+            "absorbed_total", "_records_since_save",
+        ),
+    }
+
     def __init__(self, path=None):
         self._lock = threading.Lock()
         self._path = path          # None -> BQUERYD_TPU_CALIB_PATH per call

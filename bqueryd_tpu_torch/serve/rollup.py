@@ -27,6 +27,7 @@ import os
 
 def _env_int(name, default):
     try:
+        # bqtpu: allow[config-dynamic-env-key] callers pass literal registered names: ROLLUP_MAX and ROLLUP_CACHE_BYTES below; both in ENV_REGISTRY
         return int(os.environ.get(name, "") or default)
     except ValueError:
         return default
@@ -34,6 +35,7 @@ def _env_int(name, default):
 
 def _env_float(name, default):
     try:
+        # bqtpu: allow[config-dynamic-env-key] callers pass literal registered names: ROLLUP_HEAT_MIN and ROLLUP_HEAT_HALFLIFE_S below; both in ENV_REGISTRY
         return float(os.environ.get(name, "") or default)
     except ValueError:
         return default

@@ -4,9 +4,11 @@ A copy of ``bqueryd_tpu/storage/native.py`` reduced to what the port
 calls: chunk encode/decode, the int64 factorizer, the striped host
 groupby kernels of the host route (:func:`groupby_i64`,
 :func:`groupby_f64`, :func:`groupby_minmax`) and the Blosc v1 chunk
-decoder of the bcolz v1 import (:func:`blosc_decode`).  The library is built from the repository's ``native/`` sources into
-``native/build/libtpucolz.so`` on first use and stays optional: every entry
-point has a pure NumPy/zlib fallback in :mod:`bqueryd_tpu_torch.storage.codec`.
+decoder of the bcolz v1 import (:func:`blosc_decode`).  The library is
+loaded from ``BQUERYD_TPU_NATIVE_LIB`` when that names one, else built from
+the repository's ``native/`` sources into ``native/build/libtpucolz.so`` on
+first use; it stays optional: every entry point has a pure NumPy/zlib
+fallback in :mod:`bqueryd_tpu_torch.storage.codec`.
 """
 
 import ctypes
@@ -26,6 +28,10 @@ _has_blosc = False
 
 
 def _candidate_paths():
+    """``BQUERYD_TPU_NATIVE_LIB`` first when set, then the build tree."""
+    env = os.environ.get("BQUERYD_TPU_NATIVE_LIB")
+    if env:
+        yield env
     here = os.path.dirname(os.path.abspath(__file__))
     repo = os.path.dirname(os.path.dirname(here))
     yield os.path.join(repo, "native", "build", "libtpucolz.so")

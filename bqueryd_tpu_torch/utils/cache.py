@@ -23,6 +23,16 @@ class BytesCappedCache:
     refreshes recency.  Thread-safe.
     """
 
+    #: lock discipline, statically checked by bqueryd_tpu_torch.analysis
+    #: (rule lock-unguarded-attr): these attributes may only be touched
+    #: inside ``with self._lock`` (or in ``*_locked`` helpers)
+    _bqtpu_guarded_ = {
+        "_lock": (
+            "_data", "_sizes", "_bytes",
+            "hits", "misses", "evictions", "rejected",
+        ),
+    }
+
     def __init__(self, max_bytes, sizeof=lambda v: v.nbytes):
         self.max_bytes = int(max_bytes)
         self._sizeof = sizeof
@@ -108,6 +118,11 @@ class BytesCappedCache:
                 "evictions": self.evictions,
                 "rejected": self.rejected,
             }
+
+    @property
+    def nbytes(self):
+        with self._lock:
+            return self._bytes
 
     def __len__(self):
         with self._lock:

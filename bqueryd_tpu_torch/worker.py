@@ -37,7 +37,12 @@ in the coordination store, a WorkerRegisterMessage (WRM) with the served
 ``*.bcolz``/``*.bcolzs`` files and their metadata-only stats every
 heartbeat, liveness WRMs from a second thread on sockets of its own,
 Busy/Done around each work item, and the reply envelope of the reference
-worker.  All device work runs on the node's loop thread.
+worker.  All query device work runs on the node's loop thread; the
+startup warmup (:meth:`WorkerNode.warmup`, ``BQUERYD_TPU_WARMUP``, default
+on) builds or loads the kernels, launches one and measures the dispatch
+floor on a thread of its own, so that the node registers at once.
+``SIGUSR1`` writes the node's debug snapshot as a JSON bundle under
+``BQUERYD_TPU_DEBUG_DIR``.
 
 Routing is decided before any device call and is never a fallback: a
 device error is not caught on the query path; inside a node it becomes an
@@ -346,6 +351,10 @@ class WorkerBase:
         self._loop_thread = threading.current_thread()
         try:
             signal.signal(signal.SIGTERM, self._term_signal)
+            if hasattr(signal, "SIGUSR1"):
+                # local forensic dump: kill -USR1 <pid> writes this node's
+                # debug snapshot as one JSON file, no controller needed
+                signal.signal(signal.SIGUSR1, self._dump_debug_signal)
         except ValueError:
             pass  # not the main thread (in-process clusters)
         self.logger.info("starting %s worker %s", self.workertype,
@@ -368,6 +377,35 @@ class WorkerBase:
     def _term_signal(self, *args):
         self.logger.info("SIGTERM received, stopping")
         self.running = False
+
+    def _dump_debug_signal(self, *args):
+        """SIGUSR1: write this node's debug snapshot as a one-worker debug
+        bundle (:func:`obs.flightrec.build_bundle`, with the controller's
+        path redaction: only the data dir and the kernel build directory
+        stay readable) under ``BQUERYD_TPU_DEBUG_DIR``."""
+        from bqueryd_tpu_torch.obs import flightrec, profile
+
+        try:
+            allowed = [self.data_dir]
+            cache_path = profile.compile_cache_info().get("path")
+            if cache_path:
+                allowed.append(cache_path)
+            path = flightrec.dump_bundle(
+                flightrec.build_bundle(
+                    None,
+                    {self.worker_id: {
+                        "data": self._debug_snapshot(flight_limit=512),
+                        "ts": time.time(),
+                        "registered": True,
+                    }},
+                    allowed_path_prefixes=allowed,
+                ),
+                role=self.workertype,
+            )
+            self.logger.warning("SIGUSR1: debug snapshot written to %s",
+                                path)
+        except Exception:
+            self.logger.exception("SIGUSR1 debug dump failed")
 
     def _request_stop_only(self):
         """Flag the loop (and the heartbeat thread) to exit.  True when the
@@ -964,10 +1002,10 @@ class WorkerNode(WorkerBase):
         self._result_cache = None
         self._delta_cache = None
         self._stats_collector = None
-        #: delta refreshes served, and appends applied with their rows
-        self.delta_refreshes = 0
-        self.appends = 0
-        self.append_rows = 0
+        #: set once the background warmup (:meth:`warmup`) has ended, or at
+        #: ``go`` when ``BQUERYD_TPU_WARMUP=0`` starts none
+        self.warmup_done = threading.Event()
+        self._warmup_thread = None
         # the device-health latch as gauges: read-only snapshots, a scrape
         # never launches a probe
         snap = devicehealth.health_snapshot
@@ -990,6 +1028,40 @@ class WorkerNode(WorkerBase):
         self.groupby_queries = self.metrics.counter(
             "bqueryd_tpu_worker_groupby_total",
             "groupby CalcMessages executed by this worker",
+        )
+        # streaming ingest, chunk pruning and the delta cache
+        self.appends_total = self.metrics.counter(
+            "bqueryd_tpu_worker_appends_total",
+            "append CalcMessages applied by this worker",
+        )
+        self.append_rows_total = self.metrics.counter(
+            "bqueryd_tpu_worker_append_rows_total",
+            "rows appended into served shards by this worker",
+        )
+        self.chunks_decoded_total = self.metrics.counter(
+            "bqueryd_tpu_chunks_decoded_total",
+            "storage chunks the zone-map pruning pass kept for decode on "
+            "filtered queries (with chunks_skipped: the decode fraction)",
+        )
+        self.chunks_skipped_total = self.metrics.counter(
+            "bqueryd_tpu_chunks_skipped_total",
+            "storage chunks proven unmatchable by per-chunk zone maps and "
+            "never decoded",
+        )
+        self.delta_refreshes_total = self.metrics.counter(
+            "bqueryd_tpu_delta_refreshes_total",
+            "cached aggregate results refreshed by aggregating only "
+            "appended chunks and merging the delta partial "
+            "(ops.workingset.DeltaAggCache)",
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_delta_cache_bytes",
+            "serialized payload bytes held by the delta-maintained "
+            "aggregate cache",
+            fn=lambda: (
+                0 if self._delta_cache is None
+                else self._delta_cache.nbytes
+            ),
         )
         self.reply_bytes = self.metrics.histogram(
             "bqueryd_tpu_reply_bytes",
@@ -1023,6 +1095,82 @@ class WorkerNode(WorkerBase):
         # the process-global build, call and device-memory profile on this
         # node's registry
         obs.profile.profiler().bind(self.metrics)
+        self._bind_pipeline_metrics()
+
+    def _bind_pipeline_metrics(self):
+        """Pipeline and working-set telemetry on this node's registry: the
+        stage busy clocks (process-global: the worker owns the process's
+        data path), the executor's working-set segment counters and the
+        result cache's counters.  All read by functions, so a scrape
+        reads live state: the hit, miss and eviction counts as plain ints
+        under the GIL, a segment's bytes through one ``nbytes`` read,
+        never a ``stats()`` snapshot that takes every cache lock against
+        the hot path."""
+        self.metrics.gauge(
+            "bqueryd_tpu_pipeline_threads",
+            "effective shard-pipeline pool width "
+            "(BQUERYD_TPU_PIPELINE_THREADS)",
+            fn=pipeline.pipeline_threads,
+        )
+        for stage_name in pipeline.STAGES:
+            self.metrics.gauge(
+                "bqueryd_tpu_pipeline_busy_seconds",
+                "cumulative wall spent inside each pipeline stage across "
+                "all threads (sum > query wall proves stage overlap)",
+                labels={"stage": stage_name},
+                fn=(lambda s=stage_name: pipeline.clock().busy_seconds(s)),
+            )
+
+        def ws_stat(segment, field):
+            cache = self.executor.workingset.segment(segment)
+            return cache.nbytes if field == "bytes" else getattr(cache, field)
+
+        for segment in ("align", "codes", "blocks"):
+            for field, help_text in (
+                ("bytes", "bytes held per working-set cache segment"),
+                ("hits", "working-set cache hits per segment (monotonic)"),
+                ("misses",
+                 "working-set cache misses per segment (monotonic)"),
+                ("evictions",
+                 "working-set LRU evictions per segment (monotonic)"),
+            ):
+                self.metrics.gauge(
+                    f"bqueryd_tpu_workingset_{field}",
+                    help_text,
+                    labels={"segment": segment},
+                    fn=(lambda s=segment, f=field: ws_stat(s, f)),
+                )
+        self.metrics.gauge(
+            "bqueryd_tpu_workingset_pressure_evictions",
+            "device cache entries shed by the HBM watermark policy "
+            "(monotonic)",
+            fn=lambda: self.executor.workingset.pressure_evictions,
+        )
+
+        def result_stat(field):
+            cache = self._result_cache
+            if cache is None or cache is False:  # unbuilt or disabled
+                return 0
+            return getattr(cache, field)
+
+        for field, help_text in (
+            ("hits", "worker result-cache hits (monotonic)"),
+            ("misses", "worker result-cache misses (monotonic)"),
+            ("evictions", "worker result-cache LRU evictions (monotonic)"),
+        ):
+            self.metrics.gauge(
+                f"bqueryd_tpu_result_cache_{field}",
+                help_text,
+                fn=(lambda f=field: result_stat(f)),
+            )
+
+    def _count_chunk_prune(self, report):
+        """Fold an execution's ``report["chunk_prune"]`` (decoded, skipped)
+        into the chunk counters."""
+        counts = report.get("chunk_prune")
+        if counts:
+            self.chunks_decoded_total.inc(counts[0])
+            self.chunks_skipped_total.inc(counts[1])
 
     @property
     def device(self):
@@ -1091,23 +1239,51 @@ class WorkerNode(WorkerBase):
         }
 
     def go(self):
-        if self.device.type == "cuda":
-            # build or load the kernels and create the CUDA context before
-            # the first WRM: a first nvcc build inside a query could
-            # outlast the dead-worker timeout
-            import torch
+        if os.environ.get("BQUERYD_TPU_WARMUP", "1") == "1":
+            self._warmup_thread = threading.Thread(
+                target=self.warmup,
+                name=f"warmup-{self.worker_id[:6]}",
+                daemon=True,
+            )
+            self._warmup_thread.start()
+        else:
+            self.warmup_done.set()
+        super().go()
 
-            from bqueryd_tpu_torch.ops import onehot
+    def warmup(self):
+        """Build or load the kernel library, create the CUDA context and
+        launch ``onehot_rows_dot`` once (a tiny ``partial_tables`` and
+        ``finalize`` on the worker's device), then measure the dispatch
+        floor behind host routing, in the BACKGROUND: the worker registers
+        at once instead of after a first nvcc build, which can take
+        minutes.  A query that arrives meanwhile waits on the library's
+        lock; the heartbeat thread keeps the busy worker alive.  A failure
+        is logged and the worker carries on: its first query then raises
+        on its own, and nothing falls back to the CPU.
+        :attr:`warmup_done` is set when this ends, either way."""
+        t0 = time.time()
+        self.logger.info("starting kernel warmup in background")
+        try:
+            import numpy as np
 
-            onehot._library()
-            torch.empty(0, device=self.device)
-            # the dispatch floor behind host routing, measured now that
-            # the kernels are loaded and the context exists: a sample
-            # taken during either would push the threshold to its cap
+            from bqueryd_tpu_torch import ops
+
+            codes = np.zeros(8, dtype=np.int32)
+            vals = np.ones(8, dtype=np.int64)
+            partials = ops.partial_tables(codes, (vals,), ("sum",), 4, None,
+                                          device=self.device)
+            ops.finalize(partials, ("sum",))
+            # a floor sampled while the build or the context creation held
+            # the device is inflated: replace it with a clean one, or host
+            # routing would mis-route for the process lifetime
             from bqueryd_tpu_torch.models.query import device_dispatch_floor
 
             device_dispatch_floor(remeasure=True, device=self.device)
-        super().go()
+            self.logger.info("kernel warmup done in %.1fs", time.time() - t0)
+        except Exception:
+            self.logger.exception("kernel warmup failed (continuing)")
+        finally:
+            self.warmup_done.set()
 
     def _open_table(self, rootdir):
         """The table instance of ``rootdir``'s current snapshot, with its
@@ -1264,7 +1440,7 @@ class WorkerNode(WorkerBase):
             cache.store(key, tables, data)
         cache.refreshes += 1
         cache.delta_rows += sum(int(v.nrows) for v in tails)
-        self.delta_refreshes += 1
+        self.delta_refreshes_total.inc()
         return data
 
     # -- work --------------------------------------------------------------
@@ -1291,8 +1467,8 @@ class WorkerNode(WorkerBase):
             raise ValueError(f"Path {rootdir} does not exist")
         table = ctable(rootdir, mode="a")
         appended = table.append(frame)
-        self.appends += 1
-        self.append_rows += int(appended)
+        self.appends_total.inc()
+        self.append_rows_total.inc(int(appended))
         if self._stats_collector is not None:
             # the grown shard's bounds go out on the next heartbeat: stale
             # ones would let the controller prune its appended rows
@@ -1569,6 +1745,7 @@ class WorkerNode(WorkerBase):
                                       timer=timer)
                 else:
                     payload = self._execute_dag(tables, dag, timer, report)
+            self._count_chunk_prune(report)
             mem_tags = self._memory_tags(mem_before,
                                          prof.memory_sample())
             if recorder is not None:
@@ -1715,6 +1892,7 @@ class WorkerNode(WorkerBase):
                                 tables, query, self.engine,
                                 executor=self.executor, strategy=strategy,
                                 report=report, timer=timer)
+                        self._count_chunk_prune(report)
                     except chaos.TransientError:
                         raise  # the whole bundle fails over, as above
                     except Exception as exc:

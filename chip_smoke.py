@@ -250,11 +250,13 @@ outside a checkout of the repository.  Any failed phase fails the run.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -889,12 +891,26 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
     each query's hints must be ``plan.strategy.select_for_group``'s, its
     routes :data:`HEURISTIC_ROUTE`'s (highcard's binding "scatter", no
     launch) and its launches the expected ones.  Calibration's route
-    changes are the calibration leg's (:func:`run_calibration_path`)."""
-    from bqueryd_tpu_torch import ops
-    from bqueryd_tpu_torch.ops import onehot
+    changes are the calibration leg's (:func:`run_calibration_path`).
 
-    rpc, controller, worker, threads = _start_cluster(data_dir, store_dir)
+    The worker's /metrics is scraped around the queries: sharded's warm
+    queries must raise every working-set segment's hits and the stages'
+    busy seconds, and pruned's queries the chunk counters by exactly what
+    their replies' prune reports say."""
+    from bqueryd_tpu_torch import ops
+    from bqueryd_tpu_torch.ops import onehot, workingset
+    from bqueryd_tpu_torch.parallel import pipeline
+
+    rpc, controller, worker, threads = _start_cluster(data_dir, store_dir,
+                                                      metrics=True)
     report = {}
+    ws_series = [f'bqueryd_tpu_workingset_hits{{segment="{s}"}}'
+                 for s in workingset.SEGMENTS]
+    kernel_series = 'bqueryd_tpu_pipeline_busy_seconds{stage="kernel"}'
+    stage_series = [f'bqueryd_tpu_pipeline_busy_seconds{{stage="{s}"}}'
+                    for s in pipeline.STAGES]
+    chunk_series = ["bqueryd_tpu_chunks_decoded_total",
+                    "bqueryd_tpu_chunks_skipped_total"]
     try:
         # one client <-> controller round trip with no worker behind it
         pings = []
@@ -925,7 +941,10 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
             # the worker's loop thread idles between queries
             worker.clear_caches()
             queries, launches = [], 0
+            scraped = _metric_values(worker)
             for rep in range(warm + 1):
+                if rep == 1:
+                    warm_scraped = _metric_values(worker)
                 before = dict(onehot.LAUNCHES)
                 (order, columns), wall = _timed(
                     lambda: _query(rpc, names, config))
@@ -945,6 +964,25 @@ def run_cluster_path(names, parts, data_dir, store_dir, local, warm=3):
                 queries.append(_reply_split(rpc, wall))
                 _check_prune(config, f"cluster {config} query {rep}",
                              queries[-1]["chunk_prune"])
+            after = _metric_values(worker)
+            if config == "sharded":
+                warm_delta = _metric_delta(warm_scraped, after,
+                                           ws_series + stage_series)
+                if (min(warm_delta[s] for s in ws_series) <= 0
+                        or warm_delta[kernel_series] <= 0
+                        or min(warm_delta.values()) < 0):
+                    raise AssertionError(
+                        f"cluster sharded warm /metrics deltas {warm_delta}")
+                report["metrics_warm_sharded"] = warm_delta
+            if config == "pruned":
+                chunks = _metric_delta(scraped, after, chunk_series)
+                want_chunks = [sum(q["chunk_prune"][i] for q in queries)
+                               for i in (0, 1)]
+                if [chunks[s] for s in chunk_series] != want_chunks:
+                    raise AssertionError(
+                        f"cluster pruned /metrics chunks {chunks}, the "
+                        f"replies' prune reports {want_chunks}")
+                report["metrics_pruned_chunks"] = chunks
             # the worker's table opens for these shards, called from this
             # thread while the nodes idle: the open phase without the loop
             paths = [os.path.join(data_dir, f) for f in names[sl]]
@@ -1053,10 +1091,29 @@ def capturing(store, label, n_float=0, only=None):
         onehot._launch_hicard = launchers["onehot_rows_dot_hicard"]
 
 
-def _start_cluster(data_dir, store_dir):
+#: the worker warmup's one launch (``WorkerNode.warmup``: a sum of 8 int64
+#: ones into 4 groups): the base kernel's mma branch, R = 9 (the count row
+#: and 8 limbs), and its signature in the kernel profile
+WARMUP_KEY = ("onehot_rows_dot", "mma", 9, 4, 8)
+WARMUP_SIGNATURE = "ops.onehot_rows_dot(int32[8];bfloat16[9,8];9;4)"
+#: in-process worker starts whose warmup ended (one launch each)
+WARMUP_STARTS = [0]
+
+
+def _warmed(worker, what):
+    """Wait for ``worker``'s background warmup to end, so that its launch
+    lands before any counted window of the leg, and count the start."""
+    if not worker.warmup_done.wait(300):
+        raise AssertionError(f"{what}: the worker's warmup did not end")
+    WARMUP_STARTS[0] += 1
+
+
+def _start_cluster(data_dir, store_dir, metrics=False):
     """A port controller and a port calc worker on cuda as threads of this
     process, found through a file:// store; returns (rpc, controller,
-    worker, threads) once the worker serves every shard of ``data_dir``."""
+    worker, threads) once the worker serves every shard of ``data_dir``
+    and its warmup has ended.  ``metrics``: the worker serves /metrics on
+    a free port (``worker._metrics_server.port``)."""
     import logging
 
     from bqueryd_tpu_torch.controller import ControllerNode
@@ -1067,9 +1124,10 @@ def _start_cluster(data_dir, store_dir):
     quiet = logging.WARNING
     controller = ControllerNode(coordination_url=url, loglevel=quiet,
                                 runfile_dir=store_dir, heartbeat_interval=0.5)
-    worker = WorkerNode(coordination_url=url, data_dir=data_dir,
-                        loglevel=quiet, heartbeat_interval=1.0,
-                        poll_timeout=0.1, n_devices=1)  # one card
+    with _env_set({"BQUERYD_TPU_METRICS_PORT": "0"} if metrics else {}):
+        worker = WorkerNode(coordination_url=url, data_dir=data_dir,
+                            loglevel=quiet, heartbeat_interval=1.0,
+                            poll_timeout=0.1, n_devices=1)  # one card
     threads = [threading.Thread(target=n.go, daemon=True)
                for n in (controller, worker)]
     for t in threads:
@@ -1077,8 +1135,33 @@ def _start_cluster(data_dir, store_dir):
     shards = [f for f in os.listdir(data_dir) if f.endswith(".bcolzs")]
     _wait(lambda: all(n in controller.files_map for n in shards), 60,
           "the worker's registration")
+    _warmed(worker, "cluster")
     rpc = RPC(coordination_url=url, timeout=300, retries=1, loglevel=quiet)
     return rpc, controller, worker, threads
+
+
+def _metric_values(worker=None, port=None):
+    """``{series: value}`` of a node's /metrics over HTTP (``worker``'s
+    server, or ``port``); a series keeps its labels: ``name{label="v"}``,
+    and every sample line must parse."""
+    import urllib.request
+
+    port = port or worker._metrics_server.port
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            head, _, value = line.rpartition(" ")
+            out[head] = float(value)
+    return out
+
+
+def _metric_delta(before, after, names):
+    """``after - before`` of the named series."""
+    return {n: after.get(n, 0.0) - before.get(n, 0.0) for n in names}
+
 
 
 def _stop_cluster(rpc, controller, worker, threads):
@@ -1599,7 +1682,9 @@ def run_append_path(scratch, captured):
     cleared, equal to the refreshed result; a ``seq`` filter that chunk
     pruning serves; one ``RPC.query`` over the grown shards.  Every result
     is checked against NumPy of the concatenated frames (ints bit for bit,
-    the mean within rtol 2e-5, the quantile within alpha)."""
+    the mean within rtol 2e-5, the quantile within alpha).  The worker's
+    /metrics, scraped before the appends and after the refreshes, must
+    count every append, row and delta refresh the leg sent and saw."""
     from bqueryd_tpu_torch.ops import onehot
 
     base_dir = tempfile.mkdtemp(prefix="ingest_", dir=scratch)
@@ -1611,7 +1696,11 @@ def run_append_path(scratch, captured):
     report = {"rows": INGEST_ROWS, "shards": INGEST_SHARDS,
               "chunklen": chunklen,
               "write_s": time.perf_counter() - t0}
-    rpc, controller, worker, threads = _start_cluster(base_dir, store)
+    rpc, controller, worker, threads = _start_cluster(base_dir, store,
+                                                      metrics=True)
+    ingest_series = ["bqueryd_tpu_worker_appends_total",
+                     "bqueryd_tpu_worker_append_rows_total",
+                     "bqueryd_tpu_delta_refreshes_total"]
     try:
         def query(where=None, label=None, n_float=INGEST_FLOAT_ROWS):
             terms = [] if where is None else [["seq", ">", where]]
@@ -1636,6 +1725,7 @@ def run_append_path(scratch, captured):
         append_rows = per // 24
         seq_base = per
         report["append_walls_s"], report["delta"] = [], []
+        scraped = _metric_values(worker)
         for cycle in range(2):
             t0 = time.perf_counter()
             for name in names:
@@ -1662,6 +1752,14 @@ def run_append_path(scratch, captured):
                 # chunks alone
                 _, report["rollup_delta"] = run_rollups(
                     worker, frames, names, "delta", built)
+        sent = [2 * len(names), 2 * len(names) * append_rows,
+                sum(q["routes"].count("delta") for q in report["delta"])]
+        counted = _metric_delta(scraped, _metric_values(worker),
+                                ingest_series)
+        if [counted[s] for s in ingest_series] != sent:
+            raise AssertionError(f"append /metrics {counted}, sent and "
+                                 f"refreshed {sent}")
+        report["metrics_ingest"] = counted
         worker.clear_caches()
         cold_cols, report["cold"] = query()
         if report["cold"]["routes"] in (["delta"], ["cached"]):
@@ -1691,7 +1789,7 @@ def run_append_path(scratch, captured):
                                launched=_launch_delta(before),
                                merge_modes=list(
                                    rpc.last_call_merge_modes.values()))
-        report["delta_refreshes"] = worker.delta_refreshes
+        report["delta_refreshes"] = worker.delta_refreshes_total.value
         report["append_rows_per_shard"] = 2 * append_rows
         report["delta_wall_s"] = report["delta"][-1]["wall_s"]
         report["cold_wall_s"] = report["cold"]["wall_s"]
@@ -2173,8 +2271,8 @@ def run_routing_path(names, parts, data_dir, store_dir):
     rpc, controller, worker, threads = _start_cluster(data_dir, store_dir)
     route_names = []
     try:
-        # 1. the floor: WorkerNode.go remeasured it once the kernels were
-        # loaded and the CUDA context made
+        # 1. the floor: the worker's warmup remeasured it once the kernels
+        # were loaded and the CUDA context made
         floor = q.device_dispatch_floor()
         rows8 = q.host_kernel_rows()
         rows32 = q.host_kernel_rows(q._HOST_NS_PER_ROW_SLOW)
@@ -2979,6 +3077,7 @@ class _Resilience:
         thread.start()
         _wait(lambda: all(worker.worker_id in self.controller.files_map.get(
             n, ()) for n in self.names), 120, f"{label}'s registration")
+        _warmed(worker, label)
         return worker
 
     def label_of(self, worker_id):
@@ -3021,6 +3120,8 @@ class _Resilience:
             attempts.append(entry)
         launches = {}
         for (thread, key), n in self.tally.by_thread.items():
+            if thread.startswith("warmup-"):
+                continue  # a joining worker's warmup: the warmup row's
             added = n - snap["tally"].get((thread, key), 0)
             if added:
                 per = launches.setdefault(thread, {})
@@ -3597,6 +3698,7 @@ class _Distribution:
             t.start()
         _wait(lambda: len(self.controller.worker_map) == 3, 120,
               "the distribution nodes' registration")
+        _warmed(self.calc, "distribution")
         self.rpc = RPC(coordination_url=self.url, timeout=600, retries=1,
                        loglevel=quiet)
 
@@ -3651,7 +3753,8 @@ def run_distribution_path(names, parts, data_dir, scratch, captured):
     hints alone:
 
     1. each of the ten taxi shards zipped with ``zip_to_file`` and put
-       into the blob store (zip time and bytes, outside the walls);
+       into the blob store, a thread each (zip time and bytes, outside the
+       walls);
     2. one ``download(wait=True)`` ticket of the ten: "DONE", its wall,
        the wall until all ten are advertised, the bytes fetched,
        ``downloads()`` seen meanwhile, each shard's ``bqueryd.metadata``;
@@ -3700,7 +3803,11 @@ def run_distribution_path(names, parts, data_dir, scratch, captured):
         return size
 
     t0 = time.perf_counter()
-    zip_bytes = {n: put(os.path.join(data_dir, n), n) for n in names}
+    # the operator's upload, not the system under test: the shards zip on
+    # a thread each (zlib releases the GIL), the leg's set-up kept short
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        zip_bytes = dict(zip(names, pool.map(
+            lambda n: put(os.path.join(data_dir, n), n), names)))
     report["zip"] = {"s": time.perf_counter() - t0,
                      "bytes": sum(zip_bytes.values()),
                      "shards": len(zip_bytes)}
@@ -3969,19 +4076,13 @@ def _scrape(port, families):
     has samples.  Returns the sample count."""
     import urllib.request
 
-    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
-                                timeout=10) as resp:
-        text = resp.read().decode()
+    values = _metric_values(port=port)
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                 timeout=10) as resp:
         if resp.read().strip() != b"ok":
             raise AssertionError(f"/healthz of port {port}")
     samples = {}
-    for line in text.splitlines():
-        if not line or line.startswith("#"):
-            continue
-        name, _, value = line.rpartition(" ")
-        float(value)
+    for name in values:
         family = name.split("{", 1)[0]
         samples[family] = samples.get(family, 0) + 1
     absent = [f for f in families if not samples.get(f)]
@@ -4744,7 +4845,17 @@ def run_cli_check(names, parts, data_dir, store_dir):
     ``BQUERYD_TPU_BLOB_DIR`` blob store, which the downloader fetches, the
     mover activates and the worker answers (single's query); SIGTERM stops
     all four, which must exit 0.  The worker process runs with its result
-    cache off and loads the kernel library this process built."""
+    cache off and loads the kernel library this process built.
+
+    The worker starts with ``BQUERYD_TPU_WARMUP=1``: it registers, and
+    its debug slice shows one library load and one ``onehot_rows_dot``
+    call (one launch) at the warmup's shape before the first query, which
+    is exact.  SIGUSR1 to the controller and the worker makes each write a
+    JSON bundle with the reference's sections under
+    ``BQUERYD_TPU_DEBUG_DIR``, and both answer a further query.  Last, the
+    worker is stopped and a second one started with
+    ``BQUERYD_TPU_WARMUP=0``: its slice shows no library load and no
+    launch until its first query, which is exact."""
     import logging
 
     from bqueryd_tpu_torch.blob import LocalFSBackend
@@ -4759,9 +4870,11 @@ def run_cli_check(names, parts, data_dir, store_dir):
     zipped, _crc = zip_to_file(os.path.join(data_dir, names[1]), store_dir)
     LocalFSBackend(root=blob_dir).put(DIST_BUCKET, f"{dl_shard}.zip", zipped)
     os.remove(zipped)
+    debug_dir = os.path.join(store_dir, "debug")
     env = dict(os.environ, BQUERYD_TPU_RUNFILE_DIR=store_dir,
                PYTHONPATH=root, BQUERYD_TPU_RESULT_CACHE_BYTES="0",
-               BQUERYD_TPU_BLOB_DIR=blob_dir)
+               BQUERYD_TPU_BLOB_DIR=blob_dir, BQUERYD_TPU_WARMUP="1",
+               BQUERYD_TPU_DEBUG_DIR=debug_dir)
     # a shard of its own for the append: the taxi shards stay as written
     ingest_dir = tempfile.mkdtemp(prefix="cli_ingest_", dir=store_dir)
     frames, _chunklen, rng = write_ingest(ingest_dir, 96_000, 1)
@@ -4800,6 +4913,7 @@ def run_cli_check(names, parts, data_dir, store_dir):
         _wait(lambda: _served(rpc, names), 120,
               "the CLI worker serving every shard")
         report["start_s"] = time.perf_counter() - t0
+        report["warmup"] = _cli_warmup_slice(rpc, procs["worker"].pid, True)
         # one query per config; the worker process keeps the environment
         # it started with, so the unpruned leg has no run here
         for config in (c for c in CONFIGS if c not in ENV):
@@ -4846,6 +4960,25 @@ def run_cli_check(names, parts, data_dir, store_dir):
                      reference("single", [parts[1]]))
         report["download"] = {"download_wall_s": wall,
                               "first_query_wall_s": qwall}
+        report["sigusr1"] = _cli_sigusr1(rpc, procs, debug_dir, names, parts)
+        # a second worker with the warmup off: nothing loads or launches
+        # until its first query
+        stop_worker = procs.pop("worker")
+        stop_worker.terminate()
+        if stop_worker.wait(timeout=30) != 0:
+            raise AssertionError(f"CLI worker exited {stop_worker.returncode}")
+        logs["worker_nowarmup"] = open(
+            os.path.join(store_dir, "worker_nowarmup.log"), "w+")
+        procs["worker_nowarmup"] = subprocess.Popen(
+            roles["worker"], cwd=root, env=dict(env, BQUERYD_TPU_WARMUP="0"),
+            stdout=logs["worker_nowarmup"], stderr=subprocess.STDOUT)
+        pid = procs["worker_nowarmup"].pid
+        _wait(lambda: _served(rpc, names) and _cli_slice(rpc, pid), 120,
+              "the second CLI worker serving every shard")
+        report["no_warmup"] = _cli_warmup_slice(rpc, pid, False)
+        (order, columns), wall = _timed(lambda: _query(rpc, names, "single"))
+        check_result("single", order, columns, reference("single", parts))
+        report["no_warmup"]["first_query_wall_s"] = wall
         rpc._close_socket()
     except BaseException:
         for role, f in logs.items():
@@ -4872,6 +5005,87 @@ def run_cli_check(names, parts, data_dir, store_dir):
         raise AssertionError(f"CLI nodes exited with {codes}")
     log(f"CLI check: {json.dumps(report)}")
     return report
+
+
+def _cli_slice(rpc, pid):
+    """The debug slice of the calc worker with process id ``pid`` in the
+    controller's debug bundle, or None."""
+    for entry in rpc.debug_bundle()["workers"].values():
+        snap = entry.get("snapshot") or {}
+        if snap.get("workertype") == "calc" and snap.get("pid") == pid:
+            return snap
+    return None
+
+
+def _cli_warmup_slice(rpc, pid, warmup):
+    """Before its first query, the CLI worker's kernel profile shows one
+    library load and one ``onehot_rows_dot`` call at the warmup's shape
+    (``warmup``), or no load and no kernel call; polled until the slice
+    settles (it rides the WRMs)."""
+    def state():
+        snap = _cli_slice(rpc, pid) or {}
+        compile_ = snap.get("compile") or {}
+        kernel_calls = {p["signature"]: p["calls"]
+                        for p in compile_.get("programs", ())
+                        if p["name"].rsplit(".", 1)[-1] in OBS_KERNELS}
+        return compile_.get("library_loads"), kernel_calls
+
+    want = (1, {WARMUP_SIGNATURE: 1}) if warmup else (0, {})
+    deadline = time.time() + 120
+    got = state()
+    while got != want and time.time() < deadline:
+        time.sleep(0.5)
+        got = state()
+    if got != want:
+        raise AssertionError(f"CLI worker (warmup {warmup}) before its "
+                             f"first query: loads and kernel calls {got}, "
+                             f"expected {want}")
+    return {"library_loads": got[0], "kernel_calls": got[1]}
+
+
+def _cli_sigusr1(rpc, procs, debug_dir, names, parts):
+    """SIGUSR1 to the CLI controller and worker: each writes one JSON
+    bundle with the reference's sections under ``debug_dir`` and the
+    cluster then answers a further query exactly."""
+    import glob
+
+    from bqueryd_tpu_torch.obs import flightrec
+
+    sections = set(flightrec.build_bundle(None, {}))
+    out = {}
+    for role, kind in (("controller", "controller"), ("worker", "calc")):
+        before = set(glob.glob(os.path.join(
+            debug_dir, f"bqueryd_tpu_debug_{kind}_*.json")))
+        t0 = time.perf_counter()
+        procs[role].send_signal(signal.SIGUSR1)
+
+        def written():
+            return sorted(set(glob.glob(os.path.join(
+                debug_dir, f"bqueryd_tpu_debug_{kind}_*.json"))) - before)
+
+        _wait(written, 30, f"the CLI {role}'s SIGUSR1 bundle")
+        time.sleep(0.2)  # the file is written in one call; let it close
+        path = written()[0]
+        with open(path) as f:
+            bundle = json.load(f)
+        if set(bundle) != sections:
+            raise AssertionError(f"CLI {role} bundle sections "
+                                 f"{sorted(bundle)}, expected "
+                                 f"{sorted(sections)}")
+        if role == "controller" and not bundle["controller"]:
+            raise AssertionError("CLI controller bundle has no controller "
+                                 "section")
+        if role == "worker":
+            (entry,) = bundle["workers"].values()
+            if (entry["snapshot"] or {}).get("pid") != procs[role].pid:
+                raise AssertionError(f"CLI worker bundle: {entry}")
+        out[role] = {"path": os.path.basename(path),
+                     "bytes": os.path.getsize(path),
+                     "written_s": time.perf_counter() - t0}
+    (order, columns), wall = _timed(lambda: _query(rpc, names, "sharded"))
+    check_result("sharded", order, columns, reference("sharded", parts))
+    out["query_after_wall_s"] = wall
+    return out
 
 
 def _registered(url):
@@ -5311,6 +5525,26 @@ def _shard_inputs(parts, device):
     return out
 
 
+def _warmup_inputs(device):
+    """The (kernel, branch, codes, rows, R, G, int rows) of the worker
+    warmup's launch, captured from the warmup's own call (this launch
+    compares, it is not counted)."""
+    from bqueryd_tpu_torch import ops
+
+    store = {}
+    with capturing(store, "warmup"):
+        ops.partial_tables(np.zeros(8, dtype=np.int32),
+                           (np.ones(8, dtype=np.int64),), ("sum",), 4, None,
+                           device=device)
+    entry = store["warmup"]
+    if shape_key(*entry[:2], entry[4], entry[5],
+                 entry[2].shape[0]) != shape_key(*WARMUP_KEY):
+        raise AssertionError(f"the warmup's launch shape {entry[:2]} "
+                             f"R={entry[4]} G={entry[5]}, expected "
+                             f"{WARMUP_KEY}")
+    return store
+
+
 def _compare(label, got, want, n_rows, n_int):
     """Int rows bit-exact; float rows within rtol=2e-5, atol=1e-6*max.
     Returns the largest absolute difference."""
@@ -5584,6 +5818,27 @@ def path_launches(path, kernels=(("onehot_rows_dot", "mma"),)):
     return launches
 
 
+def run_analysis():
+    """The port's static analysis suite over this checkout with its own
+    baseline (``ANALYSIS_BASELINE_TORCH.json``): one line with the raw
+    count per analyzer and the duration; a gating finding fails the run
+    before the card is touched."""
+    from bqueryd_tpu_torch.analysis import run_suite
+
+    result = run_suite(root=os.path.dirname(os.path.abspath(__file__)))
+    summary = {"counts_by_analyzer": result.per_analyzer,
+               "gating": len(result.gating),
+               "suppressed": len(result.suppressed),
+               "baselined": len(result.baselined),
+               "files": result.files_scanned,
+               "duration_s": result.duration_s}
+    print(json.dumps({"analysis": summary}), flush=True)
+    if result.gating:
+        raise AssertionError("static analysis: " + "; ".join(
+            f.render() for f in result.gating))
+    return summary
+
+
 def main():
     import torch
 
@@ -5592,6 +5847,7 @@ def main():
         return 2
     if sys.argv[1:2] == ["--psum-rank"]:
         return psum_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    analysis = run_analysis()
     from bqueryd_tpu_torch.ops import onehot
     from bqueryd_tpu_torch.rpc import LocalRPC
     from bqueryd_tpu_torch.storage import native
@@ -5817,6 +6073,7 @@ def main():
         inputs.update(_shard_inputs(parts, device))
         inputs.update(captured)
         inputs.update(md_captured)
+        inputs.update(_warmup_inputs(device))
         # launches per path: the executor rows count each config's own
         # queries on the cluster and executor paths, the other rows the
         # launches at their shape
@@ -5862,6 +6119,20 @@ def main():
         # dag_plain runs multikey's shape on the executor
         launches[_input_label("multikey")]["dag"] = sum(
             dag["dag_plain"]["fast"]["launches"].values())
+        # the warmup row: one launch per in-process worker start, counted
+        # in the leg that started the worker
+        warmup_key = shape_key(*WARMUP_KEY)
+        warmups = sum(
+            counted.get(warmup_key, 0) for counted in (
+                exec_launches, md_launches, cluster_launches, dag_launches,
+                append_launches, conc_launches, routing_launches,
+                calib_launches, serving_launches, resilience_launches,
+                distribution_launches, observability_launches,
+                engine_launches))
+        if warmups != WARMUP_STARTS[0]:
+            raise AssertionError(f"{warmups} warmup launches for "
+                                 f"{WARMUP_STARTS[0]} worker starts")
+        launches["warmup"] = {"warmup": warmups}
         kernels = check_kernels(inputs, device, launches)
         print(json.dumps({"dag_programs": time_dag_programs(programs)}),
               flush=True)
@@ -5880,6 +6151,8 @@ def main():
         raise AssertionError(f"the device latched outside the forced "
                              f"flips: {health}")
     print(json.dumps({"profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
+    print(json.dumps({"analysis": analysis,
+                      "warmup_starts": WARMUP_STARTS[0]}), flush=True)
     print(json.dumps({"distribution": distribution}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -287,7 +287,7 @@ def test_worker_delta_serves_after_append(tmp_path, mem_store_url,
             second = worker.handle_work(_msg(["t.bcolzs"]))
             assert second["effective_strategy"] == "delta"
             assert second["merge_mode"] == "host"
-            assert worker.delta_refreshes == cycle + 1
+            assert worker.delta_refreshes_total.value == cycle + 1
             assert worker.delta_cache().delta_rows == 120 * (cycle + 1)
             _check(_result(second),
                    _expected(pd.concat(frames, ignore_index=True)))
@@ -345,7 +345,7 @@ def test_worker_delta_ineligible_shapes_recompute(tmp_path, mem_store_url):
         worker.handle_work(_append_msg("t.bcolzs", extra))
         reply = worker.handle_work(_msg(["t.bcolzs"], aggs=aggs))
         assert reply.get("effective_strategy") not in ("delta", "cached")
-        assert worker.delta_refreshes == 0
+        assert worker.delta_refreshes_total.value == 0
         want = pd.concat([df, extra]).groupby("g", as_index=False).agg(
             vd=("v", "nunique"))
         _check(_result(reply), want, aggs=[["v", "count", "vd"]])
@@ -504,8 +504,8 @@ def test_rpc_append_end_to_end(ingest_cluster, via):
     got = _frame_of(rpc.groupby(*q))
     assert rpc.last_call_strategies["effective"] == {"t.bcolzs": "delta"}
     assert rpc.last_call_merge_modes == {"t.bcolzs": "host"}
-    assert worker.delta_refreshes == 1
-    assert worker.append_rows == 240
+    assert worker.delta_refreshes_total.value == 1
+    assert worker.append_rows_total.value == 240
     full = pd.concat([ingest_cluster["df"], extra], ignore_index=True)
     _check(got, _expected(full))
     assert len(first) == len(got)
@@ -563,7 +563,7 @@ def test_rpc_append_dedupes_shared_datadir(tmp_path, mem_store_url,
             rpc._close_socket()
     assert len(res["holders"]) == 1, "shared data_dir = one append"
     assert ctable(root).nrows == 550
-    assert sum(w.appends for w in workers) == 1
+    assert sum(w.appends_total.value for w in workers) == 1
 
 
 def test_rpc_query_chunk_prune_parity(ingest_cluster, monkeypatch):

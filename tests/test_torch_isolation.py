@@ -80,7 +80,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "bqueryd_tpu_torch.serve.rollup",
                    "bqueryd_tpu_torch.blob",
                    "bqueryd_tpu_torch.download",
-                   "bqueryd_tpu_torch.storage.bcolz_v1"):
+                   "bqueryd_tpu_torch.storage.bcolz_v1",
+                   "bqueryd_tpu_torch.analysis",
+                   "bqueryd_tpu_torch.analysis.configreg",
+                   "bqueryd_tpu_torch.analysis.purity",
+                   "bqueryd_tpu_torch.analysis.lockorder"):
         assert module in result["imported"]
 
 
@@ -97,6 +101,10 @@ import bqueryd_tpu_torch.coordination
 import bqueryd_tpu_torch.blob
 import bqueryd_tpu_torch.download
 import bqueryd_tpu_torch.storage.bcolz_v1
+import bqueryd_tpu_torch.analysis, bqueryd_tpu_torch.analysis.__main__
+from bqueryd_tpu_torch.analysis import default_analyzers
+from bqueryd_tpu_torch.analysis import lockorder
+default_analyzers()
 from bqueryd_tpu_torch.models.query import ResultPayload
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("torch", "pandas", "jax", "jaxlib",
@@ -107,9 +115,9 @@ print(json.dumps(heavy))
 
 def test_control_plane_imports_no_torch_and_no_pandas():
     """The controller, the serving layer, obs, chaos, the store, the blob
-    backends, the download pipeline and the bcolz v1 reader (and the
-    payload codec the controller decodes rollup replies with) load
-    without torch."""
+    backends, the download pipeline, the bcolz v1 reader, the static
+    analysis suite (every analyzer and the CLI) (and the payload codec the
+    controller decodes rollup replies with) load without torch."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
         [sys.executable, "-c", _CONTROL_PLANE], cwd=REPO, env=env,

@@ -10,6 +10,7 @@ Routing is not a fallback: a device error still fails the query.
 """
 
 import os
+import time
 
 import numpy as np
 import pandas as pd
@@ -172,6 +173,40 @@ def test_dispatch_floor_measures_and_caches(monkeypatch):
     assert 0 < floor < 1.0
     assert q.device_dispatch_floor() == floor  # cached
     assert q.device_dispatch_floor(remeasure=True, device=CPU) > 0
+
+
+def test_min_wall_outlasts_a_burst_of_contention():
+    """Calls inflated by 20 ms in a burst that covers the first three
+    (as a worker's background floor can be, while its loop registers)
+    leave the floor at an uncontended call's wall: the rounds spread the
+    samples past the burst."""
+    calls = []
+
+    def call():
+        calls.append(None)
+        if len(calls) <= 3:
+            time.sleep(0.02)
+
+    wall = q._min_wall(call, rounds=4, gap_s=0.001)
+    assert len(calls) == 12
+    assert wall < 0.01
+
+
+def test_dispatch_floor_spreads_its_samples(monkeypatch):
+    """The floor is :func:`_min_wall` of the tiny fetch, over the default
+    rounds: more than three samples, a gap apart."""
+    seen = []
+    real = q._min_wall
+
+    def spy(call, rounds=None, gap_s=None):
+        seen.append((rounds, gap_s))
+        return real(call, rounds, gap_s)
+
+    monkeypatch.setattr(q, "_min_wall", spy)
+    monkeypatch.setattr(q, "_measured_floor", None)
+    assert q.device_dispatch_floor(remeasure=True, device=CPU) > 0
+    assert seen == [(None, None)]
+    assert q._FLOOR_ROUNDS > 1 and q._FLOOR_ROUND_GAP_S > 0
 
 
 # -- shards ------------------------------------------------------------------

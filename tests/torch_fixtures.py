@@ -4,7 +4,6 @@ package's process-global state), and the swap that runs the reference's
 cluster cases on port nodes (:func:`on_port`)."""
 
 import sys
-import types
 
 import pandas as pd
 import pytest
@@ -36,16 +35,11 @@ def disarmed_port_chaos():
 
 
 class CPUWorkerNode(port_worker.WorkerNode):
-    """The port's calc worker on the CPU, with the reference's
-    ``delta_refreshes_total`` counter read from its ``delta_refreshes``."""
+    """The port's calc worker on the CPU."""
 
     def __init__(self, *args, **kwargs):
         kwargs.setdefault("device", "cpu")
         super().__init__(*args, **kwargs)
-
-    @property
-    def delta_refreshes_total(self):
-        return types.SimpleNamespace(value=self.delta_refreshes)
 
 
 class FrameRPC:
