@@ -239,6 +239,15 @@ COUNTER_SPECS = {
 }
 
 
+#: the parts of the controller loop's wall
+#: (``bqueryd_tpu_controller_loop_seconds_total{part}``): the poll; every
+#: frame's handling, client answers included; the finished queries'
+#: accounting (:meth:`ControllerNode._finalize_query_obs`), wherever the
+#: loop runs it; ``dispatch_pending``; the rest (heartbeat, the dead-worker
+#: sweep, stale retries, hedging, admission, the window flush, the append
+#: sweep)
+LOOP_PARTS = ("wait", "receive", "finalize", "dispatch", "other")
+
 #: worker roles that share a serving dir but serve none of its shards
 NON_SERVING_ROLES = ("download", "movebcolz")
 
@@ -384,6 +393,11 @@ class ControllerNode:
         # typed registry counter; liveness gauges are read at render time
         self.metrics = obs.MetricsRegistry()
         self.counters = obs.RegistryCounters(self.metrics, COUNTER_SPECS)
+        self.loop_clock = obs.LoopClock(
+            self.metrics, "bqueryd_tpu_controller_loop_seconds_total",
+            "seconds of the controller loop's wall per part (wait, "
+            "receive, finalize, dispatch, other); they sum to the loop's "
+            "wall", LOOP_PARTS)
         self.metrics.gauge(
             "bqueryd_tpu_admission_active",
             "plans currently executing", fn=lambda: len(self.admission._active),
@@ -549,6 +563,7 @@ class ControllerNode:
         try:
             while self.running:
                 try:
+                    self._loop_enter("other")
                     self.heartbeat()
                     self.free_dead_workers()
                     self.retry_stale_dispatches()
@@ -560,8 +575,10 @@ class ControllerNode:
                     if self._pending_window:
                         remaining = self._window_deadline() - time.time()
                         timeout_s = max(min(timeout_s, remaining), 0.0)
+                    self._loop_enter("wait")
                     events = dict(self.poller.poll(int(timeout_s * 1000)))
                     if self.socket in events:
+                        self._loop_enter("receive")
                         # drain everything available this tick, then
                         # dispatch in the same tick: a reply's Done frees
                         # its worker for the next message at once
@@ -573,14 +590,25 @@ class ControllerNode:
                             except zmq.Again:
                                 break
                             self.handle_in(frames)
+                    self._loop_enter("other")
                     self._admit_ready()
                     self._flush_window()
+                    self._loop_enter("dispatch")
                     self.dispatch_pending()
+                    self._loop_enter("other")
                     self._sweep_append_segments()
                 except Exception:
                     self.logger.exception("error in controller loop")
+            self._loop_enter("other")  # the last part's seconds
         finally:
             self.stop()
+
+    def _loop_enter(self, part):
+        """The loop leaves its current part for ``part``
+        (:class:`obs.LoopClock`); returns the part it left."""
+        from bqueryd_tpu_torch import obs
+
+        return self.loop_clock.enter(part, on=obs.enabled())[0]
 
     def _term_signal(self, *args):
         self.logger.info("SIGTERM received, stopping")
@@ -2112,11 +2140,24 @@ class ControllerNode:
 
     def _finalize_query_obs(self, parent, segment, error=None):
         """Every finished query (answered, aborted or retired) lands here
-        once: the ``queries_completed`` counter, and while the hot path is
-        on the ``query_seconds`` observation, its SLO class's record, its
-        timeline with its attribution in ``trace_store``, the capacity
-        model's measured wait and, past the threshold, the slow-query
-        ring."""
+        once (:meth:`_account_query`), on the loop's clock as its
+        ``finalize`` part."""
+        if (self.loop_clock.part is None
+                or threading.current_thread() is not self._loop_thread):
+            self._account_query(parent, segment, error)
+            return
+        left = self._loop_enter("finalize")
+        try:
+            self._account_query(parent, segment, error)
+        finally:
+            self._loop_enter(left)
+
+    def _account_query(self, parent, segment, error):
+        """A finished query's ``queries_completed`` counter, and while the
+        hot path is on the ``query_seconds`` observation, its SLO class's
+        record, its timeline with its attribution in ``trace_store``, the
+        capacity model's measured wait and, past the threshold, the
+        slow-query ring."""
         from bqueryd_tpu_torch import obs
 
         wall = time.perf_counter() - segment.get(
@@ -2508,7 +2549,10 @@ class ControllerNode:
             },
             "inflight": len(self.inflight),
             "rpc_segments": len(self.rpc_segments),
-            "counters": dict(self.counters),
+            "counters": {
+                **self.counters,
+                "controller_loop_seconds": self.loop_clock.seconds(),
+            },
             "admission": self.admission.stats(),
             "shard_stats_known": len(self.shard_stats),
             # the measured-cost model: counts, the controller's own cells

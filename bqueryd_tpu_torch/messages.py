@@ -312,15 +312,20 @@ SPAN_SCHEMA = {
     "window_rollup": "raw phase 'rollup': datetime-bucket derived group "
                      "key computation (operator-DAG executor)",
     "align": "raw phase: cross-shard key alignment / global key space",
-    "h2d_transfer": "raw phase 'layout': host->device uploads",
+    "h2d_transfer": "raw phase 'layout': host->device uploads (tag bytes: "
+                    "what they copied, 0 on working-set hits)",
     "kernel": "raw phase 'aggregate': the kernel launches (their device "
               "time lands in the fetch that waits for them; tag device_s "
               "holds the CUDA-event time)",
     "d2h_fetch": "raw phase 'fetch': device->host fetch of the merged "
-                 "result buffer",
+                 "result buffer (tag bytes: what it fetched)",
     "merge": "raw phases 'collect'/'hostmerge': materialization / host "
              "value-keyed merge of partials",
     "reply_serialization": "raw phase 'serialize': result payload encoding",
+    # the port's own: the worker loop's receipt, riding the calc reply
+    "worker_receive": "the worker loop's receipt of a work item: frames, "
+                      "decode, Busy, the fault and deadline checks, to the "
+                      "calc root (tag loop_wait_s: the poll wait before it)",
     # raw PhaseTimer names (surface via obs.trace.PHASE_SPAN_NAMES)
     "open": "raw name of storage_decode",
     "mask": "raw name of filter",

@@ -50,6 +50,7 @@ from bqueryd_tpu_torch.obs.metrics import (  # noqa: F401
     Counter,
     Gauge,
     Histogram,
+    LoopClock,
     MetricsRegistry,
     RegistryCounters,
     merge_histogram_snapshots,

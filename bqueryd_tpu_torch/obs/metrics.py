@@ -6,6 +6,8 @@ The port's copy of ``bqueryd_tpu/obs/metrics.py``:
   dict-compatible counter view (:class:`RegistryCounters`);
 * :class:`Gauge`     — settable, or backed by a callback (``fn=``) read at
   render time;
+* :class:`LoopClock` — a node loop's wall split into parts on a labelled
+  counter (the worker's and controller's ``*_loop_seconds_total``);
 * :class:`Histogram` — fixed log-scale buckets (:data:`LATENCY_BUCKETS_S`,
   :data:`BYTES_BUCKETS`) stored as a non-cumulative count vector, so that
   histograms of several nodes merge by vector addition
@@ -24,6 +26,7 @@ Standard library only.
 import math
 import re
 import threading
+import time
 
 METRIC_NAME_RE = re.compile(r"^bqueryd_tpu_[a-z0-9_]+$")
 
@@ -431,3 +434,38 @@ class RegistryCounters(dict):
                 f"bqueryd_tpu_{key}_total", f"controller counter {key}"
             )
         mirror.set_total(value)
+
+
+class LoopClock:
+    """A node loop's wall partitioned into named parts, on the registry
+    counter ``name{part=...}``: each :meth:`enter` credits the seconds since
+    the previous one to the part that one entered, so that every second of
+    the loop after the first entry lands in exactly one part."""
+
+    def __init__(self, registry, name, help_text, parts):
+        self.parts = {p: registry.counter(name, help_text, labels={"part": p})
+                      for p in parts}
+        #: the part the loop is in, and ``time.perf_counter()`` at the
+        #: first entry and at the entry of ``part``
+        self.part = None
+        self.first = self.since = None
+
+    def enter(self, part, on=True):
+        """Leave the current part for ``part``; returns the part left and
+        the seconds credited to it.  With ``on`` false (the hot path's kill
+        switch) nothing is credited."""
+        now = time.perf_counter()
+        left, since = self.part, self.since
+        self.part, self.since = part, now
+        if left is None:
+            self.first = now
+            return None, 0.0
+        if not on:
+            return left, 0.0
+        elapsed = now - since
+        self.parts[left].inc(elapsed)
+        return left, elapsed
+
+    def seconds(self):
+        """``{part: seconds}`` credited so far."""
+        return {p: c.value for p, c in self.parts.items()}

@@ -1,7 +1,8 @@
 """Critical-path attribution and SLO accounting: where a query's wall went.
 
 The port's copy of ``bqueryd_tpu/obs/slo.py``; its records equal the
-reference's for the same timelines and clocks.
+reference's for the same timelines and clocks.  The port adds the worker
+loop's ``worker_receive`` segment and a record's ``tagged`` sums.
 
 :func:`attribute` turns an assembled trace timeline (a
 :class:`bqueryd_tpu_torch.obs.trace.TraceStore` entry) into an
@@ -67,7 +68,12 @@ SPAN_CATEGORIES = {
     "d2h_fetch": "d2h_fetch",
     "merge": "collective_merge",
     "reply_serialization": "reply_serialization",
+    "worker_receive": "worker_receive",
 }
+
+#: numeric span tags an attribution record sums per segment (``tagged``):
+#: the bytes a transfer moved, the worker's poll wait before a work item
+SUMMED_TAGS = ("bytes", "loop_wait_s")
 
 #: segments synthesized by attribution (or the client) without a recorded
 #: span of their own, so that a synthetic segment is told from an
@@ -96,6 +102,7 @@ SEGMENT_PRIORITY = (
     "storage_decode",
     "reply_serialization",
     "worker_other",
+    "worker_receive",
     "bundle_demux",
     "retry_backoff",
     "hedge_dispatch",
@@ -159,7 +166,9 @@ def attribute(timeline):
     root span's duration — submit to final reply at the controller),
     ``segments`` ({segment: seconds}, non-overlapping by construction,
     summing with ``unattributed`` to ``wall_s``), ``coverage`` (attributed
-    fraction of the wall), ``covered_s``, ``attempts`` (per dispatch
+    fraction of the wall), ``covered_s``, ``tagged`` (``{segment: {tag:
+    sum}}`` of the :data:`SUMMED_TAGS` its spans carry, when any does),
+    ``attempts`` (per dispatch
     attempt: worker, retries, backoff, hedge — the ``_attempt_history``
     view a client can act on), and ``bundle`` (member share metadata when
     the query rode a shared-scan bundle).  Never raises on malformed
@@ -241,6 +250,16 @@ def attribute(timeline):
     record["unattributed_s"] = round(unattributed, 6)
     record["covered_s"] = round(covered, 6)
     record["coverage"] = round(covered / wall, 4) if wall else 0.0
+    tagged = {}
+    for span in spans:
+        tags = span.get("tags") or {}
+        for tag in SUMMED_TAGS:
+            value = tags.get(tag)
+            if isinstance(value, (int, float)) and not isinstance(value, bool):
+                sums = tagged.setdefault(_segment_for(span.get("name")), {})
+                sums[tag] = sums.get(tag, 0) + value
+    if tagged:
+        record["tagged"] = tagged
 
     # per-attempt dispatch history (tagged in _record_dispatch_span):
     # each retry with its backoff window, each hedge duplicate, each

@@ -29,6 +29,7 @@ through their plain versions, along the same route.
 """
 
 import os
+import threading
 import warnings
 
 import numpy as np
@@ -124,6 +125,16 @@ def np_dtype(dtype):
     return np.dtype(dtype)
 
 
+#: bytes :func:`as_tensor` handed from host arrays to a device, per thread
+_uploads = threading.local()
+
+
+def uploaded_bytes():
+    """The bytes :func:`as_tensor` has handed from NumPy arrays to a device
+    on this thread (a phase's uploads are its growth)."""
+    return getattr(_uploads, "n", 0)
+
+
 def as_tensor(arr, device):
     """A NumPy array or tensor as a tensor on ``device``, without copying a
     tensor already there.  Read-only arrays (decoded-column cache entries)
@@ -131,6 +142,7 @@ def as_tensor(arr, device):
     if torch.is_tensor(arr):
         return arr.to(device)
     arr = np.ascontiguousarray(arr)
+    _uploads.n = getattr(_uploads, "n", 0) + arr.nbytes
     with warnings.catch_warnings():
         # torch warns that it cannot protect read-only bytes; none of the
         # port's kernels writes to an input

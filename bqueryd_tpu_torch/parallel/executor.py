@@ -79,7 +79,12 @@ that waits for them, which runs nested in ``aggregate`` and is debited
 from it.  On CUDA devices a CUDA event pair per card recorded around the
 launches on its current stream, read after that fetch (which has
 synchronized already), tags the ``kernel`` span with ``device_s``, the
-longest card's: no synchronization is added.  Under
+longest card's: no synchronization is added.  While the observability hot
+path is on, each ``h2d_transfer`` and ``filter`` span carries the
+``bytes`` its uploads copied (``ops.groupby.as_tensor``; 0 when the
+working set held every block) and each ``d2h_fetch`` span the ``bytes``
+it fetched; :attr:`MeshQueryExecutor.h2d_bytes` and
+:attr:`~MeshQueryExecutor.d2h_bytes` sum them.  Under
 ``BQUERYD_TPU_PROFILE=1`` each phase is also a ``torch.profiler`` range and
 an NVTX range (``utils.tracing.trace_span``).
 """
@@ -91,6 +96,7 @@ import time
 
 import numpy as np
 
+from bqueryd_tpu_torch import obs
 from bqueryd_tpu_torch.models.query import GroupByQuery, ResultPayload
 from bqueryd_tpu_torch.storage.ctable import table_cache_key as _table_key
 
@@ -226,8 +232,8 @@ class _Rows:
         return self.rows[0].element_size()
 
 
-#: the open aggregate phase of this thread: (timer, device clocks), which
-#: :func:`_fetch_many` ends and times
+#: the open aggregate phase of this thread: (timer, device clocks, the
+#: executor), which :func:`_fetch_many` ends, times and counts
 _fetch_ctx = threading.local()
 
 
@@ -288,15 +294,21 @@ def _fetch_many(flats):
     device.  Inside an aggregate phase
     (:meth:`MeshQueryExecutor._kernel_phase`) it first ends the phase's
     device clocks, and is timed as the phase ``fetch``, debited from the
-    enclosing ``aggregate``."""
-    timer, clocks = getattr(_fetch_ctx, "value", None) or (None, ())
+    enclosing ``aggregate``, its span tagged with the ``bytes`` fetched."""
+    timer, clocks, owner = (getattr(_fetch_ctx, "value", None)
+                            or (None, (), None))
     for clock in clocks:
         clock.stop()
+    tags = None
+    if owner is not None and obs.enabled():
+        nbytes = sum(int(f.numel()) * f.element_size() for f in flats)
+        owner.d2h_bytes += nbytes
+        tags = {"bytes": nbytes}
     if timer is None:
         return _copy_out(flats)
     t0 = time.perf_counter()
     try:
-        with timer.phase("fetch"):
+        with timer.phase("fetch", tags):
             return _copy_out(flats)
     finally:
         timer.debit("aggregate", time.perf_counter() - t0)
@@ -364,6 +376,10 @@ class MeshQueryExecutor:
         #: span-owned merge, or the all-reduce of the psum mode) or "host"
         #: (the kill switch), the reply envelope's ``merge_mode``
         self.last_merge_mode = None
+        #: bytes uploaded in the ``layout`` and ``mask`` phases and fetched
+        #: (:func:`_fetch_many`) while the observability hot path was on
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
         #   align:  (tables_key, groupby_cols) -> (dense codes per shard,
         #           combos, cards, key_values), host
         #   codes:  folded + packed group codes, [n_dev, width] _Rows
@@ -402,13 +418,28 @@ class MeshQueryExecutor:
         return self._align_engine
 
     def _phase(self, name):
-        """A timed phase (when ``timer`` is set) and a profiler range."""
+        """A timed phase (when ``timer`` is set) and a profiler range; a
+        ``layout`` or ``mask`` span carries the ``bytes`` its uploads
+        copied."""
+        from bqueryd_tpu_torch.ops.groupby import uploaded_bytes
         from bqueryd_tpu_torch.utils.tracing import trace_span
 
         stack = contextlib.ExitStack()
         stack.enter_context(trace_span(name, self.device))
-        if self.timer is not None:
-            stack.enter_context(self.timer.phase(name))
+        if self.timer is None:
+            return stack
+        tags = None
+        if name in ("layout", "mask") and obs.enabled():
+            tags = {}
+            before = uploaded_bytes()
+        stack.enter_context(self.timer.phase(name, tags))
+        if tags is not None:
+            def count():
+                # before the phase's exit records the span
+                tags["bytes"] = uploaded_bytes() - before
+                self.h2d_bytes += tags["bytes"]
+
+            stack.callback(count)
         return stack
 
     @contextlib.contextmanager
@@ -423,7 +454,7 @@ class MeshQueryExecutor:
             clocks = tuple(_DeviceClock(d) for d in dict.fromkeys(
                 self.devices))
         prev = getattr(_fetch_ctx, "value", None)
-        _fetch_ctx.value = (self.timer, clocks)
+        _fetch_ctx.value = (self.timer, clocks, self)
         try:
             with self._phase("aggregate"):
                 for clock in clocks:

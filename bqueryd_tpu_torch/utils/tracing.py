@@ -46,7 +46,9 @@ class PhaseTimer:
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
-    def phase(self, name):
+    def phase(self, name, tags=None):
+        """Time the block as ``name``; ``tags``, which the block may fill
+        (the bytes a transfer moved, say), land on its span."""
         start_ts = time.time()
         t0 = time.perf_counter()
         try:
@@ -57,7 +59,8 @@ class PhaseTimer:
                 self.timings[name] = self.timings.get(name, 0.0) + duration
             span_name = self.span_names.get(name, name)
             if self.recorder is not None and span_name is not None:
-                self.recorder.record(span_name, start_ts, duration)
+                self.recorder.record(span_name, start_ts, duration,
+                                     tags=tags)
 
     def debit(self, name, seconds):
         """Subtract a serially nested sub-phase's wall from its enclosing

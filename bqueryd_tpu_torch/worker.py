@@ -57,7 +57,12 @@ ring's tail with the device-health snapshot rides the WRM (``debug``) as
 the node's slice of the controller's debug bundle.  The WRM also carries
 the health signals the controller's scorer reads: ``work_errors`` and the
 snapshot of the ``bqueryd_tpu_worker_groupby_seconds`` histogram
-(``metrics``), observed once per groupby CalcMessage.
+(``metrics``), observed once per groupby CalcMessage.  While the hot path
+is on, the loop's wall is partitioned into :data:`LOOP_PARTS`
+(``bqueryd_tpu_worker_loop_seconds_total{part}``), and a calc's timeline
+opens with a ``worker_receive`` span from the frames' receipt to the calc
+root (tagged ``loop_wait_s``, the poll wait since the previous work item
+arrived).
 
 Every role answers ``sleep`` and ``readfile`` (a file inside its data
 dir); the calc worker also answers ``execute_code`` when
@@ -116,6 +121,13 @@ CALC_SPAN_NAMES = {**obs.PHASE_SPAN_NAMES, "execute": None, "delta": None}
 
 #: what :meth:`WorkerBase._run_work` returns after a die_after_ack fault
 _DIED = object()
+
+#: the parts of the worker loop's wall
+#: (``bqueryd_tpu_worker_loop_seconds_total{part}``): the poll; the frames'
+#: receipt through decode, Busy, the fault and deadline checks; the work
+#: item (``handle_work``); its reply, Done and the memory watchdog;
+#: ``heartbeat`` (controllers, data files, the WRM)
+LOOP_PARTS = ("wait", "receive", "work", "reply", "heartbeat")
 
 DEFAULT_HEARTBEAT_INTERVAL = 20.0   # WRM re-broadcast / rescan period
 DEFAULT_POLL_TIMEOUT = 1.0          # seconds per zmq poll tick
@@ -256,6 +268,9 @@ class WorkerBase:
     #: groupby on this node raises the transient DeviceBusyError.  A class
     #: default, so that a node built piecemeal still answers prepare_wrm
     _chaos_wedged = False
+    #: the work item on the loop: ``(wall, perf_counter)`` of its frames'
+    #: receipt and the poll wait before it, for its ``worker_receive`` span
+    _receipt = None
 
     def __init__(
         self,
@@ -332,6 +347,13 @@ class WorkerBase:
             "bqueryd_tpu_worker_errors_total",
             "work items that raised (returned as ErrorMessage)",
         )
+        self.loop_clock = obs.LoopClock(
+            self.metrics, "bqueryd_tpu_worker_loop_seconds_total",
+            "seconds of the worker loop's wall per part (wait, receive, "
+            "work, reply, heartbeat); they sum to the loop's wall",
+            LOOP_PARTS)
+        #: poll wait since the last work item's receipt
+        self._wait_s = 0.0
         self.flight = obs.FlightRecorder(node_id=self.worker_id)
         self.metrics.gauge(
             "bqueryd_tpu_flight_evictions",
@@ -363,16 +385,27 @@ class WorkerBase:
         self._start_heartbeat_thread()
         while self.running:
             try:
+                self._loop_enter("heartbeat")
                 self.heartbeat()
+                self._loop_enter("wait")
                 events = dict(self.poller.poll(int(self.poll_timeout * 1000)))
                 if self.socket in events:
+                    self._loop_enter("receive")
                     self.handle_in()
             except zmq.ZMQError:
                 self.logger.exception("zmq error in worker loop")
                 time.sleep(0.2)
             except Exception:
                 self.logger.exception("error in worker loop")
+        self._loop_enter("heartbeat")  # the last part's seconds
         self.stop()
+
+    def _loop_enter(self, part):
+        """The loop leaves its current part for ``part``
+        (:class:`obs.LoopClock`), summing the poll's waits."""
+        left, elapsed = self.loop_clock.enter(part, on=obs.enabled())
+        if left == "wait":
+            self._wait_s += elapsed
 
     def _term_signal(self, *args):
         self.logger.info("SIGTERM received, stopping")
@@ -752,6 +785,11 @@ class WorkerBase:
         traceback when it raised, flagged ``transient`` for a
         :class:`~bqueryd_tpu_torch.chaos.TransientError`), Done, then the
         memory watchdog."""
+        clock = self.loop_clock.since
+        if clock is not None and obs.enabled():
+            self._receipt = (time.time() - (time.perf_counter() - clock),
+                             clock, self._wait_s)
+        self._wait_s = 0.0
         self.send_to_all(BusyMessage({"worker_id": self.worker_id}))
         wire = msg.get_trace()
         log_fields = {
@@ -775,7 +813,10 @@ class WorkerBase:
         with obs.bind_log_context(**log_fields), obs.use_trace(
             obs.TraceContext.from_wire(wire)
         ):
-            result = self._run_work(msg, log_fields, work_clock)
+            try:
+                result = self._run_work(msg, log_fields, work_clock)
+            finally:
+                self._receipt = None
         if result is _DIED:
             return  # a hard crash: no reply, no Done, no goodbye
         self._reply(msg, sender, result)
@@ -812,6 +853,7 @@ class WorkerBase:
                     f"deadline exceeded {-msg.deadline_remaining():.3f}s "
                     "before execution"
                 )
+            self._loop_enter("work")
             result = self.handle_work(msg)
         except Exception as exc:
             self.logger.exception("error handling work")
@@ -830,7 +872,9 @@ class WorkerBase:
                 # the retryable class: the controller fails the shard over
                 # to another holder instead of aborting its query
                 result["transient"] = True
+            self._loop_enter("reply")
         else:
+            self._loop_enter("reply")
             if obs.enabled():
                 self.flight.record(
                     "work_done",
@@ -1086,6 +1130,19 @@ class WorkerNode(WorkerBase):
                 labels={"mode": mode},
                 fn=(lambda m=mode: devicemerge.stats().count(m)),
             )
+        # the executor's uploads and fetches, while the hot path is on
+        self.metrics.gauge(
+            "bqueryd_tpu_h2d_bytes_total",
+            "bytes the executor's uploads copied host -> device "
+            "(monotonic; working-set hits copy none)",
+            fn=lambda: self.executor.h2d_bytes,
+        )
+        self.metrics.gauge(
+            "bqueryd_tpu_d2h_bytes_total",
+            "bytes the executor's fetches copied device -> host "
+            "(monotonic)",
+            fn=lambda: self.executor.d2h_bytes,
+        )
         self.metrics.gauge(
             "bqueryd_tpu_merge_d2h_bytes_saved",
             "per-device partial-table bytes the device-resident merge kept "
@@ -1180,16 +1237,27 @@ class WorkerNode(WorkerBase):
         """``(timer, recorder)`` of one calc message: while the hot path is
         on, a :class:`obs.SpanRecorder` whose ``calc`` root adopts the
         envelope's trace context (a child of the controller's dispatch
-        span), fed by the timer's phases."""
+        span), fed by the timer's phases; on the loop, its
+        ``worker_receive`` span first."""
         recorder = None
         if obs.enabled():
             ctx = obs.TraceContext.from_wire(msg.get_trace())
+            now = time.perf_counter()
             recorder = obs.SpanRecorder(
                 trace_id=ctx.trace_id if ctx else obs.new_id(16),
                 node=self.worker_id,
                 root_name="calc",
                 root_parent=ctx.span_id if ctx else None,
             )
+            receipt, self._receipt = self._receipt, None
+            if receipt is not None:
+                start_ts, clock, wait_s = receipt
+                recorder.spans.append(obs.make_span(
+                    recorder.trace_id, "worker_receive", start_ts,
+                    now - clock, parent_span_id=ctx.span_id if ctx else None,
+                    node=self.worker_id,
+                    tags={"loop_wait_s": round(wait_s, 6)},
+                ))
         return PhaseTimer(recorder=recorder, span_names=CALC_SPAN_NAMES), \
             recorder
 

@@ -101,10 +101,18 @@ def test_reference_slo_case(case, pkg, on_package, monkeypatch):
 
 
 def test_declared_tables_match_reference():
-    for name in ("SPAN_CATEGORIES", "SYNTHETIC_SEGMENTS", "SEGMENT_PRIORITY",
-                 "COVERAGE_TARGET", "BURN_WINDOWS", "DEFAULT_CLASS",
-                 "DEFAULT_TARGET_S", "DEFAULT_OBJECTIVE"):
+    for name in ("SYNTHETIC_SEGMENTS", "COVERAGE_TARGET", "BURN_WINDOWS",
+                 "DEFAULT_CLASS", "DEFAULT_TARGET_S", "DEFAULT_OBJECTIVE"):
         assert getattr(port_slo, name) == getattr(jax_slo, name), name
+    # the reference's segments and order, and the port's worker-loop
+    # receipt, a segment of its own
+    added = {"worker_receive"}
+    assert {k: v for k, v in port_slo.SPAN_CATEGORIES.items()
+            if k not in added} == jax_slo.SPAN_CATEGORIES
+    assert all(port_slo.SPAN_CATEGORIES[n] == n for n in added)
+    assert tuple(s for s in port_slo.SEGMENT_PRIORITY
+                 if s not in added) == tuple(jax_slo.SEGMENT_PRIORITY)
+    assert added <= set(port_slo.SEGMENT_PRIORITY)
     from bqueryd_tpu_torch.messages import SPAN_SCHEMA
 
     # every public span name the port can record attributes to a segment

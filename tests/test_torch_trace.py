@@ -214,7 +214,10 @@ def test_wire_trace_keys_match_reference():
     assert back.get_trace() == ctx.to_wire()
     back.set_trace(None)
     assert back.get_trace() is None
-    assert port_messages.SPAN_SCHEMA.keys() == jax_messages.SPAN_SCHEMA.keys()
+    # the reference's span names, and the port's worker-loop receipt
+    assert (port_messages.SPAN_SCHEMA.keys() - jax_messages.SPAN_SCHEMA.keys()
+            == {"worker_receive"})
+    assert jax_messages.SPAN_SCHEMA.keys() <= port_messages.SPAN_SCHEMA.keys()
 
 
 # -- PhaseTimer: debit, threads, unrecorded phases -------------------------------
