@@ -116,9 +116,11 @@ ENV_REGISTRY = {
         _v("PIPELINE_THREADS", "int", "min(16, cpu)",
            "shard-pipeline pool width (1 = fully serial stages)"),
         _v("HBM_CACHE_BYTES", "int", "1 GiB",
-           "working-set blocks segment: device-resident measure columns"),
+           "working-set blocks segment: device-resident measure columns, "
+           "filter columns and basket codes"),
         _v("CODES_CACHE_BYTES", "int", "256 MiB",
-           "working-set codes segment: device-resident folded group codes"),
+           "working-set codes segment: device-resident unmasked group "
+           "codes"),
         _v("ALIGN_CACHE_BYTES", "int", "512 MiB",
            "working-set align segment: host key alignment"),
         _v("HBM_EVICT_WATERMARK", "float", "0.9",

@@ -108,23 +108,39 @@ def term_mask(values, op, value):
     raise ValueError(f"unsupported where op {op!r}")
 
 
-def build_mask(table, where_terms_list, device):
+def device_column(table, column, device):
+    """A term's column as :func:`build_mask` compares it on ``device``: the
+    stored values uploaded, or the NumPy array itself for the uint16/32/64
+    columns, which torch cannot compare and which are compared on the
+    host."""
+    raw = np.ascontiguousarray(table.column_raw(column))
+    if raw.dtype.kind == "u" and raw.dtype.itemsize > 1:
+        return raw
+    return as_tensor(raw, device)
+
+
+def build_mask(table, where_terms_list, device, column_tensor=None):
     """AND together all terms into one bool tensor on ``device``, or into
     one NumPy bool array when ``device`` is None (the host route); None for
-    an empty term list (no filtering)."""
+    an empty term list (no filtering).  ``column_tensor(table, column)``,
+    when given, supplies each term's column on ``device`` as
+    :func:`device_column` does (the default, which uploads it for this
+    mask)."""
     if not where_terms_list:
         return None
     mask = None
     for column, op, value in where_terms_list:
         phys = translate_value(table, column, value, op)
-        raw = np.ascontiguousarray(table.column_raw(column))
         if device is None:
+            raw = np.ascontiguousarray(table.column_raw(column))
             m = np.asarray(term_mask(raw, op, phys), dtype=bool)
-        elif raw.dtype.kind == "u" and raw.dtype.itemsize > 1:
-            # torch has no comparisons for uint16/32/64: compare on the host
-            m = torch.from_numpy(term_mask(raw, op, phys)).to(device)
         else:
-            m = term_mask(as_tensor(raw, device), op, phys)
+            values = (device_column(table, column, device)
+                      if column_tensor is None
+                      else column_tensor(table, column))
+            m = term_mask(values, op, phys)
+            if isinstance(values, np.ndarray):
+                m = torch.from_numpy(m).to(device)
         mask = m if mask is None else (mask & m)
     return mask
 

@@ -6,10 +6,12 @@ with byte budgets and hit/miss/eviction counters,
 
 * ``align`` (host): dense global codes + dictionaries per (table set,
   groupby columns);
-* ``codes`` (device): packed group codes with the row filter folded in,
-  per (table set, groupby columns, filter, device);
+* ``codes`` (device): packed group codes, unmasked, per (table set,
+  groupby columns, device), which every filter folds its mask into (an
+  operator DAG's codes per derivation);
 * ``blocks`` (device): packed wire-dtype measure columns per (table set,
-  column, device).
+  column, device), and each shard's filter columns (stored dtype) and
+  basket codes per (table, column, device).
 
 Keys carry each shard's identity (rootdir + meta.json inode/mtime + rows,
 :func:`bqueryd_tpu_torch.storage.ctable.table_cache_key`), so a rewritten
@@ -45,9 +47,10 @@ SEGMENTS = ("blocks", "codes", "align")
 _DEFAULT_BUDGETS = {
     # host alignment (dense codes + combos + dictionaries)
     "align": ("BQUERYD_TPU_ALIGN_CACHE_BYTES", 512 * 1024**2),
-    # device folded group codes, one entry per (table set, keys, filter)
+    # device group codes, one entry per (table set, keys)
     "codes": ("BQUERYD_TPU_CODES_CACHE_BYTES", 256 * 1024**2),
-    # device packed measure blocks, one entry per (table set, column)
+    # device packed measure blocks per (table set, column), filter
+    # columns and basket codes per (table, column)
     "blocks": ("BQUERYD_TPU_HBM_CACHE_BYTES", 1024 * 1024**2),
 }
 
@@ -149,8 +152,9 @@ class WorkingSet:
         ``{"bytes_in_use", "bytes_limit"}`` dict (default:
         :func:`pressure_sample` of this set's devices, every card read;
         None -- the CPU -- is a no-op).  Returns the accounted bytes freed.  ``blocks`` go before
-        ``codes``: measure blocks rebuild from the cached alignment with
-        one decode and upload, codes also re-run the mask fold."""
+        ``codes``: a measure block or filter column rebuilds with one
+        decode and upload, the codes with a pack of the whole shard
+        group's aligned codes."""
         if watermark is None:
             watermark = evict_watermark()
         if watermark <= 0:

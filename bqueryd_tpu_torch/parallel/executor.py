@@ -15,10 +15,12 @@ payloads on the host by key value, the executor
   (:meth:`MeshQueryExecutor._pack`, ``width`` on the
   ``program_bucket(fine=True)`` grid, padded with code -1), whose row
   ``d`` lives on device ``d`` (:class:`_Rows`);
-* keeps the codes (with the row filter folded in) and the measure columns
-  resident on the device in a working set (:mod:`..ops.workingset`), so a
-  repeat query -- also one with another measure or filter -- skips decode,
-  factorize, alignment and uploads;
+* keeps the unmasked codes, the measure columns and each shard's filter
+  columns resident on the device in a working set
+  (:mod:`..ops.workingset`), so a repeat query -- also one with another
+  measure or filter -- skips decode, factorize, alignment and uploads, and
+  a filtered query builds its mask on the device and folds it into a copy
+  of the codes there;
 * runs ONE ``partial_tables`` call per device over its row, so the merge
   across shards happens inside the kernel, then merges across devices as
   ``parallel.devicemerge.resolve_mode`` says: ``device`` (each device
@@ -39,8 +41,8 @@ and no fallback here.  ``ops.CompositeOverflow`` (a key space past int64)
 is raised for the worker to serve through the per-shard engine.
 
 Basket expansion (``expand_filter_column``) widens each shard's row filter
-to whole baskets before the fold, so the folded codes in the working set
-already carry it.  The executor runs as well over the ``ChunkView``s that
+to whole baskets on the device before the fold, from basket codes resident
+in the working set.  The executor runs as well over the ``ChunkView``s that
 chunk pruning hands it: every working-set entry is keyed by the view's own
 ``table_cache_key``, and a view has no sidecars.
 
@@ -176,14 +178,14 @@ def _measure_kind(tables, col):
     return None
 
 
-def _where_signature(query):
-    """Hashable, canonical identity of a query's row filter."""
+def _codes_key(tables_key, cols_key, n_dev, dev_key):
+    """The ``codes`` segment's key of a shard group's unmasked codes: one
+    entry per shards, keys and layout, whatever a query's filter (the
+    empty filter's signature stands in its place)."""
     from bqueryd_tpu_torch.models.query import freeze_value
 
-    return (
-        freeze_value(query.where_terms or []),
-        query.expand_filter_column,
-    )
+    return (tables_key, "codes", cols_key, (freeze_value([]), None), n_dev,
+            dev_key)
 
 
 def _codes_dtype(n_groups):
@@ -382,8 +384,11 @@ class MeshQueryExecutor:
         self.d2h_bytes = 0
         #   align:  (tables_key, groupby_cols) -> (dense codes per shard,
         #           combos, cards, key_values), host
-        #   codes:  folded + packed group codes, [n_dev, width] _Rows
-        #   blocks: packed wire-dtype measure columns, [n_dev, width]
+        #   codes:  unmasked packed group codes, [n_dev, width] _Rows (a
+        #           DAG's: its derivations' codes)
+        #   blocks: packed wire-dtype measure columns, [n_dev, width];
+        #           each shard's stored-dtype filter columns and basket
+        #           codes on the first device
         self.workingset = WorkingSet(devices=self.devices)
         self._align_cache = self.workingset.segment("align")
         self._hbm_cache = self.workingset.segment("blocks")
@@ -822,10 +827,7 @@ class MeshQueryExecutor:
         dev_key = self._dev_key(first)
         tables_key = tuple(_table_key(t) for t in tables)
         cols_key = tuple(query.groupby_cols)
-        codes_key = (
-            tables_key, "codes", cols_key, _where_signature(query), n_dev,
-            dev_key,
-        )
+        codes_key = _codes_key(tables_key, cols_key, n_dev, dev_key)
 
         # sum+count+mean of one column share one uploaded block:
         # measure_index maps each agg to its distinct column's slot
@@ -842,7 +844,8 @@ class MeshQueryExecutor:
         codes_warm = codes_key in self._codes_cache
         # shed device cache BEFORE this query adds residency; a fully warm
         # query adds nothing and skips the memory sample
-        if missing_cols or not codes_warm:
+        if (missing_cols or not codes_warm
+                or self._filter_inputs_missing(tables, query)):
             self.workingset.evict_under_pressure()
 
         # storage decode of the missing measure columns on the pool, so it
@@ -881,12 +884,10 @@ class MeshQueryExecutor:
         if not align_warm:
             prefetch_missing()
 
-        codes_d = self._codes_cache.get(codes_key)
-        if codes_d is None:
-            # cold only: on a hit the folded codes ARE the filter
-            codes_d = self._codes_block(tables, query, dense, n_groups,
+        codes_d = self._codes_block(codes_key, dense, n_groups, n_dev, first)
+        if query.where_terms:
+            codes_d = self._fold_filter(codes_d, tables, query, dense,
                                         engine, n_dev, first)
-            self._codes_cache.put(codes_key, codes_d)
         with self._phase("layout"):
             measures_d = self._measure_blocks(
                 tables, unique_cols, block_key, prefetch, n_dev, first
@@ -934,33 +935,19 @@ class MeshQueryExecutor:
                 measure_kinds,
             )
 
-    def _codes_block(self, tables, query, dense, n_groups, engine, n_dev,
-                     first):
-        """Packed global codes on the devices (rows ``[first, first +
-        self.n_devices)`` of the ``[n_dev, width]`` pack), with each
-        shard's row filter folded in (filtered-out rows become -1).  Masks
-        are built on the first device, expanded to whole baskets there
-        under ``expand_filter_column`` (each shard's own basket codes,
-        cached by ``engine``), and each device's row of them folded on
-        that device."""
-        import torch
-
-        from bqueryd_tpu_torch import ops
+    def _codes_block(self, codes_key, dense, n_groups, n_dev, first):
+        """The packed global codes ``dense`` on the devices (rows ``[first,
+        first + self.n_devices)`` of the ``[n_dev, width]`` pack), from the
+        ``codes`` segment under ``codes_key``, packed and uploaded only on
+        a miss.  ``execute`` and ``execute_bundle`` keep them unmasked
+        (:func:`_codes_key`): every query over the same shards and keys
+        finds them, filtered or not, solo or bundled, and only the first
+        query of a shard group, an eviction or an append packs them."""
         from bqueryd_tpu_torch.parallel import pipeline
 
-        masks = []
-        with self._phase("mask"):
-            for t in tables:
-                mask = ops.build_mask(t, query.where_terms, self.device)
-                if query.expand_filter_column:
-                    bcodes, buniques = engine._basket_codes(
-                        t, query.expand_filter_column
-                    )
-                    mask = ops.expand_mask_by_group(
-                        bcodes, mask, n_groups=len(buniques),
-                        device=self.device,
-                    )
-                masks.append(mask)
+        codes_d = self._codes_cache.get(codes_key)
+        if codes_d is not None:
+            return codes_d
         with self._phase("layout"):
             with pipeline.stage("align"):
                 cdt = _codes_dtype(n_groups)
@@ -970,18 +957,91 @@ class MeshQueryExecutor:
                 )
             with pipeline.stage("h2d"):
                 codes_d = self._upload_rows(packed, first)
-            if all(m is None for m in masks):
-                return codes_d
-            keep = torch.zeros(packed.size, dtype=torch.bool,
-                               device=self.device)
+        self._codes_cache.put(codes_key, codes_d)
+        return codes_d
+
+    def _where_key(self, table, column):
+        """The ``blocks`` key of a shard's filter column resident on the
+        first device, or None for the uint16/32/64 columns that
+        :func:`ops.build_mask` compares on the host."""
+        dt = table.physical_dtype(column)
+        if dt.kind == "u" and dt.itemsize > 1:
+            return None
+        return (_table_key(table), "where", column, str(self.device))
+
+    def _where_column(self, table, column):
+        """:func:`ops.build_mask`'s column source: the shard's column in its
+        stored dtype on the first device, kept in the ``blocks`` segment
+        per shard, so that every filter on it compares against the same
+        resident tensor."""
+        from bqueryd_tpu_torch.ops.predicates import device_column
+
+        key = self._where_key(table, column)
+        values = None if key is None else self._hbm_cache.get(key)
+        if values is None:
+            values = device_column(table, column, self.device)
+            if key is not None:
+                self._hbm_cache.put(key, values)
+        return values
+
+    def _basket_key(self, table, column):
+        return (_table_key(table), "basket", column, str(self.device))
+
+    def _basket_codes(self, engine, table, column):
+        """A shard's basket codes (``engine``'s, cached there on the host)
+        and their count, the codes resident on the first device in the
+        ``blocks`` segment."""
+        from bqueryd_tpu_torch.ops.groupby import as_tensor
+
+        bcodes, buniques = engine._basket_codes(table, column)
+        key = self._basket_key(table, column)
+        codes = self._hbm_cache.get(key)
+        if codes is None:
+            codes = as_tensor(bcodes, self.device)
+            self._hbm_cache.put(key, codes)
+        return codes, len(buniques)
+
+    def _filter_inputs_missing(self, tables, query):
+        """Whether a filter column or basket code block that ``query``'s
+        fold reads is missing from the ``blocks`` segment."""
+        cols = dict.fromkeys(term[0] for term in query.where_terms or [])
+        for t in tables:
+            keys = [self._where_key(t, c) for c in cols if c in t]
+            if query.where_terms and query.expand_filter_column:
+                keys.append(self._basket_key(t, query.expand_filter_column))
+            if any(k is not None and k not in self._hbm_cache for k in keys):
+                return True
+        return False
+
+    def _fold_filter(self, codes_d, tables, query, dense, engine, n_dev,
+                     first):
+        """This query's codes: each shard's row filter built on the first
+        device from its resident filter columns, widened to whole baskets
+        there under ``expand_filter_column``, laid out as the pack is, and
+        folded into each device's row of the unmasked codes (filtered-out
+        rows become -1) as a new tensor: the cached codes stay unmasked.
+        No host sync."""
+        import torch
+
+        from bqueryd_tpu_torch import ops
+
+        with self._phase("mask"):
+            keep = torch.zeros((n_dev, int(codes_d.shape[1])),
+                               dtype=torch.bool, device=self.device)
+            flat = keep.view(-1)
             off = 0
-            for d, m in zip(dense, masks):
-                keep[off:off + len(d)] = True if m is None else m
+            for t, d in zip(tables, dense):
+                mask = ops.build_mask(t, query.where_terms, self.device,
+                                      column_tensor=self._where_column)
+                if query.expand_filter_column:
+                    bcodes, n_baskets = self._basket_codes(
+                        engine, t, query.expand_filter_column)
+                    mask = ops.expand_mask_by_group(
+                        bcodes, mask, n_groups=n_baskets, device=self.device)
+                flat[off:off + len(d)] = mask
                 off += len(d)
-            keep = keep.view(packed.shape)
             return _Rows(
-                torch.where(keep[first + d].to(row.device), row,
-                            torch.full_like(row, -1))
+                torch.where(keep[first + d].to(row.device), row, -1)
                 for d, row in enumerate(codes_d)
             )
 
@@ -1120,7 +1180,6 @@ class MeshQueryExecutor:
         import torch
 
         from bqueryd_tpu_torch import ops
-        from bqueryd_tpu_torch.models.query import freeze_value
         from bqueryd_tpu_torch.parallel import devicemerge, pipeline
 
         if not queries:
@@ -1162,9 +1221,8 @@ class MeshQueryExecutor:
         dev_key = self._dev_key(first)
         tables_key = tuple(_table_key(t) for t in tables)
         cols_key = tuple(gcols)
-        # the unfiltered solo query's codes entry
-        codes_key = (tables_key, "codes", cols_key, (freeze_value([]), None),
-                     n_dev, dev_key)
+        # the solo queries' codes entry
+        codes_key = _codes_key(tables_key, cols_key, n_dev, dev_key)
 
         def block_key(col):
             return (tables_key, "col", col, n_dev, dev_key)
@@ -1209,18 +1267,7 @@ class MeshQueryExecutor:
         if not align_warm:
             prefetch_missing()
 
-        codes_d = self._codes_cache.get(codes_key)
-        if codes_d is None:
-            with self._phase("layout"):
-                with pipeline.stage("align"):
-                    cdt = _codes_dtype(n_groups)
-                    packed = self._pack(
-                        [d.astype(cdt) for d in dense], n_dev,
-                        cdt.type(-1), dtype=cdt,
-                    )
-                with pipeline.stage("h2d"):
-                    codes_d = self._upload_rows(packed, first)
-                self._codes_cache.put(codes_key, codes_d)
+        codes_d = self._codes_block(codes_key, dense, n_groups, n_dev, first)
         width = int(codes_d.shape[1])
 
         # one stacked mask row per member that filters, built on the first
@@ -1518,18 +1565,7 @@ class MeshQueryExecutor:
                 )
             sketch_geo[i] = (width, kmin)
 
-        codes_d = self._codes_cache.get(codes_key)
-        if codes_d is None:
-            with self._phase("layout"):
-                with pipeline.stage("align"):
-                    cdt = _codes_dtype(n_groups)
-                    packed = self._pack(
-                        [d.astype(cdt) for d in dense], n_dev,
-                        cdt.type(-1), dtype=cdt,
-                    )
-                with pipeline.stage("h2d"):
-                    codes_d = self._upload_rows(packed, row0)
-                self._codes_cache.put(codes_key, codes_d)
+        codes_d = self._codes_block(codes_key, dense, n_groups, n_dev, row0)
 
         with self._phase("layout"):
             fact_cols = [c for c in unique_cols if col_source(c) == "fact"]

@@ -34,7 +34,8 @@ from bqueryd_tpu_torch.parallel import executor as port_executor
 from bqueryd_tpu_torch.parallel import pipeline
 from bqueryd_tpu_torch.parallel.executor import MeshQueryExecutor
 from bqueryd_tpu_torch.rpc import LocalRPC
-from bqueryd_tpu_torch.storage.ctable import ctable
+from bqueryd_tpu_torch.storage.ctable import ChunkView, ctable
+from bqueryd_tpu_torch.utils.tracing import PhaseTimer
 from test_differential_fuzz import (
     CASES,
     _compare,
@@ -51,11 +52,11 @@ PORT_CASES = [
 ]
 
 
-def _write_shards(root, frames):
+def _write_shards(root, frames, **kwargs):
     names = []
     for i, df in enumerate(frames):
         name = f"shard_{i}.bcolzs"
-        jax_ctable.fromdataframe(df, str(root / name))
+        jax_ctable.fromdataframe(df, str(root / name), **kwargs)
         names.append(name)
     return names
 
@@ -202,9 +203,16 @@ def test_warm_query_hits_the_working_set(shards, monkeypatch):
     gcols = ["k_str", "k_int"]
     query = GroupByQuery(gcols, [["v_small", "sum", "s"]],
                          [["sel", ">", 0.5]])
+
+    def n_where(q):
+        # the shards whose filter column the query reads
+        return sum(ops.shard_can_match(t, q.where_terms) for t in tables)
+
     cold = _payload_frame(executor.execute(tables, query))
     s0 = executor.workingset.stats()
-    assert [s0[k]["misses"] for k in ("align", "codes", "blocks")] == [1] * 3
+    # blocks: the measure, and each shard's resident filter column
+    assert [s0[k]["misses"] for k in ("align", "codes", "blocks")] == [
+        1, 1, 1 + n_where(query)]
 
     def boom(*_a, **_k):
         raise AssertionError("factorize ran on a warm query")
@@ -212,8 +220,9 @@ def test_warm_query_hits_the_working_set(shards, monkeypatch):
     monkeypatch.setattr(ops, "factorize", boom)
     warm = _payload_frame(executor.execute(tables, query))
     s1 = executor.workingset.stats()
-    for seg in ("align", "codes", "blocks"):
-        assert s1[seg]["hits"] == s0[seg]["hits"] + 1, seg
+    for seg, hits in (("align", 1), ("codes", 1),
+                      ("blocks", 1 + n_where(query))):
+        assert s1[seg]["hits"] == s0[seg]["hits"] + hits, seg
         assert s1[seg]["misses"] == s0[seg]["misses"], seg
     _compare(warm, cold, gcols, query.agg_list)
 
@@ -227,15 +236,19 @@ def test_warm_query_hits_the_working_set(shards, monkeypatch):
     _compare(got, _expected(frames, gcols, other.agg_list, other.where_terms),
              gcols, other.agg_list)
 
-    # another filter: align hits, codes miss (the fold differs), and the
-    # answer is the new filter's
+    # another filter: align, codes (unmasked, the fold is per query) and
+    # blocks (the measure and the filter columns) hit, and the answer is
+    # the new filter's
     refiltered = GroupByQuery(gcols, [["v_small", "sum", "s"]],
                               [["sel", "<=", 0.25]])
     got = _payload_frame(executor.execute(tables, refiltered))
     s3 = executor.workingset.stats()
     assert s3["align"]["hits"] == s2["align"]["hits"] + 1
-    assert s3["codes"]["misses"] == s2["codes"]["misses"] + 1
-    assert s3["blocks"]["hits"] == s2["blocks"]["hits"] + 1
+    assert s3["codes"]["hits"] == s2["codes"]["hits"] + 1
+    assert s3["blocks"]["hits"] == s2["blocks"]["hits"] + 1 + n_where(
+        refiltered)
+    for seg in ("align", "codes", "blocks"):
+        assert s3[seg]["misses"] == s2[seg]["misses"], seg
     _compare(got, _expected(frames, gcols, refiltered.agg_list,
                             refiltered.where_terms), gcols,
              refiltered.agg_list)
@@ -383,8 +396,8 @@ def test_non_mergeable_ops_are_refused(shards):
     "where", [[["sel", ">", 0.97]], [["v_small", ">", 900]]])
 def test_basket_expansion_matches_jax_executor(shards, port, where):
     """Each shard's mask widens to whole baskets on the device before the
-    fold; the folded codes are cached under the expansion column, so the
-    same filter without it is another working-set entry."""
+    fold, which is per query: the same filter without the expansion reads
+    the same unmasked codes entry and answers without it."""
     root, frames, names = shards
     executor, tables = port
     gcols = ["k_int"]
@@ -401,11 +414,127 @@ def test_basket_expansion_matches_jax_executor(shards, port, where):
         hit = _filter_df(df, where).index
         expanded.append(df[df["basket"].isin(df.loc[hit, "basket"].unique())])
     _compare(got, _expected(expanded, gcols, aggs, []), gcols, aggs)
-    misses = executor.workingset.stats()["codes"]["misses"]
+    before = executor.workingset.stats()["codes"]
     plain = _payload_frame(executor.execute(
         tables, GroupByQuery(gcols, aggs, where)))
-    assert executor.workingset.stats()["codes"]["misses"] == misses + 1
+    after = executor.workingset.stats()["codes"]
+    assert after["misses"] == before["misses"]
+    assert after["hits"] == before["hits"] + 1
     _compare(plain, _expected(frames, gcols, aggs, where), gcols, aggs)
+
+
+#: case -> (the filter that warms the executor, a filter new to it,
+#: expand_filter_column), each filter on the column the case names
+RESIDENT_FILTERS = {
+    "float32": ([["v_float", ">", 12.5]], [["v_float", ">", -3.25]], None),
+    # v_small rides as int16 in its measure block; 40,000 lies past it
+    "narrowed_int": ([["v_small", ">", 0]],
+                     [["v_small", "<=", 40_000], ["v_small", ">", 250]],
+                     None),
+    "datetime": ([["t", ">", pd.Timestamp("2014-06-01")]],
+                 [["t", ">", pd.Timestamp("2015-01-01")]], None),
+    "dict_eq": ([["k_str", "in", ["a"]]], [["k_str", "==", "b"]], None),
+    "dict_in": ([["k_str", "==", "a"]], [["k_str", "in", ["a", "c"]]],
+                None),
+    "uint32": ([["v_u32", ">", 2**31]], [["v_u32", "<=", 2**30]], None),
+    "basket": ([["sel", ">", 0.97]], [["sel", ">", 0.9]], "basket"),
+    "chunk_view": ([["basket", ">", 350]], [["basket", ">", 420]], None),
+    "two_devices": ([["v_float", ">", 12.5]], [["v_float", "<=", 0.0]],
+                    None),
+    "append": ([["v_float", ">", 12.5]], [["v_float", "<=", 0.0]], None),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_executor():
+    return JaxExecutor(mesh=make_mesh())
+
+
+@pytest.mark.parametrize("case", sorted(RESIDENT_FILTERS))
+def test_new_filter_reads_resident_inputs_only(shards, jax_mesh_executor,
+                                               tmp_path, case):
+    """A warm executor answers a filter new to it from the working set
+    alone: the unmasked codes, the measure blocks and each shard's filter
+    column (or basket codes) hit, nothing misses and nothing is uploaded,
+    and the answer is the JAX executor's and pandas'.  An unfiltered query
+    then gives the unfiltered answer (the fold left the cached codes
+    unmasked); after an append the grown shard's filter column is read
+    afresh."""
+    root, frames, names = shards
+    first, second, expand = RESIDENT_FILTERS[case]
+    gcols = ["k_str", "k_int"]
+    aggs = [["v_small", "sum", "s"], ["v_float", "mean", "m"],
+            ["v_big", "max", "hi"]]
+    if case in ("chunk_view", "append"):
+        # chunks of 500 rows, 8 a shard, over the sorted basket column
+        root, frames = tmp_path, list(frames)
+        names = _write_shards(root, frames, chunklen=500)
+
+    def open_tables():
+        tables = [ctable(str(root / n), mode="r") for n in names]
+        if case == "chunk_view":
+            tables = [ops.chunk_pruned_table(t, first)[0] for t in tables]
+            assert all(isinstance(t, ChunkView) for t in tables)
+        return tables
+
+    def in_view(frames):
+        # each shard's rows that its view selects
+        if case != "chunk_view":
+            return frames
+        return [df.iloc[np.concatenate([
+            np.arange(c * 500, min((c + 1) * 500, len(df)))
+            for c in t.chunk_ids])] for df, t in zip(frames, tables)]
+
+    def expected(frames, where):
+        if expand is not None:
+            frames = [df[df[expand].isin(
+                _filter_df(df, where)[expand].unique())] for df in frames]
+            where = []
+        return _expected(in_view(frames), gcols, aggs, where)
+
+    tables = open_tables()
+    executor = MeshQueryExecutor(
+        devices=["cpu"] * (2 if case == "two_devices" else 1))
+    executor.timer = PhaseTimer()
+
+    def run(where, expand=expand):
+        return _payload_frame(executor.execute(tables, GroupByQuery(
+            gcols, aggs, where, expand_filter_column=expand)))
+
+    _compare(run(first), expected(frames, first), gcols, aggs)
+    assert executor.h2d_bytes > 0
+    before, uploaded = executor.workingset.stats(), executor.h2d_bytes
+    got = run(second)
+    after = executor.workingset.stats()
+    for seg in ("align", "codes", "blocks"):
+        assert after[seg]["misses"] == before[seg]["misses"], seg
+        assert after[seg]["hits"] > before[seg]["hits"], seg
+    assert executor.h2d_bytes == uploaded
+    want = jax_mesh_executor.execute(
+        [jax_ctable(str(root / n), mode="r") for n in names],
+        JaxQuery(gcols, aggs, second, expand_filter_column=expand))
+    _compare(got, _payload_frame(want), gcols, aggs)
+    _compare(got, expected(frames, second), gcols, aggs)
+
+    # the same unmasked codes entry answers unfiltered
+    _compare(run([], None), _expected(in_view(frames), gcols, aggs, []),
+             gcols, aggs)
+    assert executor.workingset.stats()["codes"]["misses"] == (
+        after["codes"]["misses"])
+
+    if case == "append":
+        grown = frames[1].iloc[:300].assign(
+            v_float=np.full(300, -1.0, dtype=np.float32))
+        ctable(str(root / names[1]), mode="a").append(grown)
+        frames[1] = pd.concat([frames[1], grown], ignore_index=True)
+        tables = open_tables()
+        misses = executor.workingset.stats()["blocks"]["misses"]
+        got = run(second)
+        # the measures of the new shard group and the grown shard's
+        # filter column; the other shards' filter columns hit
+        assert executor.workingset.stats()["blocks"]["misses"] == (
+            misses + len(aggs) + 1)
+        _compare(got, expected(frames, second), gcols, aggs)
 
 
 def test_worker_routes_by_query_shape(port):
