@@ -56,7 +56,9 @@ every verb of ``CONTROLLER_VERBS``, with the reference's wire behaviour:
   that long and compatible ones (same post-prune shards and group keys,
   any measures and filters) go out as one shared-scan bundle per shard
   group (:mod:`plan.bundle`), whose reply is demultiplexed per member; at
-  the default 0 nothing is staged.
+  the default 0 nothing is staged.  A staged query's timeline carries
+  ``batch``: the plans in its flush (``staged``) and the queries of the
+  dispatch it launched in (``members``).
 
 * each plain groupby dispatch carries a kernel-strategy hint
   (``plan.strategy.select_calibrated``): the heuristic from the advertised
@@ -2213,6 +2215,8 @@ class ControllerNode:
         }
         if segment.get("answer_source") is not None:
             timeline["answer_source"] = segment["answer_source"]
+        if obs_state.get("batch") is not None:
+            timeline["batch"] = obs_state["batch"]
         if error is not None:
             timeline["error"] = str(error)[:500]
         # the attribution rides the stored timeline; a malformed span set
@@ -3035,6 +3039,14 @@ class ControllerNode:
                 held_ms=round(
                     max(time.time() - self._window_opened, 0.0) * 1000.0, 1),
             )
+            # what the flush did, for each staged query's autopsy
+            # (obs.slo.attribute adds whether the worker shared the scan)
+            for entries in groups.values():
+                for msg, *_rest in entries:
+                    obs_state = msg.get("_obs")
+                    if isinstance(obs_state, dict):
+                        obs_state["batch"] = {"staged": len(pending),
+                                              "members": len(entries)}
         for entries in groups.values():
             try:
                 if len(entries) == 1:

@@ -302,7 +302,10 @@ SPAN_SCHEMA = {
                 "layer can split out retry_backoff and hedge duplicates",
     "demux": "shared-scan bundle reply demultiplex at the controller",
     # worker-side spans (public names)
-    "calc": "the worker's root span for one CalcMessage",
+    "calc": "the worker's root span for one CalcMessage (a bundle's: tag "
+            "members, the members executed, and tag path, 'shared' for one "
+            "execute_bundle or 'members' with tag reason ineligible, "
+            "rejected or overflow)",
     "storage_decode": "raw phase 'open': shard open + column decode",
     "prune": "raw phase: chunk-level predicate pruning",
     "filter": "raw phase 'mask': where-term mask evaluation",

@@ -2,7 +2,8 @@
 
 The port's copy of ``bqueryd_tpu/obs/slo.py``; its records equal the
 reference's for the same timelines and clocks.  The port adds the worker
-loop's ``worker_receive`` segment and a record's ``tagged`` sums.
+loop's ``worker_receive`` segment, a record's ``tagged`` sums and a
+staged query's ``batch``.
 
 :func:`attribute` turns an assembled trace timeline (a
 :class:`bqueryd_tpu_torch.obs.trace.TraceStore` entry) into an
@@ -170,9 +171,11 @@ def attribute(timeline):
     sum}}`` of the :data:`SUMMED_TAGS` its spans carry, when any does),
     ``attempts`` (per dispatch
     attempt: worker, retries, backoff, hedge — the ``_attempt_history``
-    view a client can act on), and ``bundle`` (member share metadata when
-    the query rode a shared-scan bundle).  Never raises on malformed
-    timelines — attribution is forensics, not the query path."""
+    view a client can act on), ``bundle`` (member share metadata when
+    the query rode a shared-scan bundle) and, for a query the micro-batch
+    window staged, ``batch`` (``staged``, ``members``, ``shared_scan``).
+    Never raises on malformed timelines — attribution is forensics, not
+    the query path."""
     spans = [s for s in (timeline or {}).get("spans") or []
              if isinstance(s, dict)]
     record = {
@@ -345,6 +348,20 @@ def attribute(timeline):
                 for name, seconds in segments.items()
                 if name in worker_segments
             },
+        }
+
+    # what the micro-batch window's flush did with a staged query (the
+    # controller's ``batch``), and whether the worker ran its dispatch as
+    # one shared scan: every bundle calc span tagged path "shared"
+    batch = (timeline or {}).get("batch")
+    if isinstance(batch, dict):
+        paths = [(s.get("tags") or {}).get("path") for s in spans
+                 if s.get("name") == "calc"]
+        paths = [p for p in paths if p is not None]
+        record["batch"] = {
+            "staged": batch.get("staged"),
+            "members": batch.get("members"),
+            "shared_scan": bool(paths) and all(p == "shared" for p in paths),
         }
     return record
 

@@ -1271,15 +1271,15 @@ class WorkerNode(WorkerBase):
 
         return profiler_trace(profile_dir, device=self.device)
 
-    def _finish_calc(self, reply, data, timer, recorder, mem_tags=None):
-        """The observability tail of a groupby reply: its spans (device
-        memory on the calc root), the latency histograms and the reply
-        size."""
+    def _finish_calc(self, reply, data, timer, recorder, root_tags=None):
+        """The observability tail of a groupby reply: its spans (the calc
+        root tagged with ``root_tags``: the device memory, a bundle's
+        path), the latency histograms and the reply size."""
         self.groupby_queries.inc()
         self.groupby_seconds.observe(timer.total())
         if recorder is None:
             return
-        reply["spans"] = recorder.export(tags=mem_tags)
+        reply["spans"] = recorder.export(tags=root_tags)
         self.reply_bytes.observe(len(data))
         for phase, seconds in timer.timings.items():
             name = CALC_SPAN_NAMES.get(phase, phase)
@@ -1880,9 +1880,13 @@ class WorkerNode(WorkerBase):
         :func:`execute`, where a failing member fails alone.  A
         :class:`~bqueryd_tpu_torch.chaos.TransientError` fails the whole
         bundle (over to another holder, under its one token).  Any other
-        error, a device error included, propagates.  The reply's data
-        frame is one pickled ``{"v": 1, "payloads": {member_id: bytes},
-        "errors": {member_id: text}}`` envelope, beside
+        error, a device error included, propagates.  The calc span carries
+        ``members`` (the members executed) and ``path``: "shared", or
+        "members" with its ``reason`` ("ineligible", "rejected",
+        "overflow"), which ``bqueryd_tpu_worker_bundles_total{path}`` and
+        ``bqueryd_tpu_worker_bundle_members_total{path}`` count.  The
+        reply's data frame is one pickled ``{"v": 1, "payloads":
+        {member_id: bytes}, "errors": {member_id: text}}`` envelope, beside
         ``bundle_members``, ``member_shares``, ``phase_timings``,
         ``effective_strategy`` and ``merge_mode``."""
         import pickle
@@ -1929,8 +1933,11 @@ class WorkerNode(WorkerBase):
         cached_ids = list(payloads)
         report = {"effective_strategy": None, "merge_mode": None}
         results, walls = {}, {}
+        path_tags = None
         if active:
             bundled = None
+            # why the members run one by one, when they do
+            reason = "ineligible"
             if self._bundle_mesh_eligible(tables, list(active.values())):
                 try:
                     bundled = self.mesh_executor_for_bundle(
@@ -1940,12 +1947,18 @@ class WorkerNode(WorkerBase):
                     # to another holder, never one member
                     raise
                 except ops.CompositeOverflow:
+                    reason = "overflow"
                     self.logger.info("composite key space exceeds int64; "
                                      "running the bundle's members one by "
                                      "one")
                 except ValueError as exc:
+                    reason = "rejected"
                     self.logger.info("bundle rejected (%s); running its "
                                      "members one by one", exc)
+            path_tags = {"members": len(active), "path": "shared"}
+            if bundled is None:
+                path_tags.update(path="members", reason=reason)
+            self._count_bundle(path_tags["path"], len(active))
             if bundled is not None:
                 results = dict(zip(active, bundled))
                 report["effective_strategy"] = (
@@ -1995,9 +2008,29 @@ class WorkerNode(WorkerBase):
             reply["effective_strategy"] = effective
         if report["merge_mode"] is not None:
             reply["merge_mode"] = report["merge_mode"]
-        # one CalcMessage executed, whatever its member count
-        self._finish_calc(reply, data, timer, recorder)
+        # one CalcMessage executed, whatever its member count; its calc
+        # span says how
+        self._finish_calc(reply, data, timer, recorder, root_tags=path_tags)
         return reply
+
+    def _count_bundle(self, path, members):
+        """One executed bundle and its members on ``/metrics``, by path:
+        "shared" (one ``execute_bundle``) or "members" (one by one)."""
+        if not obs.enabled():
+            return
+        labels = {"path": path}
+        self.metrics.counter(
+            "bqueryd_tpu_worker_bundles_total",
+            "shared-scan bundles this worker executed, by path (shared: "
+            "one execute_bundle; members: one by one)",
+            labels=labels,
+        ).inc()
+        self.metrics.counter(
+            "bqueryd_tpu_worker_bundle_members_total",
+            "member queries of the bundles this worker executed, by path "
+            "(shared: one execute_bundle; members: one by one)",
+            labels=labels,
+        ).inc(members)
 
     def _bundle_mesh_eligible(self, tables, queries):
         """Whether a bundle runs as one shared scan on the executor, as the
