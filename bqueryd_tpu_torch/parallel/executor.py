@@ -178,6 +178,68 @@ def _measure_kind(tables, col):
     return None
 
 
+def _global_dictionaries(shard_values):
+    """Per key column of ``shard_values[col][shard]`` (each shard's local
+    dictionary): the sorted global dictionary without the null values
+    (NaN / NaT: their rows already carry code -1), its cardinality (at
+    least 1) and each shard's local -> global position map.  Returns
+    ``(cards, global_values, pos_maps)``, each indexed by column."""
+    cards, global_values, pos_maps = [], [], []
+    for values in shard_values:
+        gvals = np.unique(np.concatenate(values))
+        if gvals.dtype.kind == "f":
+            gvals = gvals[~np.isnan(gvals)]
+        elif gvals.dtype.kind == "M":
+            gvals = gvals[~np.isnat(gvals)]
+        cards.append(max(len(gvals), 1))
+        global_values.append(gvals)
+        pos_maps.append([np.searchsorted(gvals, v) for v in values])
+    return cards, global_values, pos_maps
+
+
+def _check_composite(cards):
+    """``CompositeOverflow`` when the composite key space of per-column
+    cardinalities ``cards`` exceeds int64."""
+    from bqueryd_tpu_torch import ops
+
+    if ops.total_cardinality(cards) >= ops.MAX_COMPOSITE:
+        raise ops.CompositeOverflow(
+            "composite group-key space "
+            f"{'x'.join(str(int(c)) for c in cards)} exceeds int64"
+        )
+
+
+def _dense_combos(composites):
+    """The sorted global combos over every shard's observed composites
+    (``(inverse, uniques)`` a shard, -1 for a null key) and each shard's
+    dense codes: its few observed composites map into the combos, then
+    one gather per shard."""
+    observed = [u[u >= 0] for _inv, u in composites]
+    observed = [o for o in observed if len(o)]
+    combos = (np.unique(np.concatenate(observed)) if observed
+              else np.empty(0, dtype=np.int64))
+    dense = []
+    for inv, uniq in composites:
+        lut = np.searchsorted(combos, np.clip(uniq, 0, None)).astype(np.int64)
+        lut[uniq < 0] = -1
+        dense.append(lut[inv])
+    return combos, dense
+
+
+def _present_parts(part, present, stored):
+    """One merged aggregation's parts at the ``present`` groups; min/max
+    computed on a narrowed wire dtype go back to the column's stored int
+    dtype ``stored`` (None, or not an int: as computed)."""
+    out = {}
+    for k, v in part.items():
+        v = v[present]
+        if (k in ("min", "max") and stored is not None
+                and stored.kind in "iu" and v.dtype != stored):
+            v = v.astype(stored)
+        out[k] = v
+    return out
+
+
 def _codes_key(tables_key, cols_key, n_dev, dev_key):
     """The ``codes`` segment's key of a shard group's unmasked codes: one
     entry per shards, keys and layout, whatever a query's filter (the
@@ -516,24 +578,9 @@ class MeshQueryExecutor:
                 shard_codes[ci].append(np.asarray(codes))
                 shard_values[ci].append(np.asarray(values))
 
-        cards = []
-        global_values = []
-        pos_maps = [[] for _ in range(n_cols)]  # [col][shard] -> local->global
-        for ci in range(n_cols):
-            gvals = np.unique(np.concatenate(shard_values[ci]))
-            # null VALUES (NaN / NaT) leave the global dictionary: their
-            # rows already carry code -1, and the single-key shortcut below
-            # needs every dictionary entry to be an observed group
-            if gvals.dtype.kind == "f":
-                gvals = gvals[~np.isnan(gvals)]
-            elif gvals.dtype.kind == "M":
-                gvals = gvals[~np.isnat(gvals)]
-            cards.append(max(len(gvals), 1))
-            global_values.append(gvals)
-            for si in range(len(tables)):
-                pos_maps[ci].append(
-                    np.searchsorted(gvals, shard_values[ci][si])
-                )
+        # pos_maps[col][shard]: local -> global; the single-key shortcut
+        # below needs every dictionary entry to be an observed group
+        cards, global_values, pos_maps = _global_dictionaries(shard_values)
 
         def mapped_codes(si, ci):
             # local codes through the local->global map; nulls stay -1
@@ -556,11 +603,7 @@ class MeshQueryExecutor:
 
         # guard BEFORE the sidecar loader: a sidecar from a build without
         # the guard could hold wrapped packs under the same digest
-        if ops.total_cardinality(cards) >= ops.MAX_COMPOSITE:
-            raise ops.CompositeOverflow(
-                "composite group-key space "
-                f"{'x'.join(str(int(c)) for c in cards)} exceeds int64"
-            )
+        _check_composite(cards)
 
         # several keys: observed composites per shard through the hash
         # factorizer, persisted next to the shard keyed by a digest of the
@@ -602,24 +645,8 @@ class MeshQueryExecutor:
                 )
             return inv, uniq
 
-        composites = self._map_shards(shard_composites, range(len(tables)))
-        local_uniques = [c[1] for c in composites]
-        observed = [u[u >= 0] for u in local_uniques]
-        observed = [o for o in observed if len(o)]
-        combos = (
-            np.unique(np.concatenate(observed))
-            if observed
-            else np.empty(0, dtype=np.int64)
-        )
-        # each shard's few observed composites map into the sorted global
-        # combos, then one gather per shard
-        dense = []
-        for inv, uniq in composites:
-            lut = np.searchsorted(combos, np.clip(uniq, 0, None)).astype(
-                np.int64
-            )
-            lut[uniq < 0] = -1
-            dense.append(lut[inv])
+        combos, dense = _dense_combos(
+            self._map_shards(shard_composites, range(len(tables))))
         key_values = dict(zip(query.groupby_cols, global_values))
         return dense, combos, cards, key_values
 
@@ -824,65 +851,14 @@ class MeshQueryExecutor:
         # multi-process job
         mode = devicemerge.resolve_mode()
         n_dev, first = self._layout(mode)
-        dev_key = self._dev_key(first)
-        tables_key = tuple(_table_key(t) for t in tables)
-        cols_key = tuple(query.groupby_cols)
-        codes_key = _codes_key(tables_key, cols_key, n_dev, dev_key)
-
         # sum+count+mean of one column share one uploaded block:
         # measure_index maps each agg to its distinct column's slot
         unique_cols = list(dict.fromkeys(query.in_cols))
         measure_index = tuple(unique_cols.index(c) for c in query.in_cols)
-
-        def block_key(col):
-            return (tables_key, "col", col, n_dev, dev_key)
-
-        missing_cols = [
-            c for c in unique_cols if block_key(c) not in self._hbm_cache
-        ]
-        align_warm = (tables_key, cols_key) in self._align_cache
-        codes_warm = codes_key in self._codes_cache
-        # shed device cache BEFORE this query adds residency; a fully warm
-        # query adds nothing and skips the memory sample
-        if (missing_cols or not codes_warm
-                or self._filter_inputs_missing(tables, query)):
-            self.workingset.evict_under_pressure()
-
-        # storage decode of the missing measure columns on the pool, so it
-        # overlaps alignment (when warm) or the codes fold and upload (when
-        # alignment is cold and needs the pool itself first)
-        prefetch = {}
-
-        def prefetch_missing():
-            if pipeline.pipeline_threads() <= 1:
-                return
-            for col in missing_cols:
-                prefetch[col] = [f for t in tables for f in t.prefetch([col])]
-
-        if align_warm:
-            prefetch_missing()
-        with self._phase("align"), pipeline.stage("align"):
-            cached = self._align_cache.get((tables_key, cols_key))
-            if cached is None:
-                dense, combos, cards, key_values = self._global_key_space(
-                    tables, query, engine
-                )
-                self._align_cache.put(
-                    (tables_key, cols_key),
-                    (dense, combos, cards, key_values),
-                    nbytes=sum(d.nbytes for d in dense)
-                    + combos.nbytes
-                    + sum(v.nbytes for v in key_values.values()),
-                )
-            else:
-                dense, combos, cards, key_values = cached
-            n_groups = max(len(combos), 1)
-            if not len(combos):
-                # no shard holds a row (views of no chunks): one padded
-                # group, which no row reaches and collect drops
-                combos = np.zeros(1, dtype=np.int64)
-        if not align_warm:
-            prefetch_missing()
+        (block_key, prefetch, dense, combos, cards, key_values, n_groups,
+         codes_key) = self._scan_preamble(
+            tables, unique_cols, query, engine, n_dev, first,
+            self._filter_inputs_missing(tables, query))
 
         codes_d = self._codes_block(codes_key, dense, n_groups, n_dev, first)
         if query.where_terms:
@@ -934,6 +910,76 @@ class MeshQueryExecutor:
                 merged, mode, query, tables, combos, cards, key_values,
                 measure_kinds,
             )
+
+    def _scan_preamble(self, tables, unique_cols, query, engine, n_dev, first,
+                       filter_missing=False):
+        """The start of :meth:`execute`'s and :meth:`execute_bundle`'s scan
+        of ``tables`` by ``query``'s group keys over the distinct measure
+        columns ``unique_cols``: the pressure eviction (``filter_missing``:
+        a filter input is missing), the missing columns' storage decode on
+        the pool, overlapping alignment when it is warm and the codes' pack
+        and upload when alignment is cold and needs the pool itself first,
+        and the key alignment.  Returns ``(block_key, prefetch, dense,
+        combos, cards, key_values, n_groups, codes_key)``."""
+        from bqueryd_tpu_torch.parallel import pipeline
+
+        dev_key = self._dev_key(first)
+        tables_key = tuple(_table_key(t) for t in tables)
+        cols_key = tuple(query.groupby_cols)
+        codes_key = _codes_key(tables_key, cols_key, n_dev, dev_key)
+
+        def block_key(col):
+            return (tables_key, "col", col, n_dev, dev_key)
+
+        missing_cols = [c for c in unique_cols
+                        if block_key(c) not in self._hbm_cache]
+        align_warm = (tables_key, cols_key) in self._align_cache
+        self._evict_if_cold(missing_cols, codes_key, filter_missing)
+        prefetch = {}
+
+        def prefetch_missing():
+            if pipeline.pipeline_threads() <= 1:
+                return
+            for col in missing_cols:
+                prefetch[col] = [f for t in tables for f in t.prefetch([col])]
+
+        if align_warm:
+            prefetch_missing()
+        with self._phase("align"), pipeline.stage("align"):
+            dense, combos, cards, key_values = self._aligned(
+                (tables_key, cols_key),
+                lambda: self._global_key_space(tables, query, engine))
+            n_groups = max(len(combos), 1)
+            if not len(combos):
+                # no shard holds a row (views of no chunks): one padded
+                # group, which no row reaches and collect drops
+                combos = np.zeros(1, dtype=np.int64)
+        if not align_warm:
+            prefetch_missing()
+        return (block_key, prefetch, dense, combos, cards, key_values,
+                n_groups, codes_key)
+
+    def _evict_if_cold(self, missing_cols, codes_key, more_missing=False):
+        """Shed device cache BEFORE a scan adds residency: when a measure
+        block, the codes or (``more_missing``) another input is missing.
+        A fully warm scan adds nothing and skips the memory sample."""
+        if missing_cols or codes_key not in self._codes_cache or more_missing:
+            self.workingset.evict_under_pressure()
+
+    def _aligned(self, key, build):
+        """The ``align`` segment's entry under ``key``, else ``build()``'s,
+        put there: ``(dense, combos, ..., key_values)``, dense codes per
+        shard first, the combos second and the key values last."""
+        entry = self._align_cache.get(key)
+        if entry is None:
+            entry = build()
+            dense, combos, key_values = entry[0], entry[1], entry[-1]
+            self._align_cache.put(
+                key, entry,
+                nbytes=sum(d.nbytes for d in dense) + combos.nbytes
+                + sum(np.asarray(v).nbytes for v in key_values.values()),
+            )
+        return entry
 
     def _codes_block(self, codes_key, dense, n_groups, n_dev, first):
         """The packed global codes ``dense`` on the devices (rows ``[first,
@@ -1130,23 +1176,8 @@ class MeshQueryExecutor:
         keys = {}
         for col, codes_g in zip(query.groupby_cols, key_codes):
             keys[col] = key_values[col][np.asarray(codes_g, dtype=np.int64)]
-        aggs = []
-        for in_col, part in zip(query.in_cols, partial_table["aggs"]):
-            stored = _stored_dtype(tables, in_col)
-            selected = {}
-            for k, v in part.items():
-                v = v[present]
-                # min/max computed on a narrowed wire dtype go back to the
-                # column's stored dtype
-                if (
-                    k in ("min", "max")
-                    and stored is not None
-                    and v.dtype != stored
-                    and stored.kind in "iu"
-                ):
-                    v = v.astype(stored)
-                selected[k] = v
-            aggs.append(selected)
+        aggs = [_present_parts(part, present, _stored_dtype(tables, in_col))
+                for in_col, part in zip(query.in_cols, partial_table["aggs"])]
         return ResultPayload.partials(
             key_cols=query.groupby_cols,
             keys=keys,
@@ -1156,7 +1187,6 @@ class MeshQueryExecutor:
             out_cols=query.out_cols,
             value_kinds=list(measure_kinds),
         )
-
 
     # -- shared-scan bundles -------------------------------------------------
     def execute_bundle(self, tables, queries, strategy=None):
@@ -1218,54 +1248,12 @@ class MeshQueryExecutor:
         engine = self._engine()
         mode = devicemerge.resolve_mode()
         n_dev, first = self._layout(mode)
-        dev_key = self._dev_key(first)
-        tables_key = tuple(_table_key(t) for t in tables)
-        cols_key = tuple(gcols)
-        # the solo queries' codes entry
-        codes_key = _codes_key(tables_key, cols_key, n_dev, dev_key)
-
-        def block_key(col):
-            return (tables_key, "col", col, n_dev, dev_key)
-
-        missing_cols = [c for c in union_cols
-                        if block_key(c) not in self._hbm_cache]
-        align_warm = (tables_key, cols_key) in self._align_cache
-        if missing_cols or codes_key not in self._codes_cache:
-            self.workingset.evict_under_pressure()
-        # every member's missing measure column decodes on the pool up
-        # front, so that the shared pass never waits on a member's decode
-        prefetch = {}
-
-        def prefetch_missing():
-            if pipeline.pipeline_threads() <= 1:
-                return
-            for col in missing_cols:
-                prefetch[col] = [f for t in tables for f in t.prefetch([col])]
-
-        if align_warm:
-            prefetch_missing()
-        with self._phase("align"), pipeline.stage("align"):
-            cached = self._align_cache.get((tables_key, cols_key))
-            if cached is None:
-                dense, combos, cards, key_values = self._global_key_space(
-                    tables, queries[0], engine
-                )
-                self._align_cache.put(
-                    (tables_key, cols_key),
-                    (dense, combos, cards, key_values),
-                    nbytes=sum(d.nbytes for d in dense)
-                    + combos.nbytes
-                    + sum(v.nbytes for v in key_values.values()),
-                )
-            else:
-                dense, combos, cards, key_values = cached
-            n_groups = max(len(combos), 1)
-            if not len(combos):
-                # no shard holds a row: one padded group, which no row
-                # reaches and collect drops
-                combos = np.zeros(1, dtype=np.int64)
-        if not align_warm:
-            prefetch_missing()
+        # the solo queries' align and codes entries; every member's missing
+        # measure column decodes on the pool up front, so that the shared
+        # pass never waits on a member's decode
+        (block_key, prefetch, dense, combos, cards, key_values, n_groups,
+         codes_key) = self._scan_preamble(
+            tables, union_cols, queries[0], engine, n_dev, first)
 
         codes_d = self._codes_block(codes_key, dense, n_groups, n_dev, first)
         width = int(codes_d.shape[1])
@@ -1528,25 +1516,14 @@ class MeshQueryExecutor:
             return (tables_key, "dagcol", col, derive_sig, n_dev, dev_key)
 
         codes_key = (tables_key, "dagcodes", derive_sig, n_dev, dev_key)
-        if (any(block_key(c) not in self._hbm_cache for c in unique_cols)
-                or codes_key not in self._codes_cache):
-            self.workingset.evict_under_pressure()
+        self._evict_if_cold(
+            [c for c in unique_cols if block_key(c) not in self._hbm_cache],
+            codes_key)
 
         with self._phase("align"), pipeline.stage("align"):
-            akey = (tables_key, "dagalign", derive_sig)
-            cached = self._align_cache.get(akey)
-            if cached is None:
-                dense, combo_cols, key_values = self._dag_key_space(
-                    get_derived(), dag
-                )
-                self._align_cache.put(
-                    akey, (dense, combo_cols, key_values),
-                    nbytes=sum(d.nbytes for d in dense)
-                    + combo_cols.nbytes
-                    + sum(np.asarray(v).nbytes for v in key_values.values()),
-                )
-            else:
-                dense, combo_cols, key_values = cached
+            dense, combo_cols, key_values = self._aligned(
+                (tables_key, "dagalign", derive_sig),
+                lambda: self._dag_key_space(get_derived(), dag))
             n_groups = max(len(combo_cols), 1)
 
         # the sketch grids' budget BEFORE any upload: one dense int64
@@ -1648,16 +1625,9 @@ class MeshQueryExecutor:
                 return stored
 
             for pos, i in enumerate(classic_idx):
-                stored = stored_int(dag.aggs[i][0])
-                sel = {}
-                for kname, v in merged["classic"]["aggs"][pos].items():
-                    v = v[present]
-                    # min/max on a narrowed wire dtype: back to the stored
-                    if (kname in ("min", "max") and stored is not None
-                            and v.dtype != stored):
-                        v = v.astype(stored)
-                    sel[kname] = v
-                aggs_out[i] = sel
+                aggs_out[i] = _present_parts(merged["classic"]["aggs"][pos],
+                                             present,
+                                             stored_int(dag.aggs[i][0]))
             for pos, i in enumerate(topk_idx):
                 top, cnt = merged["topk"][pos]
                 top, cnt = top[present_idx], cnt[present_idx]
@@ -1708,22 +1678,7 @@ class MeshQueryExecutor:
                        for ci in range(n_cols)]
         shard_values = [[np.asarray(d[1][ci][1]) for d in derived]
                         for ci in range(n_cols)]
-        cards, global_values = [], []
-        pos_maps = [[] for _ in range(n_cols)]
-        for ci in range(n_cols):
-            gvals = np.unique(np.concatenate(shard_values[ci]))
-            # null VALUES (NaN/NaT) leave the global dictionary: their rows
-            # already carry code -1, as in the groupby alignment
-            if gvals.dtype.kind == "f":
-                gvals = gvals[~np.isnan(gvals)]
-            elif gvals.dtype.kind == "M":
-                gvals = gvals[~np.isnat(gvals)]
-            cards.append(max(len(gvals), 1))
-            global_values.append(gvals)
-            for si in range(n_shards):
-                pos_maps[ci].append(
-                    np.searchsorted(gvals, shard_values[ci][si])
-                )
+        cards, global_values, pos_maps = _global_dictionaries(shard_values)
 
         def mapped(si, ci):
             codes = shard_codes[ci][si]
@@ -1751,11 +1706,7 @@ class MeshQueryExecutor:
             )[:, None]
             return dense, combo_cols, key_values
 
-        if ops.total_cardinality(cards) >= ops.MAX_COMPOSITE:
-            raise ops.CompositeOverflow(
-                "composite group-key space "
-                f"{'x'.join(str(int(c)) for c in cards)} exceeds int64"
-            )
+        _check_composite(cards)
 
         def shard_composites(si):
             packed = np.asarray(ops.pack_codes(
@@ -1765,21 +1716,8 @@ class MeshQueryExecutor:
             inv, uniq = ops.factorize(packed)
             return np.asarray(inv), np.asarray(uniq, dtype=np.int64)
 
-        composites = self._map_shards(shard_composites, range(n_shards))
-        observed = [u[u >= 0] for _inv, u in composites]
-        observed = [o for o in observed if len(o)]
-        combos = (
-            np.unique(np.concatenate(observed))
-            if observed
-            else np.empty(0, dtype=np.int64)
-        )
-        dense = []
-        for inv, uniq in composites:
-            lut = np.searchsorted(
-                combos, np.clip(uniq, 0, None)
-            ).astype(np.int64)
-            lut[uniq < 0] = -1
-            dense.append(lut[inv])
+        combos, dense = _dense_combos(
+            self._map_shards(shard_composites, range(n_shards)))
         combo_cols = (
             np.stack(ops.unpack_codes(combos, cards), axis=1)
             if len(combos)

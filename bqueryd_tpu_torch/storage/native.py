@@ -7,7 +7,8 @@ groupby kernels of the host route (:func:`groupby_i64`,
 decoder of the bcolz v1 import (:func:`blosc_decode`).  The library is
 loaded from ``BQUERYD_TPU_NATIVE_LIB`` when that names one, else built from
 the repository's ``native/`` sources into ``native/build/libtpucolz.so`` on
-first use; it stays optional: every entry point has a pure NumPy/zlib
+first use, once for the tree however many processes ask (:func:`_build`);
+it stays optional: every entry point has a pure NumPy/zlib
 fallback in :mod:`bqueryd_tpu_torch.storage.codec`.
 """
 
@@ -26,43 +27,73 @@ _has_groupby = False
 _has_groupby_minmax = False
 _has_blosc = False
 
+_NATIVE_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "native"))
+_LIB_NAME = "libtpucolz.so"
+#: what ``native/build.sh`` reads, copied for each private build
+_SOURCES = ("build.sh", "CMakeLists.txt", "tpucolz.cpp")
+
 
 def _candidate_paths():
     """``BQUERYD_TPU_NATIVE_LIB`` first when set, then the build tree."""
     env = os.environ.get("BQUERYD_TPU_NATIVE_LIB")
     if env:
         yield env
-    here = os.path.dirname(os.path.abspath(__file__))
-    repo = os.path.dirname(os.path.dirname(here))
-    yield os.path.join(repo, "native", "build", "libtpucolz.so")
+    yield os.path.join(_NATIVE_DIR, "build", _LIB_NAME)
 
 
-def _try_build():
-    """One-shot build of the native lib from ``native/build.sh``."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    repo = os.path.dirname(os.path.dirname(here))
-    script = os.path.join(repo, "native", "build.sh")
-    if not os.path.exists(script):
-        return
+def _build(native_dir=_NATIVE_DIR):
+    """Build ``native_dir/build/libtpucolz.so`` once for the tree.
+
+    Under an exclusive ``flock`` on ``build/.lock``, a process that finds
+    no library copies the sources into a private directory under
+    ``build/``, runs that copy's ``build.sh`` and moves the result into
+    place with ``os.replace``; the processes that lose the race wait on
+    the lock and find the published file.  Returns whether this call
+    compiled it (False also when the build failed: no compiler, a
+    read-only tree)."""
+    import fcntl
+    import shutil
     import subprocess
+    import tempfile
 
+    if not os.path.exists(os.path.join(native_dir, "build.sh")):
+        return False
+    out_dir = os.path.join(native_dir, "build")
+    target = os.path.join(out_dir, _LIB_NAME)
     try:
-        subprocess.run(
-            ["/bin/sh", script], capture_output=True, timeout=120, check=True
-        )
-    except Exception:
-        pass
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, ".lock"), "a") as lock:
+            # released when the file closes
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(target):
+                return False
+            private = tempfile.mkdtemp(prefix="private-", dir=out_dir)
+            try:
+                for name in _SOURCES:
+                    shutil.copy(os.path.join(native_dir, name), private)
+                subprocess.run(
+                    ["/bin/sh", os.path.join(private, "build.sh")],
+                    capture_output=True, timeout=120, check=True,
+                )
+                os.replace(os.path.join(private, "build", _LIB_NAME), target)
+            finally:
+                shutil.rmtree(private, ignore_errors=True)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def get_lib():
-    """Load (and memoize) the native library; returns None if unavailable."""
+    """Load (and memoize) the native library; returns None if unavailable.
+    With no library on disk the locked :func:`_build` runs first, so a
+    miss is saved only once that build left nothing that loads."""
     global _lib, _searched
     if _lib is not None or _searched:
         return _lib
-    _searched = True
     paths = list(_candidate_paths())
     if not any(os.path.exists(p) for p in paths):
-        _try_build()
+        _build()
     for path in paths:
         if not os.path.exists(path):
             continue
@@ -113,6 +144,7 @@ def get_lib():
         _bind_blosc(lib)
         _lib = lib
         break
+    _searched = True
     return _lib
 
 

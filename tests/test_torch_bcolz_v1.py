@@ -28,6 +28,7 @@ from bqueryd_tpu_torch.storage import bcolz_v1 as port_bcolz
 from bqueryd_tpu_torch.storage import native as port_native
 from bqueryd_tpu_torch.storage.codec import _bitunshuffle
 from bqueryd_tpu_torch.storage.ctable import ctable as port_ctable
+from tests.torch_fixtures import native_libs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -114,6 +115,7 @@ def _chunks():
     }
 
 
+@pytest.mark.usefixtures("native_libs")
 @pytest.mark.parametrize("kind", list(_chunks()))
 def test_decoders_match_the_jax_package_byte_for_byte(kind):
     chunk = _chunks()[kind]

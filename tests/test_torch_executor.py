@@ -537,6 +537,54 @@ def test_new_filter_reads_resident_inputs_only(shards, jax_mesh_executor,
         _compare(got, expected(frames, second), gcols, aggs)
 
 
+def test_entry_points_share_the_scan_preamble(shards, jax_mesh_executor):
+    """One shard group as a solo query, a 2-member bundle and a DAG over
+    the same keys: the solo query adds one ``align`` and one ``codes``
+    entry, the bundle finds both and adds none, and the DAG keeps its own
+    keys (its derivations, its alignment and its codes).  Each answer is
+    the JAX package's."""
+    from bqueryd_tpu.plan import dag as jax_dag
+    from bqueryd_tpu_torch.plan import dag as dagmod
+
+    root, _frames, names = shards
+    tables = [ctable(str(root / n), mode="r") for n in names]
+    jax_tables = [jax_ctable(str(root / n), mode="r") for n in names]
+    executor = MeshQueryExecutor(device="cpu")
+    gcols = ["k_str", "k_int"]
+    members = [(gcols, [["v_small", "sum", "s"]], []),
+               (gcols, [["v_big", "max", "hi"], ["v_float", "mean", "m"]],
+                [["sel", ">", 0.5]])]
+
+    def entries():
+        stats = executor.workingset.stats()
+        return stats["align"]["entries"], stats["codes"]["entries"]
+
+    def same(got, want, aggs):
+        _compare(_payload_frame(got), _payload_frame(want), gcols, aggs)
+
+    assert entries() == (0, 0)
+    solo = executor.execute(tables, GroupByQuery(*members[0]))
+    assert entries() == (1, 1)
+    same(solo, jax_mesh_executor.execute(jax_tables, JaxQuery(*members[0])),
+         members[0][1])
+
+    bundle = executor.execute_bundle(
+        tables, [GroupByQuery(*m) for m in members])
+    assert entries() == (1, 1)
+    want = jax_mesh_executor.execute_bundle(
+        jax_tables, [JaxQuery(*m) for m in members])
+    for got, w, (_g, aggs, _w) in zip(bundle, want, members):
+        same(got, w, aggs)
+
+    spec = {"table": ["x"], "groupby": gcols,
+            "aggs": [["v_small", "sum", "s"]]}
+    dag = executor.execute_dag(tables, dagmod.compile_query(spec))
+    # one derivation per shard and one alignment; one codes entry
+    assert entries() == (1 + len(tables) + 1, 2)
+    same(dag, jax_mesh_executor.execute_dag(
+        jax_tables, jax_dag.compile_query(spec)), spec["aggs"])
+
+
 def test_worker_routes_by_query_shape(port):
     executor, tables = port
     engine = QueryEngine(device="cpu")

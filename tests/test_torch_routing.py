@@ -33,6 +33,10 @@ from bqueryd_tpu_torch.utils import devicehealth
 from test_torch_operators import _same_payload, _shape_specs
 from test_torch_operators import shards as op_shards  # noqa: F401
 from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
+from tests.torch_fixtures import native_libs  # noqa: F401
+
+#: both packages' host routes on the native kernels (a test turns them off)
+pytestmark = pytest.mark.usefixtures("native_libs")
 
 RTOL, ATOL = 2e-5, 1e-6
 CPU = "cpu"

@@ -12,6 +12,7 @@ import glob
 import json
 import logging
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -27,6 +28,7 @@ from bqueryd_tpu_torch.messages import CalcMessage
 from bqueryd_tpu_torch.storage.ctable import ctable
 from tests.conftest import wait_until
 from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
+from tests.torch_fixtures import native_libs  # noqa: F401
 from test_ingest import _frame
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -625,6 +627,7 @@ def test_native_lib_env_is_the_first_candidate(monkeypatch, tmp_path):
     assert list(native._candidate_paths())[0] == paths[1]
 
 
+@pytest.mark.usefixtures("native_libs")
 def test_native_lib_env_loads_the_named_library(monkeypatch, tmp_path):
     """A process whose ``BQUERYD_TPU_NATIVE_LIB`` names the built library
     loads that file (by its path) and decodes with it."""
@@ -650,6 +653,48 @@ def test_native_lib_env_loads_the_named_library(monkeypatch, tmp_path):
                  BQUERYD_TPU_NATIVE_LIB=str(copy)),
     ).stdout
     assert json.loads(out.strip().splitlines()[-1]) == str(copy)
+
+
+def test_native_build_runs_once_for_racing_processes(tmp_path):
+    """Six processes that find no library start the build at once: one
+    compiles in its private directory and publishes the file, the other
+    five wait on the lock and load that same file, and no private
+    directory is left behind."""
+    src = tmp_path / "native"
+    shutil.copytree(os.path.join(REPO, "native"), src,
+                    ignore=shutil.ignore_patterns("build"))
+    go = tmp_path / "go"
+    code = (
+        "import json, os, sys, time\n"
+        "from bqueryd_tpu_torch.storage import native\n"
+        "native_dir, go = sys.argv[1], sys.argv[2]\n"
+        "while not os.path.exists(go):\n"
+        "    time.sleep(0.005)\n"
+        "compiled = native._build(native_dir)\n"
+        "path = os.path.join(native_dir, 'build', 'libtpucolz.so')\n"
+        "os.environ['BQUERYD_TPU_NATIVE_LIB'] = path\n"
+        "lib = native.get_lib()\n"
+        "print(json.dumps([compiled, os.stat(lib._name).st_ino,\n"
+        "                  lib.tpc_max_csize(64) > 64]))\n"
+    )
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(src), str(go)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO)) for _ in range(6)]
+    try:
+        go.touch()
+        results = []
+        for proc in procs:
+            out, err = proc.communicate(timeout=150)
+            assert proc.returncode == 0, err
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+    assert sum(compiled for compiled, _ino, _ok in results) == 1
+    assert len({ino for _compiled, ino, _ok in results}) == 1
+    assert all(ok for _compiled, _ino, ok in results)
+    assert sorted(os.listdir(src / "build")) == [".lock", "libtpucolz.so"]
 
 
 def test_hicard_group_ceiling_reads_the_reference_name(monkeypatch):

@@ -3,6 +3,7 @@ module that uses them (``tests/conftest.py`` resets only the JAX
 package's process-global state), and the swap that runs the reference's
 cluster cases on port nodes (:func:`on_port`)."""
 
+import os
 import sys
 
 import pandas as pd
@@ -32,6 +33,23 @@ def disarmed_port_chaos():
     chaos._reset_for_tests()
     yield
     chaos._reset_for_tests()
+
+
+@pytest.fixture
+def native_libs(monkeypatch):
+    """The port's native library built (its locked build, once for the
+    tree) and loaded.  Should the JAX package's loader have saved a miss
+    while the file now exists (its unlocked build lost a race to another
+    process's), it is set to look again, so that the reference loads the
+    file the port built."""
+    from bqueryd_tpu.storage import native as jax_native
+    from bqueryd_tpu_torch.storage import native
+
+    native.get_lib()
+    if (jax_native._lib is None and jax_native._searched
+            and any(os.path.exists(p)
+                    for p in jax_native._candidate_paths())):
+        monkeypatch.setattr(jax_native, "_searched", False)
 
 
 class CPUWorkerNode(port_worker.WorkerNode):
