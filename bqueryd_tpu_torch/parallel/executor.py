@@ -62,7 +62,8 @@ shard; so does the kill switch.
 A compatible bundle of queries (the same shards and group keys, any
 measures and filters) takes :meth:`MeshQueryExecutor.execute_bundle`:
 one alignment, one unmasked codes upload, one upload per distinct measure,
-the members' masks stacked on each device, one member-per-launch
+the members' masks built from the same resident filter columns as a solo
+query's and stacked on each device, one member-per-launch
 ``bundle_partial_tables`` call per device, every member merged in one
 pass and one fetch per device for every member.
 
@@ -91,7 +92,9 @@ it fetched; :attr:`MeshQueryExecutor.h2d_bytes` and
 an NVTX range (``utils.tracing.trace_span``).
 """
 
+import collections
 import contextlib
+import functools
 import os
 import threading
 import time
@@ -444,6 +447,10 @@ class MeshQueryExecutor:
         #: (:func:`_fetch_many`) while the observability hot path was on
         self.h2d_bytes = 0
         self.d2h_bytes = 0
+        #: filter columns the masks read, by ``(path, source)``: path
+        #: "solo" or "bundle", source "resident" (a ``blocks`` hit) or
+        #: "upload" (decoded and uploaded, or compared on the host)
+        self.mask_columns = collections.Counter()
         #   align:  (tables_key, groupby_cols) -> (dense codes per shard,
         #           combos, cards, key_values), host
         #   codes:  unmasked packed group codes, [n_dev, width] _Rows (a
@@ -1015,19 +1022,24 @@ class MeshQueryExecutor:
             return None
         return (_table_key(table), "where", column, str(self.device))
 
-    def _where_column(self, table, column):
+    def _where_column(self, table, column, path):
         """:func:`ops.build_mask`'s column source: the shard's column in its
         stored dtype on the first device, kept in the ``blocks`` segment
-        per shard, so that every filter on it compares against the same
-        resident tensor."""
+        per shard, so that every filter on it, solo or bundled, compares
+        against the same resident tensor.  Counted in ``mask_columns`` under
+        ``(path, "resident")`` when the entry was there, else ``(path,
+        "upload")`` (decoded and uploaded, or compared on the host)."""
         from bqueryd_tpu_torch.ops.predicates import device_column
 
         key = self._where_key(table, column)
         values = None if key is None else self._hbm_cache.get(key)
-        if values is None:
-            values = device_column(table, column, self.device)
-            if key is not None:
-                self._hbm_cache.put(key, values)
+        if values is not None:
+            self.mask_columns[path, "resident"] += 1
+            return values
+        self.mask_columns[path, "upload"] += 1
+        values = device_column(table, column, self.device)
+        if key is not None:
+            self._hbm_cache.put(key, values)
         return values
 
     def _basket_key(self, table, column):
@@ -1059,33 +1071,46 @@ class MeshQueryExecutor:
                 return True
         return False
 
-    def _fold_filter(self, codes_d, tables, query, dense, engine, n_dev,
-                     first):
-        """This query's codes: each shard's row filter built on the first
-        device from its resident filter columns, widened to whole baskets
-        there under ``expand_filter_column``, laid out as the pack is, and
-        folded into each device's row of the unmasked codes (filtered-out
-        rows become -1) as a new tensor: the cached codes stay unmasked.
-        No host sync."""
+    def _mask_row(self, tables, dense, query, engine, n_dev, width, path):
+        """One query's row filter laid out as the pack is: a ``[n_dev,
+        width]`` bool tensor on the first device, each shard's mask built
+        from its resident filter columns (:meth:`_where_column`, whose reads
+        count under ``path``, "solo" or "bundle") and widened to whole
+        baskets there under ``expand_filter_column``; padding is False.
+        :meth:`_fold_filter` folds it into the codes, :meth:`execute_bundle`
+        stacks one per filtered member.  No host sync."""
         import torch
 
         from bqueryd_tpu_torch import ops
 
+        keep = torch.zeros((n_dev, width), dtype=torch.bool,
+                           device=self.device)
+        flat = keep.view(-1)
+        column = functools.partial(self._where_column, path=path)
+        off = 0
+        for t, d in zip(tables, dense):
+            mask = ops.build_mask(t, query.where_terms, self.device,
+                                  column_tensor=column)
+            if query.expand_filter_column:
+                bcodes, n_baskets = self._basket_codes(
+                    engine, t, query.expand_filter_column)
+                mask = ops.expand_mask_by_group(
+                    bcodes, mask, n_groups=n_baskets, device=self.device)
+            flat[off:off + len(d)] = mask
+            off += len(d)
+        return keep
+
+    def _fold_filter(self, codes_d, tables, query, dense, engine, n_dev,
+                     first):
+        """This query's codes: its row filter (:meth:`_mask_row`) folded
+        into each device's row of the unmasked codes (filtered-out rows
+        become -1) as a new tensor: the cached codes stay unmasked.  No
+        host sync."""
+        import torch
+
         with self._phase("mask"):
-            keep = torch.zeros((n_dev, int(codes_d.shape[1])),
-                               dtype=torch.bool, device=self.device)
-            flat = keep.view(-1)
-            off = 0
-            for t, d in zip(tables, dense):
-                mask = ops.build_mask(t, query.where_terms, self.device,
-                                      column_tensor=self._where_column)
-                if query.expand_filter_column:
-                    bcodes, n_baskets = self._basket_codes(
-                        engine, t, query.expand_filter_column)
-                    mask = ops.expand_mask_by_group(
-                        bcodes, mask, n_groups=n_baskets, device=self.device)
-                flat[off:off + len(d)] = mask
-                off += len(d)
+            keep = self._mask_row(tables, dense, query, engine, n_dev,
+                                  int(codes_d.shape[1]), "solo")
             return _Rows(
                 torch.where(keep[first + d].to(row.device), row, -1)
                 for d, row in enumerate(codes_d)
@@ -1196,9 +1221,10 @@ class MeshQueryExecutor:
         query's ``align`` entry), one UNMASKED codes upload (the entry of
         the unfiltered solo query, which it shares and warms), one upload
         per distinct measure column of the whole bundle, each filtered
-        member's mask built on the device and stacked into one ``[n_masks,
-        width]`` tensor, ONE :func:`ops.bundle_partial_tables` call and ONE
-        packed fetch of every member's leaves.  Returns one
+        member's mask built on the device from the shards' resident filter
+        columns (:meth:`_mask_row`, the solo fold's) and stacked into one
+        ``[n_masks, width]`` tensor, ONE :func:`ops.bundle_partial_tables`
+        call and ONE packed fetch of every member's leaves.  Returns one
         :class:`ResultPayload` per query, in input order.
 
         Whole shards are scanned and each member's filter applies by mask
@@ -1250,32 +1276,28 @@ class MeshQueryExecutor:
         n_dev, first = self._layout(mode)
         # the solo queries' align and codes entries; every member's missing
         # measure column decodes on the pool up front, so that the shared
-        # pass never waits on a member's decode
+        # pass never waits on a member's decode; a member's missing filter
+        # column sheds device cache first, as a solo query's does
         (block_key, prefetch, dense, combos, cards, key_values, n_groups,
          codes_key) = self._scan_preamble(
-            tables, union_cols, queries[0], engine, n_dev, first)
+            tables, union_cols, queries[0], engine, n_dev, first,
+            any(self._filter_inputs_missing(tables, q) for q in queries))
 
         codes_d = self._codes_block(codes_key, dense, n_groups, n_dev, first)
         width = int(codes_d.shape[1])
 
         # one stacked mask row per member that filters, built on the first
-        # device over the whole pack, each device's row of the stack moved
-        # to it; a member without a filter indexes None and runs with
-        # mask=None, its solo form
+        # device over the whole pack from the resident filter columns, each
+        # device's row of the stack moved to it; a member without a filter
+        # indexes None and runs with mask=None, its solo form
         mask_rows, mask_idx_of = [], {}
         with self._phase("mask"), pipeline.stage("mask"):
             for qi, query in enumerate(queries):
                 if not query.where_terms:
                     continue
-                row = torch.zeros(n_dev * width, dtype=torch.bool,
-                                  device=self.device)
-                off = 0
-                for t, d in zip(tables, dense):
-                    m = ops.build_mask(t, query.where_terms, self.device)
-                    row[off:off + len(d)] = True if m is None else m
-                    off += len(d)
                 mask_idx_of[qi] = len(mask_rows)
-                mask_rows.append(row.view(n_dev, width))
+                mask_rows.append(self._mask_row(
+                    tables, dense, query, engine, n_dev, width, "bundle"))
             masks_d = None
             if mask_rows:
                 stacked = torch.stack(mask_rows)

@@ -1203,6 +1203,18 @@ class WorkerNode(WorkerBase):
             "(monotonic)",
             fn=lambda: self.executor.workingset.pressure_evictions,
         )
+        for path in ("solo", "bundle"):
+            for source in ("resident", "upload"):
+                self.metrics.gauge(
+                    "bqueryd_tpu_mask_columns_total",
+                    "shard filter columns the executor's masks read, by "
+                    "path (solo|bundle) and source (resident: a working-set "
+                    "hit; upload: decoded and uploaded, or compared on the "
+                    "host) (monotonic)",
+                    labels={"path": path, "source": source},
+                    fn=(lambda k=(path, source):
+                        self.executor.mask_columns[k]),
+                )
 
         def result_stat(field):
             cache = self._result_cache

@@ -14,6 +14,10 @@ The same NumPy inputs go through the port and the JAX package:
   ``swarm_df`` shards, against the JAX ``execute_bundle`` on the 8 virtual
   CPU devices and against the port's solo ``execute`` per member,
   including filters that exclude whole shards and chunks;
+* the members' masks over the executor tests' fuzz shards: read from the
+  filter columns a solo query left resident (nothing misses, nothing is
+  uploaded), read afresh after an eviction, the pressure eviction before a
+  scan that adds one, and ``bqueryd_tpu_mask_columns_total`` on a worker;
 * the worker: a port worker answers a bundle CalcMessage built by the JAX
   ``bundle_fragment`` as the JAX worker does;
 * the cluster cases of ``test_concurrency.py`` on a port cluster (port
@@ -34,6 +38,7 @@ from contextlib import contextmanager
 
 import jax
 import numpy as np
+import pandas as pd
 import pytest
 
 import bqueryd_tpu.ops as jops
@@ -53,7 +58,10 @@ from bqueryd_tpu_torch.parallel.executor import MeshQueryExecutor
 from bqueryd_tpu_torch.plan import bundle as bundlemod
 from bqueryd_tpu_torch.plan import plan_groupby
 from bqueryd_tpu_torch.storage.ctable import ctable
+from bqueryd_tpu_torch.utils.tracing import PhaseTimer
 from test_concurrency import swarm_df
+from test_differential_fuzz import _compare, _dataset, _expected
+from test_torch_executor import RESIDENT_FILTERS, _payload_frame, _write_shards
 from test_torch_groupby import _inputs, assert_trees_match
 from tests.conftest import wait_until
 from tests.torch_fixtures import fresh_port_calibration  # noqa: F401
@@ -347,11 +355,13 @@ def test_execute_bundle_shares_scan_work(sharded):
     stats = ex.workingset.stats()
     assert stats["align"]["misses"] == 1
     assert stats["codes"]["misses"] == 1
-    assert stats["blocks"]["misses"] == 1
+    # the measure block and each shard's filter column ``w``
+    assert stats["blocks"]["misses"] == 1 + len(tables)
     before = stats["codes"]["hits"]
     ex.execute_bundle(tables, queries[:2])
     stats = ex.workingset.stats()
     assert stats["align"]["misses"] == 1
+    assert stats["blocks"]["misses"] == 1 + len(tables)
     assert stats["codes"]["hits"] > before
     ex.execute(tables, GroupByQuery(["k"], [["v", "sum", "a"]]))
     assert ex.workingset.stats()["codes"]["misses"] == 1
@@ -387,6 +397,171 @@ def test_execute_bundle_rejects_with_value_error(tmp_path, sharded, bad):
 
 def test_execute_bundle_of_nothing():
     assert MeshQueryExecutor(device="cpu").execute_bundle([], []) == []
+
+
+# -- a bundle's masks from the resident filter columns -----------------------
+
+#: the ``RESIDENT_FILTERS`` cases a bundle can carry (bundles refuse basket
+#: expansion and scan whole shards, never chunk views), each with two more
+#: filters new to the warm executor on the case's column; "evicted" drops
+#: the resident filter columns before the bundle
+BUNDLE_RESIDENT = {
+    "float32": ([["v_float", "<=", 0.0]], [["v_float", ">", 40.0]]),
+    "narrowed_int": ([["v_small", "<=", -500]], [["v_small", "!=", 7]]),
+    "datetime": ([["t", ">", pd.Timestamp("2015-06-01")]],
+                 [["t", ">", pd.Timestamp("2016-01-01")]]),
+    "dict_eq": ([["k_str", "==", "c"]], [["k_str", "==", "a"]]),
+    "dict_in": ([["k_str", "in", ["b", "c"]]], [["k_str", "in", ["a", "b"]]]),
+    "uint32": ([["v_u32", ">", 3 * 2**30]], [["v_u32", "<=", 2**31]]),
+    "two_devices": ([["v_float", ">", -3.25]], [["v_float", ">", 40.0]]),
+    "evicted": ([["v_float", "<=", 0.0]], [["v_float", ">", 40.0]]),
+}
+FUZZ_GCOLS = ["k_str", "k_int"]
+FUZZ_AGGS = [["v_small", "sum", "s"], ["v_float", "mean", "m"],
+             ["v_big", "max", "hi"]]
+
+
+@pytest.fixture(scope="module")
+def fuzz_shards(tmp_path_factory):
+    """The executor tests' fuzz dataset, written by the JAX package's
+    ctable."""
+    root = tmp_path_factory.mktemp("bundle_resident")
+    frames = _dataset(20240601)
+    return root, frames, _write_shards(root, frames)
+
+
+def _fuzz_tables(root, names):
+    return [ctable(str(root / n), mode="r") for n in names]
+
+
+@pytest.mark.parametrize("case", sorted(BUNDLE_RESIDENT))
+def test_bundle_masks_read_resident_inputs_only(fuzz_shards, case):
+    """A warm executor runs a bundle of three members, each with a filter
+    new to it, from the working set alone: no ``align``, ``codes`` or
+    ``blocks`` miss and nothing uploaded; each member equals its solo
+    answer (ints bit for bit) and pandas.  With the filter columns
+    evicted, the bundle reads each shard's column afresh, once."""
+    root, frames, names = fuzz_shards
+    warm_case = "float32" if case == "evicted" else case
+    warm, new, _expand = RESIDENT_FILTERS[warm_case]
+    wheres = [new, *BUNDLE_RESIDENT[case]]
+    member_aggs = [FUZZ_AGGS, FUZZ_AGGS[:1], FUZZ_AGGS[1:]]
+    tables = _fuzz_tables(root, names)
+    executor = MeshQueryExecutor(
+        devices=["cpu"] * (2 if case == "two_devices" else 1))
+    executor.timer = PhaseTimer()
+    executor.execute(tables, GroupByQuery(FUZZ_GCOLS, FUZZ_AGGS, warm))
+    assert executor.h2d_bytes > 0
+    column = warm[0][0]
+    if case == "evicted":
+        for t in tables:
+            executor._hbm_cache.delete(executor._where_key(t, column))
+    before, uploaded = executor.workingset.stats(), executor.h2d_bytes
+    got = executor.execute_bundle(tables, [
+        GroupByQuery(FUZZ_GCOLS, aggs, where)
+        for aggs, where in zip(member_aggs, wheres)])
+    after = executor.workingset.stats()
+    for seg in ("align", "codes", "blocks"):
+        assert after[seg]["hits"] > before[seg]["hits"], seg
+    assert after["align"]["misses"] == before["align"]["misses"]
+    assert after["codes"]["misses"] == before["codes"]["misses"]
+    if case == "evicted":
+        # the first member reads each shard's column afresh, the others
+        # find it
+        assert after["blocks"]["misses"] == (
+            before["blocks"]["misses"] + len(tables))
+        assert executor.h2d_bytes > uploaded
+        assert executor.mask_columns["bundle", "upload"] == len(tables)
+        assert executor.mask_columns["bundle", "resident"] == (
+            2 * len(tables))
+    else:
+        assert after["blocks"]["misses"] == before["blocks"]["misses"]
+        assert executor.h2d_bytes == uploaded
+    for payload, aggs, where in zip(got, member_aggs, wheres):
+        frame = _payload_frame(payload)
+        _compare(frame, _expected(frames, FUZZ_GCOLS, aggs, where),
+                 FUZZ_GCOLS, aggs)
+        solo = executor.execute(tables, GroupByQuery(FUZZ_GCOLS, aggs, where))
+        _compare(frame, _payload_frame(solo), FUZZ_GCOLS, aggs)
+
+
+def test_bundle_missing_filter_column_sheds_cache_first(fuzz_shards,
+                                                        monkeypatch):
+    """A bundle whose only missing input is a member's filter column runs
+    the pressure eviction before its scan adds the column; a fully warm
+    bundle skips it."""
+    root, _frames, names = fuzz_shards
+    tables = _fuzz_tables(root, names)
+    executor = MeshQueryExecutor(device="cpu")
+    executor.execute(tables, GroupByQuery(
+        FUZZ_GCOLS, FUZZ_AGGS, [["v_float", ">", 12.5]]))
+    missing = [executor._where_key(t, "sel") for t in tables]
+    calls = []
+
+    def count(*_a, **_k):
+        calls.append(any(k not in executor._hbm_cache for k in missing))
+        return 0
+
+    monkeypatch.setattr(executor.workingset, "evict_under_pressure", count)
+    members = [GroupByQuery(FUZZ_GCOLS, FUZZ_AGGS[:1], [["sel", ">", 0.5]]),
+               GroupByQuery(FUZZ_GCOLS, FUZZ_AGGS[1:],
+                            [["v_float", "<=", 0.0]])]
+    executor.execute_bundle(tables, members)
+    assert calls == [True]
+    executor.execute_bundle(tables, members)
+    assert calls == [True]
+
+
+def test_mask_columns_counter_on_the_worker(fuzz_shards):
+    """``bqueryd_tpu_mask_columns_total`` on a worker's ``/metrics``: a
+    cold solo query uploads each shard's filter column, a warm solo query
+    and a warm bundle member read it resident, a cold bundle member
+    uploads, and a uint32 column compares on the host every time."""
+    from bqueryd_tpu_torch.worker import WorkerNode
+
+    root, _frames, names = fuzz_shards
+    node = WorkerNode(coordination_url=f"mem://masks-{os.urandom(4).hex()}",
+                      data_dir=str(root), loglevel=QUIET, device="cpu")
+    executor, n = node.executor, len(names)
+    tables = _fuzz_tables(root, names)
+
+    def solo(where):
+        executor.execute(tables, GroupByQuery(FUZZ_GCOLS, FUZZ_AGGS, where))
+
+    def bundle(*wheres):
+        executor.execute_bundle(tables, [
+            GroupByQuery(FUZZ_GCOLS, FUZZ_AGGS[:1], w) for w in wheres])
+
+    def series():
+        out = {}
+        for line in node.metrics.render().splitlines():
+            if line.startswith("bqueryd_tpu_mask_columns_total{"):
+                head, value = line.rsplit(" ", 1)
+                labels = dict(kv.split("=") for kv in head[
+                    head.index("{") + 1:-1].split(","))
+                out[labels["path"].strip('"'),
+                    labels["source"].strip('"')] = float(value)
+        return out
+
+    try:
+        assert set(series().values()) == {0.0}
+        steps = [
+            (lambda: solo([["v_float", ">", 12.5]]), ("solo", "upload")),
+            (lambda: solo([["v_float", "<=", 0.0]]), ("solo", "resident")),
+            (lambda: bundle([["v_float", ">", 1.0]], []),
+             ("bundle", "resident")),
+            (lambda: bundle([["sel", ">", 0.5]]), ("bundle", "upload")),
+            (lambda: bundle([["v_u32", ">", 2**31]]), ("bundle", "upload")),
+            (lambda: solo([["v_u32", "<=", 2**30]]), ("solo", "upload")),
+        ]
+        for run, key in steps:
+            before = series()
+            run()
+            after = series()
+            assert after[key] == before[key] + n, key
+            assert all(after[k] == before[k] for k in after if k != key), key
+    finally:
+        node.socket.close()
 
 
 # -- the worker's bundle verb --------------------------------------------------
