@@ -1,10 +1,11 @@
 """One run of one cell: the deployment, its set-up, the measured window,
 the check of the answers and the result line.
 
-The deployment is the reference's production topology with one worker to
-the card: a controller process and one calc worker process
-(``portbench/node.py``) on the card, coordinated through a ``file://``
-store in the run's directory under ``TMPDIR``.  This process holds the
+The deployment is the reference's production topology: a controller
+process and one calc worker process (``portbench/node.py``), one worker
+over the cell's ``chips`` cards, coordinated through a ``file://`` store
+in the run's directory under ``TMPDIR``.  Each node runs in a process
+group of its own, which the run ends whole.  This process holds the
 traffic's clients, a thread and an ``bqueryd_tpu_torch.rpc.RPC`` each
 (load from one process with few threads keeps the runs steady), asks the
 cold queries, reads the autopsies and holds the reference; it never
@@ -35,6 +36,8 @@ STRAGGLER_S = 60.0
 #: seconds the processes get to come up, and to stop
 START_TIMEOUT_S = 900.0
 STOP_TIMEOUT_S = 30.0
+#: seconds what a node started gets to end on SIGTERM once the node has
+GROUP_GRACE_S = 5.0
 #: seconds between the clients' start and the window's
 GO_LEAD_S = 0.05
 #: routes on which the card computed nothing
@@ -87,6 +90,68 @@ def _wait(predicate, timeout, what, procs=()):
     raise RunError(f"timed out after {timeout:.0f}s waiting for {what}")
 
 
+def spawn(cmd, env, log_path):
+    """A node's process, in a process group of its own (its id is the
+    node's pid), its output to ``log_path``."""
+    with open(log_path, "w") as logf:
+        return subprocess.Popen(cmd, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT, process_group=0,
+                                preexec_fn=_die_with_parent)
+
+
+def group_members(pgid):
+    """The pids of the live (not zombie) processes of group ``pgid``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # after the command's closing parenthesis: state, ppid, pgrp, ...
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] != "Z" and int(fields[2]) == pgid:
+            out.append(int(entry))
+    return out
+
+
+def _end_group(pgid):
+    """SIGTERM what is left of group ``pgid``, and SIGKILL it if it is
+    still there after ``GROUP_GRACE_S``."""
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        try:
+            os.killpg(pgid, sig)
+        except ProcessLookupError:
+            return
+        deadline = time.perf_counter() + GROUP_GRACE_S
+        while group_members(pgid) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if not group_members(pgid):
+            return
+
+
+def reap(procs):
+    """SIGTERM each node (``{name: Popen}`` from :func:`spawn`), wait, kill
+    what is left; then end what each node started and left in its group."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.terminate()
+    for name, proc in procs.items():
+        try:
+            proc.wait(timeout=STOP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            log(f"the {name} did not stop in {STOP_TIMEOUT_S:.0f}s: killed")
+            proc.kill()
+            proc.wait()
+    for name, proc in procs.items():
+        left = group_members(proc.pid)
+        if left:
+            log(f"the {name} left {len(left)} processes: ended")
+            _end_group(proc.pid)
+
+
 def _tail(path, nbytes=3000):
     try:
         with open(path, "rb") as f:
@@ -129,15 +194,11 @@ class Deployment:
             "controller": node + ["controller"] + common,
             "worker": node + ["worker"] + common
             + ["--data_dir", data_dir, "--device", device,
-               "--trace", str(int(trace))],
+               "--cards", str(cell.chips), "--trace", str(int(trace))],
         }
         self.logs = {r: os.path.join(rundir, f"{r}.log") for r in cmds}
-        self.procs = {}
-        for role, cmd in cmds.items():
-            with open(self.logs[role], "w") as logf:
-                self.procs[role] = subprocess.Popen(
-                    cmd, env=self.env, stdout=logf, stderr=subprocess.STDOUT,
-                    preexec_fn=_die_with_parent)
+        self.procs = {role: spawn(cmd, self.env, self.logs[role])
+                      for role, cmd in cmds.items()}
 
     def watched(self, roles=None):
         return [(r, p) for r, p in self.procs.items()
@@ -148,18 +209,9 @@ class Deployment:
                 if k.startswith(("BQUERYD_", "USE_"))}
 
     def stop(self):
-        """SIGTERM both nodes, wait, kill what is left; returns their
+        """Ends both nodes and their groups (:func:`reap`); returns their
         status files."""
-        for proc in self.procs.values():
-            if proc.poll() is None:
-                proc.terminate()
-        for name, proc in self.procs.items():
-            try:
-                proc.wait(timeout=STOP_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                log(f"the {name} did not stop in {STOP_TIMEOUT_S:.0f}s: killed")
-                proc.kill()
-                proc.wait()
+        reap(self.procs)
         status = {}
         for name in self.procs:
             path = os.path.join(self.rundir, f"{name}.status.json")
@@ -172,21 +224,34 @@ class Deployment:
         return {name: _tail(path) for name, path in self.logs.items()}
 
 
-def _nvidia_smi_sampler(rundir):
-    """``nvidia-smi`` sampling clocks and power once a second beside the
-    window, or None where there is no such tool."""
+def smi_cards(chips, environ=os.environ):
+    """The ``nvidia-smi -i`` ids of the worker's cards: the first ``chips``
+    visible ones, as the executor counts them (``CUDA_VISIBLE_DEVICES``'s
+    first entries where it is set, else ``0 .. chips-1``)."""
+    visible = environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is None:
+        return [str(i) for i in range(chips)]
+    return [v.strip() for v in visible.split(",") if v.strip()][:chips]
+
+
+def _nvidia_smi_sampler(rundir, cards):
+    """``nvidia-smi`` sampling the clocks and power of ``cards`` (ids from
+    :func:`smi_cards`) once a second beside the window, or None where there
+    is no such tool."""
     exe = shutil.which("nvidia-smi")
-    if exe is None:
+    if exe is None or not cards:
         return None
     with open(os.path.join(rundir, "smi.csv"), "w") as out:
         return subprocess.Popen(
-            [exe, "--query-gpu=clocks.sm,clocks.mem,power.draw,power.limit,"
-             "temperature.gpu", "--format=csv,noheader,nounits", "-lms",
-             "1000"], stdout=out, stderr=subprocess.DEVNULL,
-            preexec_fn=_die_with_parent)
+            [exe, "--query-gpu=index,clocks.sm,clocks.mem,power.draw,"
+             "power.limit,temperature.gpu", "--format=csv,noheader,nounits",
+             "-i", ",".join(cards), "-lms", "1000"], stdout=out,
+            stderr=subprocess.DEVNULL, preexec_fn=_die_with_parent)
 
 
 def _smi_summary(rundir):
+    """``{column: [min, median, max]}`` over the samples, and over several
+    cards ``{card: {column: [min, median, max]}}``."""
     rows = []
     try:
         with open(os.path.join(rundir, "smi.csv")) as f:
@@ -201,8 +266,16 @@ def _smi_summary(rundir):
         return None
     cols = ("sm_mhz", "mem_mhz", "power_w", "power_limit_w", "temp_c")
     arr = np.array(rows)
-    return {c: [float(arr[:, i].min()), float(np.median(arr[:, i])),
-                float(arr[:, i].max())] for i, c in enumerate(cols)}
+
+    def summary(part):
+        return {c: [float(part[:, i].min()), float(np.median(part[:, i])),
+                    float(part[:, i].max())]
+                for i, c in enumerate(cols, start=1)}
+
+    cards = sorted(set(arr[:, 0]))
+    if len(cards) == 1:
+        return summary(arr)
+    return {f"card {int(c)}": summary(arr[arr[:, 0] == c]) for c in cards}
 
 
 class Ask:
@@ -306,6 +379,10 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=spec.ROOT,
         with open(ready_path) as f:
             worker_ready = json.load(f)
         log(f"worker ready: {json.dumps(worker_ready)}")
+        devices = worker_ready.get("devices") or []
+        if len(devices) != cell.chips:
+            raise RunError(f"the cell asks for {cell.chips} cards; the "
+                           f"worker runs over {len(devices)}: {devices}")
 
         log("node boot, s after the run's start: " + json.dumps(_boot_times(
             rundir, time.time() - (time.perf_counter() - t0))))
@@ -391,10 +468,15 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=spec.ROOT,
                             "count": cell.chips,
                             "memory_peak_bytes": status["worker"].get(
                                 "memory_peak_bytes")}
+        if "memory_peak_bytes_per_card" in status["worker"]:
+            result["device"]["memory_peak_bytes_per_card"] = status[
+                "worker"]["memory_peak_bytes_per_card"]
         if trace and worker_window.get("device"):
             dev = worker_window["device"]
             result["device"].update(busy_s=dev["busy_s"],
                                     window_s=dev["window_s"])
+            if "busy_s_per_card" in dev:
+                result["device"]["busy_s_per_card"] = dev["busy_s_per_card"]
             result["breakdown"] = dev["breakdown"]
         log("set-up parts, s: " + json.dumps(parts_s))
         log(f"setup_s {setup_s:.6f}, window {seconds} s, attempted "
@@ -449,25 +531,27 @@ def _window(cell, traffic, deployment, ask, rundir, seconds, seed):
 
     loop = cell.loop()
     open(os.path.join(rundir, "window.start"), "w").close()
-    smi = _nvidia_smi_sampler(rundir)
-    start = time.perf_counter() + GO_LEAD_S
-    end = start + seconds
-    threads = [threading.Thread(
-        target=loop.run_client,
-        args=(rpcs[c], traffic.stream(c), ask, keeper(c), start, end),
-        name=f"client-{c}", daemon=True) for c in range(traffic.clients)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=max(0.0, end - time.perf_counter()) + STRAGGLER_S)
-    lost = sum(t.is_alive() for t in threads)
-    if lost:
-        log(f"{lost} clients still waiting {STRAGGLER_S:.0f}s after the "
-            "close: their queries count as failed")
-    open(os.path.join(rundir, "window.stop"), "w").close()
-    if smi is not None:
-        smi.terminate()
-        smi.wait()
+    smi = _nvidia_smi_sampler(rundir, smi_cards(cell.chips))
+    try:
+        start = time.perf_counter() + GO_LEAD_S
+        end = start + seconds
+        threads = [threading.Thread(
+            target=loop.run_client,
+            args=(rpcs[c], traffic.stream(c), ask, keeper(c), start, end),
+            name=f"client-{c}", daemon=True) for c in range(traffic.clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=max(0.0, end - time.perf_counter()) + STRAGGLER_S)
+        lost = sum(t.is_alive() for t in threads)
+        if lost:
+            log(f"{lost} clients still waiting {STRAGGLER_S:.0f}s after the "
+                "close: their queries count as failed")
+        open(os.path.join(rundir, "window.stop"), "w").close()
+    finally:
+        if smi is not None:
+            smi.terminate()
+            smi.wait()
     with lock:
         return list(records), sampler, lost, start, end
 
@@ -587,7 +671,8 @@ def _diagnostics(window, autopsies, worker_window, rundir, e2e):
     deltas = {k: after[k] - before.get(k, 0.0) for k in after
               if after[k] != before.get(k, 0.0)
               and ("pipeline_busy" in k or "workingset" in k
-                   or "result_cache" in k or "errors" in k)}
+                   or "result_cache" in k or "errors" in k
+                   or "_merge_" in k)}
     log(f"worker /metrics deltas over the window: {json.dumps(deltas)}")
     smi = _smi_summary(rundir)
     if smi is not None:

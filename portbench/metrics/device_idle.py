@@ -1,7 +1,8 @@
 """``device_idle``: the share of the traced window in which no kernel,
-copy or memset ran on the card (the union of their intervals, from the
-worker's ``torch.profiler`` CUDA trace), in %.  Layer: the device.
-Nothing to read without a device trace."""
+copy or memset ran on a card (the union of its records' intervals, from
+the worker's ``torch.profiler`` CUDA trace), averaged over the cards, in
+%: 1 − the mean busy time ÷ the window.  Layer: the device.  Nothing to
+read without a device trace."""
 
 
 def read(window):

@@ -2,26 +2,30 @@
 
     python3 portbench/node.py controller --coordination URL --rundir DIR
     python3 portbench/node.py worker --coordination URL --rundir DIR \\
-        --data_dir DIR --device cuda [--trace 1]
+        --data_dir DIR --device cuda [--cards N] [--trace 1]
 
-Runs the port's ``ControllerNode`` or ``WorkerNode`` (one card,
-``n_devices=1``) as ``bqueryd_tpu_torch.node`` does, until SIGTERM.  The
-worker's side writes, under ``--rundir``:
+Runs the port's ``ControllerNode`` or ``WorkerNode`` as
+``bqueryd_tpu_torch.node`` does, until SIGTERM: one worker over the
+cell's ``chips`` cards (``--cards``, default 1: ``n_devices``; on the CPU
+as many logical CPU devices).  The worker's side writes, under
+``--rundir``:
 
 * nothing until the harness creates ``data.ready`` (the dataset is
   written): the worker imports the port meanwhile, then starts;
-* ``worker.ready`` once its background warmup has ended (and, with
+* ``worker.ready`` once its background warmup has ended, with the card's
+  name and the executor's devices (``["cuda:0", ...]``) (and, with
   ``--trace 1``, a first start and stop of the profiler, which
   initializes CUPTI);
 * ``window.json`` when the harness closes the window (it creates
   ``window.start`` and ``window.stop``): the seconds between the two, the
   worker's ``/metrics`` series at both and, with ``--trace 1``, the
-  device's busy time and breakdown from ``torch.profiler`` (CUDA activity
+  cards' busy time and breakdown from ``torch.profiler`` (CUDA activity
   only) held over the window, read by :mod:`portbench.devtrace`.
 
 Before it exits each node writes ``<role>.status.json``: the modules of
 JAX or the JAX package found in ``sys.modules`` (compared by whole
-top-level name) and, for the worker, the card's peak of allocated bytes.
+top-level name) and, for the worker, the fullest card's peak of allocated
+bytes (over several cards also each card's, in the executor's order).
 """
 
 import argparse
@@ -75,6 +79,23 @@ def _metric_series(node):
     return out
 
 
+def cards(node):
+    """The executor's cards, each once, in its order."""
+    return list(dict.fromkeys(node.executor.devices))
+
+
+def memory_peaks(node):
+    """``memory_peak_bytes``, the fullest card's peak of allocated bytes,
+    and over several cards ``memory_peak_bytes_per_card``."""
+    import torch
+
+    peaks = [int(torch.cuda.max_memory_allocated(c)) for c in cards(node)]
+    out = {"memory_peak_bytes": max(peaks)}
+    if len(peaks) > 1:
+        out["memory_peak_bytes_per_card"] = peaks
+    return out
+
+
 def watch_window(node, rundir, trace, stop):
     """The worker's side of the window (see the module docstring); a
     failure is written to ``window.json`` for the harness to raise."""
@@ -91,7 +112,8 @@ def _watch_window(node, rundir, trace, stop):
     from portbench import devtrace
 
     node.warmup_done.wait()
-    ready = {"t": time.time()}
+    ready = {"t": time.time(),
+             "devices": [str(d) for d in node.executor.devices]}
     if node.executor.device.type == "cuda":
         import torch
 
@@ -125,7 +147,8 @@ def _watch_window(node, rundir, trace, stop):
     result = {"window_s": window_s, "profiler_start_s": start_s,
               "metrics_before": before, "metrics_after": _metric_series(node)}
     if prof is not None:
-        torch.cuda.synchronize(node.executor.device)
+        for card in cards(node):
+            torch.cuda.synchronize(card)
         prof.stop()
         path = os.path.join(rundir, "device_trace.json")
         prof.export_chrome_trace(path)
@@ -142,6 +165,7 @@ def main(argv=None):
     parser.add_argument("--rundir", required=True)
     parser.add_argument("--data_dir")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--cards", type=int, default=1)
     parser.add_argument("--trace", type=int, default=0, choices=[0, 1])
     args = parser.parse_args(argv)
     import logging
@@ -168,7 +192,8 @@ def main(argv=None):
             time.sleep(POLL_S)
         boot["data_ready"] = time.time()
         node = WorkerNode(data_dir=args.data_dir, device=args.device,
-                          n_devices=1, coordination_url=args.coordination,
+                          n_devices=args.cards,
+                          coordination_url=args.coordination,
                           loglevel=logging.WARNING)
         boot["constructed"] = time.time()
         _write_json(os.path.join(args.rundir, "worker.boot.json"), boot)
@@ -183,10 +208,7 @@ def main(argv=None):
             stop.set()
             watcher.join(timeout=60)
         if node.executor.device.type == "cuda":
-            import torch
-
-            status["memory_peak_bytes"] = int(
-                torch.cuda.max_memory_allocated(node.executor.device))
+            status.update(memory_peaks(node))
     status["forbidden_modules"] = forbidden_modules()
     _write_json(os.path.join(args.rundir, f"{args.role}.status.json"), status)
     sys.stdout.flush()

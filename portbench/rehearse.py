@@ -4,9 +4,11 @@
         [--rows N] [--trace 0|1]
 
 The same run as ``run.py`` (the deployment, the set-up, the window, the
-check), with the worker on ``--device=cpu`` and ``--rows`` rows in the
-configuration's shards.  Its line carries no device block and no device
-metric: a CPU run measures nothing of the card.
+check), with the worker on ``--device=cpu`` (a cell's ``chips`` as as
+many logical CPU devices, so that its merge runs in ``device`` mode over
+them) and ``--rows`` rows in the configuration's shards.  Its line
+carries no device block and no device metric: a CPU run measures
+nothing of the card.
 """
 
 import time

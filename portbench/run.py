@@ -1,4 +1,4 @@
-"""The benchmark's command: one run of one cell on the card.
+"""The benchmark's command: one run of one cell on its ``chips`` cards.
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -8,7 +8,9 @@ JAX or the JAX package is loaded in a node once the window has closed or
 in this process just before the result is printed.  Otherwise the last
 line of standard output is the result: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer ones), ``device``, ``breakdown`` (traced runs)
+``--trace 1`` its per-layer ones), ``device`` (the fullest card's memory
+peak, the mean busy time; over several cards also each card's),
+``breakdown`` (traced runs)
 and ``checks`` (each number compared, with its limit), and the last lines
 of standard error repeat the checks.
 """
@@ -35,12 +37,15 @@ PROBE = ("import torch; print(torch.cuda.device_count() "
 PROBE_TIMEOUT_S = 300.0
 
 
-def _start_smi():
-    """``nvidia-smi``'s name and power limit of the cards, or None where
-    there is no such tool."""
+def _start_smi(cards):
+    """``nvidia-smi``'s name and power limit of ``cards`` (the worker's,
+    ``harness.smi_cards``), or None where there is no such tool."""
+    if not cards:
+        return None
     try:
         return subprocess.Popen(["nvidia-smi", "--query-gpu=name,power.limit",
-                                 "--format=csv,noheader"],
+                                 "--format=csv,noheader", "-i",
+                                 ",".join(cards)],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.DEVNULL, text=True)
     except OSError:
@@ -80,7 +85,7 @@ def main(argv=None):
     # dataset's write; this process never imports torch
     probe = subprocess.Popen([sys.executable, "-c", PROBE],
                              stdout=subprocess.PIPE, text=True)
-    smi = _start_smi()
+    smi = _start_smi(harness.smi_cards(cell.chips))
 
     def check_device():
         count = int((probe.communicate(timeout=PROBE_TIMEOUT_S)[0].split()

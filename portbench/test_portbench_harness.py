@@ -63,8 +63,9 @@ def read(window):
 '''
 
 
-def test_a_cell_added_as_files_alone_runs(checkout, tmpdir_env):
-    root, bench = checkout
+def _add_mini_cell(root, bench, chips=1):
+    """A mini configuration, mix and reader, added as files alone: the
+    cell ``mini.c2`` on ``chips`` cards."""
     cfg = {"name": "mini", "rows": 40_000, "shards": 2, "table_prefix": "mini",
            "columns": [
                {"name": "k", "kind": "int", "dtype": "int64", "low": 0,
@@ -87,17 +88,123 @@ def test_a_cell_added_as_files_alone_runs(checkout, tmpdir_env):
                              "file": "portbench/configs/mini.json",
                              "reduced": [], "why": "a test"})
     bench["workloads"].append({"name": "mini.c2", "config": "mini",
-                               "traffic": "mini-c2", "chips": 1,
+                               "traffic": "mini-c2", "chips": chips,
                                "why": "a test"})
     bench["per_layer"].append({"name": "queries_seen", "unit": "queries",
                                "better": "higher",
                                "source": "program_counter", "layer": "client",
                                "moves": "qps", "workloads": ["mini.c2"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def test_a_cell_added_as_files_alone_runs(checkout, tmpdir_env):
+    root, bench = checkout
+    _add_mini_cell(root, bench)
     result = rehearse.rehearse("mini.c2", 5, 1.0, None, trace=True,
                                root=str(root))
     assert result["correct"]
     assert result["metrics"]["queries_seen"]["value"] == result["attempted"]
+
+
+def _logged(err, prefix):
+    """The JSON that the harness logged after ``prefix``."""
+    lines = [line for line in err.splitlines()
+             if line.startswith(f"[portbench] {prefix}")]
+    assert lines, prefix
+    return json.loads(lines[-1][len(f"[portbench] {prefix}"):])
+
+
+def test_a_four_card_cell_runs_one_worker_over_four_devices(
+        checkout, tmpdir_env, capsys):
+    root, bench = checkout
+    _add_mini_cell(root, bench, chips=4)
+    result = rehearse.rehearse("mini.c2", 2**31 + 41, 1.0, None, trace=True,
+                               root=str(root))
+    err = capsys.readouterr().err
+    assert result["correct"], result["checks"]
+    assert result["failed"] == 0 and result["attempted"] > 0
+    assert _logged(err, "worker ready: ")["devices"] == ["cpu"] * 4
+    # the window's merge counters (metrics_before -> metrics_after)
+    deltas = _logged(err, "worker /metrics deltas over the window: ")
+    assert deltas['bqueryd_tpu_merge_queries{mode="device"}'] > 0
+    assert deltas["bqueryd_tpu_merge_d2h_bytes_saved"] > 0
+    assert 'bqueryd_tpu_merge_queries{mode="host"}' not in deltas
+
+
+def test_a_worker_over_other_devices_than_the_cell_asks_ends_the_run(
+        checkout, tmpdir_env, monkeypatch):
+    root, bench = checkout
+    _add_mini_cell(root, bench, chips=4)
+    spawn = harness.spawn
+
+    def two_cards(cmd, env, log_path):
+        if "--cards" in cmd:
+            cmd = list(cmd)
+            cmd[cmd.index("--cards") + 1] = "2"
+        return spawn(cmd, env, log_path)
+
+    monkeypatch.setattr(harness, "spawn", two_cards)
+    with pytest.raises(harness.RunError, match=r"asks for 4 cards; the "
+                       r"worker runs over 2"):
+        rehearse.rehearse("mini.c2", 2**31 + 43, 1.0, None, root=str(root))
+    assert os.listdir(tmpdir_env) == ["checkout"]  # the run's dir is gone
+
+
+FORKING_NODE = """
+import os, signal, sys, time
+child = os.fork()
+if child == 0:
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)  # outlives a SIGTERM
+    time.sleep(600)
+    os._exit(0)
+with open(sys.argv[1], "w") as f:
+    f.write(str(child))
+time.sleep(600)
+"""
+
+
+def test_the_deployment_reaps_what_its_nodes_start(tmp_path, monkeypatch):
+    monkeypatch.setattr(harness, "GROUP_GRACE_S", 1.0)
+    pid_file = tmp_path / "child.pid"
+    proc = harness.spawn([sys.executable, "-c", FORKING_NODE, str(pid_file)],
+                         dict(os.environ), str(tmp_path / "node.log"))
+    try:
+        harness._wait(pid_file.exists, 60, "the node's child")
+        harness._wait(pid_file.read_text, 60, "the child's pid")
+        child = int(pid_file.read_text())
+        assert os.getpgid(proc.pid) == proc.pid != os.getpgid(0)
+        assert sorted(harness.group_members(proc.pid)) == sorted(
+            [proc.pid, child])
+        harness.reap({"node": proc})
+        assert proc.returncode is not None
+        assert harness.group_members(proc.pid) == []
+    finally:
+        if harness.group_members(proc.pid):
+            os.killpg(proc.pid, 9)
+
+
+def test_only_the_workers_cards_are_sampled(tmp_path):
+    assert harness.smi_cards(1, {}) == ["0"]
+    assert harness.smi_cards(4, {}) == ["0", "1", "2", "3"]
+    visible = {"CUDA_VISIBLE_DEVICES": "3, 5,GPU-ab12,7"}
+    assert harness.smi_cards(1, visible) == ["3"]
+    assert harness.smi_cards(3, visible) == ["3", "5", "GPU-ab12"]
+    assert harness.smi_cards(1, {"CUDA_VISIBLE_DEVICES": ""}) == []
+    assert harness._nvidia_smi_sampler(str(tmp_path), []) is None
+    rows = ["0, 1980, 2619, 110.5, 700.00, 40", "0, 1755, 2619, 300.0, 700.00,"
+            " 44", "0, 1800, 2619, 200.0, 700.00, 42"]
+    (tmp_path / "smi.csv").write_text("\n".join(rows) + "\n")
+    one = harness._smi_summary(str(tmp_path))
+    assert list(one) == ["sm_mhz", "mem_mhz", "power_w", "power_limit_w",
+                         "temp_c"]
+    assert one["sm_mhz"] == [1755.0, 1800.0, 1980.0]
+    rows += ["2, 1500, 2619, 90.0, 500.00, 30"]
+    (tmp_path / "smi.csv").write_text("\n".join(rows) + "\n")
+    two = harness._smi_summary(str(tmp_path))
+    assert two == {"card 0": one, "card 2": {
+        "sm_mhz": [1500.0] * 3, "mem_mhz": [2619.0] * 3,
+        "power_w": [90.0] * 3, "power_limit_w": [500.0] * 3,
+        "temp_c": [30.0] * 3}}
 
 
 JAX_READER = '''"""``loads_jax``: a reader that imports a module named ``jax``."""
